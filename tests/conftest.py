@@ -48,3 +48,9 @@ def sim_trace_factory(paper_cluster):
         return trace, state
 
     return run
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA device (the PyTorch port's kernels); "
+        "skips without one")
