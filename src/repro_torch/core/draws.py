@@ -13,10 +13,17 @@ draws can be made up front as `(T, ...)` tensors and the tick reads row
     zipf_u        (T, 64) float32 uniforms for the Zipfian key CDF
     vals          (T, 64) int32   write values in [0, 2^20)
     timeouts      (T, N) int32    election timeouts in [min, max]
+    dobs_fail_u   (T, O) float32  the digest-tier slots' i.i.d.-failure
+                                  uniforms (DESIGN.md §13; O may be 0)
 
 A draw source has two calls, made in the order the JAX simulator
 consumes its key: `epoch(T, state, cfg_c)` for a T-tick epoch and
-`tick(state, cfg_c)` for one service step (a bundle with T = 1).
+`tick(state, cfg_c)` for one service step (a bundle with T = 1).  Both
+take one member's unbatched state and `cfg_c`.  The tick reads a bundle
+with a member axis after T: `fleet_epoch` stacks the bundles of one
+source per member into `(T, B, ...)`, so each member follows the key
+schedule a solo simulator with its seed would follow, and `row(bundle,
+t)` gives tick t's `(B, ...)` draws.
 `TorchDraws` makes bundles with a seeded `torch.Generator` on the
 state's device; the tests pass a source that replays the JAX key
 schedule instead.  The price path is chained from the state's current
@@ -24,7 +31,7 @@ price through `market.synthetic.epoch_walk_prices`.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Sequence
 
 import torch
 
@@ -37,6 +44,17 @@ VAL_RANGE = 2 ** 20
 def row(bundle: Dict[str, torch.Tensor], t: int) -> Dict[str, torch.Tensor]:
     """The draws of tick `t` of a bundle (views, no copies)."""
     return {k: v[t] for k, v in bundle.items()}
+
+
+def fleet_epoch(sources: Sequence, T: int, state: Dict,
+                cfg_c: Dict) -> Dict[str, torch.Tensor]:
+    """One epoch's `(T, B, ...)` bundle for a batched state: member i's
+    draws come from `sources[i]`, given member i's state and `cfg_c`."""
+    from repro_torch.core.state import member
+    bundles = [src.epoch(T, member(state, i), member(cfg_c, i))
+               for i, src in enumerate(sources)]
+    return {k: torch.stack([b[k] for b in bundles], dim=1)
+            for k in bundles[0]}
 
 
 class TorchDraws:
@@ -55,6 +73,7 @@ class TorchDraws:
         N = state["role"].shape[0]
         K = state["kv"].shape[1]
         S = state["spot_price"].shape[0]
+        O = state["dobs_alive"].shape[0]
         normals = torch.randn((T, S), generator=self.gen,
                               device=self.device)
         price = epoch_walk_prices(state["spot_price"],
@@ -86,6 +105,7 @@ class TorchDraws:
                                   generator=self.gen, device=self.device,
                                   dtype=torch.int32),
             "timeouts": timeouts.to(torch.int32),
+            "dobs_fail_u": self._rand(T, O),
         }
 
     def tick(self, state, cfg_c) -> Dict[str, torch.Tensor]:

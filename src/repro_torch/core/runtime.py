@@ -11,12 +11,13 @@ only the few-KB digest crosses to the host, once per epoch.
 
 The epoch's randomness is one draw bundle made before its first tick
 (`core/draws.py`); the tick loop never reads a tensor on the host, so it
-can later be captured as a CUDA graph.
+can later be captured as a CUDA graph.  `device_epoch` runs on trees
+with a leading member axis B: `BWRaftSim` runs it at B = 1 and
+`core/fleet.FleetSim` at the fleet's B, through the same tick.
 
-Not ported yet (ROADMAP.md): the digest-tier observers
-(`n_observers > 0`), the constructor objects `trace=`, `arrivals=`,
-`keypop=`, `faults=`, `bid_policy=`, `predictor=` (their `cfg_c` arrays
-are consumed by the tick already), `FleetSim`, `MultiRaftSim`.
+Not ported yet (ROADMAP.md, item 8): the constructor objects `trace=`,
+`arrivals=`, `keypop=`, `faults=`, `bid_policy=`, `predictor=` (their
+`cfg_c` arrays are consumed by the tick already).
 """
 from __future__ import annotations
 
@@ -49,15 +50,21 @@ def make_cfg_arrays(cfg: ClusterConfig, device, *, write_rate: float,
                     cross_shard_frac: float = 0.0, two_pc_ticks: int = 0,
                     warning_ticks: int = 0, spot_bid=None,
                     bid_on_trace: bool = False,
+                    n_observers: int = 0, pad_observers: int = 0,
                     staleness_bound: int = 16, ae_interval: int = 4,
-                    trace_on: bool = False,
+                    ae_phase=None, trace_on: bool = False,
                     trace_mask=None) -> Dict[str, torch.Tensor]:
     """The per-epoch knobs as tensors on `device`, equal leaf for leaf to
     `repro.core.runtime.make_cfg_arrays` for a closed-loop,
     process-market cluster without a fault schedule.  The trace-market,
     open-loop, Zipf-key and fault leaves are present at their inert
     shapes; the tick consumes them as data, so a `cfg_c` built by the
-    JAX package (through `state.from_numpy`) runs those branches too."""
+    JAX package (through `state.from_numpy`) runs those branches too.
+
+    The digest tier (DESIGN.md §13): `staleness_bound` is the read
+    freshness contract in ticks, `ae_interval` the anti-entropy period,
+    and `ae_phase` the (O,) per-slot phase, O = n_observers +
+    pad_observers; by default slot o syncs at phase o."""
     if not 0.0 <= cross_shard_frac <= 1.0:
         raise ValueError(f"cross_shard_frac={cross_shard_frac}")
     if not 0 <= two_pc_ticks <= HIST_TAIL:
@@ -67,6 +74,13 @@ def make_cfg_arrays(cfg: ClusterConfig, device, *, write_rate: float,
         raise ValueError(f"staleness_bound={staleness_bound}")
     if ae_interval < 1:
         raise ValueError(f"ae_interval={ae_interval}")
+    O = n_observers + pad_observers
+    if ae_phase is None:
+        phase = np.arange(O, dtype=np.int32)
+    else:
+        phase = np.asarray(ae_phase, np.int32).reshape(-1)
+        if phase.size != O:
+            raise ValueError(f"ae_phase has {phase.size} slots, not {O}")
     S = cfg.num_sites + pad_sites
     N = cfg.max_nodes + pad_nodes
     if spot_bid is None:
@@ -126,7 +140,7 @@ def make_cfg_arrays(cfg: ClusterConfig, device, *, write_rate: float,
         "two_pc_ticks": i32(two_pc_ticks),
         "staleness_bound": i32(staleness_bound),
         "ae_interval": i32(ae_interval),
-        "ae_phase": np.zeros((0,), i32),
+        "ae_phase": phase,
         "trace_on": np.asarray(bool(trace_on)),
         "trace_mask": mask,
     }
@@ -191,21 +205,24 @@ def _digest_acc_update(acc: Dict, m: Dict) -> Dict:
 
 def _finalize_digest(state: Dict, acc: Dict, cost_before, T: int,
                      cfg_c: Dict) -> Dict:
-    """The epoch digest from the final (pre-compaction) state: counters,
-    the exact unit-bin write-latency histogram, the 2PC census, the (N,)
-    role/alive vectors and the (S,) prices (DESIGN.md §7.1)."""
+    """The epoch digest of every member from the final (pre-compaction)
+    state: counters, the exact unit-bin write-latency histogram, the 2PC
+    census, the (N,) role/alive rows and the (S,) prices (DESIGN.md
+    §7.1), each leaf with the leading member axis."""
     sub, com = state["entry_submit_t"], state["entry_commit_t"]
+    B, L = sub.shape
     done = (sub >= 0) & (com >= 0)
     H = T + 1 + HIST_TAIL
     lat = (com - sub).clamp(0, H - 1)
     hist = step_mod._scatter_add_drop(
-        torch.zeros((H,), dtype=torch.int32, device=sub.device),
+        torch.zeros((B, H), dtype=torch.int32, device=sub.device),
         torch.where(done, lat, H), torch.ones_like(lat))
     marked = step_mod.cross_shard_mark(
-        torch.arange(sub.shape[0], device=sub.device), cfg_c["cross_frac"])
+        torch.arange(L, device=sub.device)[None, :],
+        cfg_c["cross_frac"][:, None])
     prepared = marked & (sub >= 0)
     alive = state["alive"]
-    cnt = lambda m: m.sum(dtype=torch.int32)
+    cnt = lambda m: m.sum(-1, dtype=torch.int32)
     warned = alive & (state["warn_timer"] >= 0)
     return {
         "cross_arrived": state["cross_arrived"],
@@ -241,8 +258,10 @@ def _finalize_digest(state: Dict, acc: Dict, cost_before, T: int,
 
 def device_epoch(state: Dict, static, cfg_c: Dict, bundle: Dict,
                  T: int) -> Tuple[Dict, Dict]:
-    """One device-resident epoch: T ticks with the metric reduction
-    folded in as they run, the digest, then the log compaction.  Returns
+    """One device-resident epoch of every member: T ticks with the
+    metric reduction folded in as they run, the digest, then the log
+    compaction.  `state`, `cfg_c` and the `(T, B, ...)` bundle carry the
+    member axis B; `static` is `state.stack_static(...)`.  Returns
     `(compacted_state, digest)`, both on the state's device."""
     cost_before = state["cost_accrued"]
     lid0 = state_mod.leader_id(state)
@@ -337,7 +356,12 @@ _COMPACT_NEG = ("dobs_warn", "app_arrive_t", "ack_arrive_t",
 def compact_state(state: Dict) -> Dict:
     """Epoch-boundary log compaction (the state machines keep the data);
     the per-epoch counters and the metrics registry reset, the trace
-    ring and its cursor do not (DESIGN.md §14)."""
+    ring and its cursor do not (DESIGN.md §14).  Shape-generic, so it
+    serves a batched fleet state as well.  The digest tier resets with
+    the log window it fingerprints: every enabled slot comes back alive
+    and unwarned with its applied triple cleared, and keeps its last
+    sync tick, so a revived slot reroutes until its first round lands
+    (DESIGN.md §13)."""
     out = dict(state, dobs_alive=state["dobs_enabled"].clone())
     for k in _COMPACT_ZERO:
         out[k] = torch.zeros_like(state[k])
@@ -466,6 +490,15 @@ def _host(tree: Dict) -> Dict:
     return {k: v.cpu().numpy() for k, v in tree.items()}
 
 
+def run_tick(sim, draws: Dict) -> None:
+    """Advance a solo sim by one tick given a one-cluster draw row: the
+    batched tick at B = 1."""
+    st, _ = step_mod.tick(state_mod.batch1(sim.state), sim.static_t,
+                          state_mod.batch1(sim.cfg_c),
+                          state_mod.batch1(draws))
+    sim.state = state_mod.member(st, 0)
+
+
 class BWRaftSim:
     """In-process BW-Raft cluster simulation on PyTorch.
 
@@ -473,7 +506,12 @@ class BWRaftSim:
     card and no device is given).  `draws` is the epoch draw source
     (`core/draws.py`); by default a `TorchDraws` seeded with `seed`.
     The control plane's numpy generator is seeded `seed + 1`, as in the
-    JAX package, so under the same draws both lease the same slots."""
+    JAX package, so under the same draws both lease the same slots.
+    `n_observers > 0` attaches a digest-tier observer rack (DESIGN.md
+    §13), `pad_observers` inert padded slots.
+
+    `state` and `cfg_c` are this cluster's unbatched trees; the epoch
+    runs the batched tick on them at B = 1 (views, no copies)."""
 
     def __init__(self, cfg: ClusterConfig, *, mode: str = "bwraft",
                  write_rate: float = 8.0, read_rate: float = 32.0,
@@ -486,20 +524,21 @@ class BWRaftSim:
                  cross_shard_frac: float = 0.0, two_pc_ticks: int = 0,
                  warning_ticks: int = 0, spot_bid=None,
                  bid_on_trace: bool = False, n_observers: int = 0,
+                 pad_observers: int = 0, staleness_bound: int = 16,
+                 ae_interval: int = 4, ae_phase=None,
                  trace_on: bool = False, trace_mask=None,
                  trace_capacity: int = trace_ring.DEFAULT_CAPACITY,
                  device=None, draws=None):
         if mode not in ("bwraft", "raft"):
             raise ValueError(f"mode={mode!r}")
-        if n_observers:
-            raise NotImplementedError(step_mod.DIGEST_TIER_TODO)
         self.device = resolve_device(device)
         self.cfg = cfg
         self.mode = mode
         self.static = state_mod.build_static(
             cfg, pad_nodes=pad_nodes, pad_sites=pad_sites,
+            n_obs_digest=n_observers, pad_obs=pad_observers,
             trace_capacity=trace_capacity)
-        self.static_t = state_mod.from_numpy(self.static, self.device)
+        self.static_t = state_mod.stack_static([self.static], self.device)
         self.state = state_mod.init_state(cfg, self.static, self.device,
                                           pad_log=pad_log, pad_keys=pad_keys)
         self.cfg_c = make_cfg_arrays(
@@ -508,7 +547,9 @@ class BWRaftSim:
             pad_keys=pad_keys, spot_price_vol=spot_price_vol,
             cross_shard_frac=cross_shard_frac, two_pc_ticks=two_pc_ticks,
             warning_ticks=warning_ticks, spot_bid=spot_bid,
-            bid_on_trace=bid_on_trace, trace_on=trace_on,
+            bid_on_trace=bid_on_trace, n_observers=n_observers,
+            pad_observers=pad_observers, staleness_bound=staleness_bound,
+            ae_interval=ae_interval, ae_phase=ae_phase, trace_on=trace_on,
             trace_mask=trace_mask)
         self._trace_on = bool(trace_on)
         self.draws = draws if draws is not None else \
@@ -574,9 +615,12 @@ class BWRaftSim:
         of the digest, then the control plane."""
         T = self.cfg.period_ticks
         bundle = self.draws.epoch(T, self.state, self.cfg_c)
-        self.state, digest = device_epoch(self.state, self.static_t,
-                                          self.cfg_c, bundle, T)
-        dg = _host(digest)
+        state, digest = device_epoch(
+            state_mod.batch1(self.state), self.static_t,
+            state_mod.batch1(self.cfg_c),
+            {k: v.unsqueeze(1) for k, v in bundle.items()}, T)
+        self.state = state_mod.member(state, 0)
+        dg = {k: v[0] for k, v in _host(digest).items()}
         self.last_digest = dg
         if self._trace_on:
             self.drain_trace()

@@ -11,6 +11,13 @@ patterns, since int32 wraparound multiply-XOR gives the same bits.
 `build_static` returns numpy tables (the host control plane reads them);
 `from_numpy` moves any such tree — static, `cfg_c` or state — onto a
 device, and `to_numpy` brings a tree back in the JAX package's dtypes.
+
+The tick runs on trees with a leading member axis B (the JAX fleet's
+`vmap` axis written out; one cluster is B = 1): `stack` and `member`
+turn member trees into a batched tree and back, `batch1` views one
+cluster's tree as B = 1, and `stack_static` splits the members' statics
+the way the JAX fleet does (DESIGN.md §7) — shared python ints, and
+(B, ...) tensors for the per-member tables.
 """
 from __future__ import annotations
 
@@ -244,12 +251,68 @@ def _digest_tier_init(cfg: ClusterConfig, static, device
 
 
 def leader_id(state, static=None) -> torch.Tensor:
-    """Current leader id or -1, as a 0-d int32 tensor (max over the
-    alive-leader mask; at most one by safety)."""
+    """Current leader id or -1 (max over the alive-leader mask; at most
+    one by safety): a (B,) int32 tensor for a batched state, 0-d for one
+    cluster's unbatched state."""
     role = state["role"]
     is_leader = (role == LEADER) & state["alive"]
-    ids = torch.arange(role.shape[0], dtype=torch.int32, device=role.device)
-    return torch.where(is_leader, ids, -1).max()
+    ids = torch.arange(role.shape[-1], dtype=torch.int32,
+                       device=role.device)
+    return torch.where(is_leader, ids, -1).max(dim=-1).values
+
+
+# static scalars every member of a fleet must agree on, and the
+# per-member static tables that stack along the member axis — the split
+# of the JAX fleet (`repro.core.fleet`, DESIGN.md §7, §13)
+SHARED_STATIC_KEYS = ("work_capacity", "msg_budget", "entries_per_msg",
+                      "max_ship", "max_apply")
+BATCHED_STATIC_KEYS = ("site", "is_voter", "rtt", "majority", "site_rtt",
+                       "dobs_site")
+
+
+def stack_static(statics, device) -> Dict:
+    """The tick's static tree for members whose `build_static` tables
+    are `statics` (numpy, equal padded shapes): the shared python ints,
+    checked equal across members, and the per-member tables stacked to
+    (B, ...) tensors on `device` (`majority` as a (B,) int32 vector)."""
+    statics = list(statics)
+    out = {}
+    for k in SHARED_STATIC_KEYS:
+        vals = {int(st[k]) for st in statics}
+        if len(vals) != 1:
+            raise ValueError(f"members disagree on static {k}: {vals}")
+        out[k] = vals.pop()
+    for k in BATCHED_STATIC_KEYS:
+        arr = np.stack([np.asarray(st[k]) for st in statics])
+        if k == "majority":
+            arr = arr.astype(np.int32)
+        out[k] = torch.from_numpy(np.ascontiguousarray(arr)).to(device)
+    return out
+
+
+def stack(trees) -> Dict:
+    """Member trees (state, `cfg_c` or draw bundles) stacked along a new
+    leading member axis; python scalars must agree and pass through."""
+    trees = list(trees)
+    out = {}
+    for k, v in trees[0].items():
+        if isinstance(v, torch.Tensor):
+            out[k] = torch.stack([t[k] for t in trees])
+        else:
+            out[k] = v
+    return out
+
+
+def member(tree: Dict, i: int) -> Dict:
+    """Member `i` of a batched tree, as views."""
+    return {k: (v[i] if isinstance(v, torch.Tensor) else v)
+            for k, v in tree.items()}
+
+
+def batch1(tree: Dict) -> Dict:
+    """One cluster's tree as a batched tree with B = 1, as views."""
+    return {k: (v.unsqueeze(0) if isinstance(v, torch.Tensor) else v)
+            for k, v in tree.items()}
 
 
 def from_numpy(tree: Dict, device) -> Dict:

@@ -15,20 +15,24 @@ from typing import Dict, Sequence
 import torch
 
 OPS = ("log_match_append", "commit_majority", "apply_last_wins",
-       "leader_fanout")
+       "leader_fanout", "ae_sync", "group_reduce")
 
 
 def _ops():
+    from repro_torch.kernels.ae_sync import ops as ae
+    from repro_torch.kernels.group_digest import ops as gd
     from repro_torch.kernels.leader_fanout import ops as lf
     from repro_torch.kernels.raft_tick import ops as rt
     return {"log_match_append": rt.log_match_append,
             "commit_majority": rt.commit_majority,
             "apply_last_wins": rt.apply_last_wins,
-            "leader_fanout": lf.leader_fanout}
+            "leader_fanout": lf.leader_fanout,
+            "ae_sync": ae.ae_sync,
+            "group_reduce": gd.group_reduce}
 
 
 def launch_counts() -> Dict[str, int]:
-    """{op name: CUDA launches so far} for the four ported kernels."""
+    """{op name: CUDA launches so far} for the ported kernels."""
     return {name: fn.launches for name, fn in _ops().items()}
 
 

@@ -20,7 +20,7 @@ from typing import Dict, Iterable
 PKG_DIR = Path(__file__).resolve().parent
 CSRC = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-SOURCES = ("raft_tick", "leader_fanout")
+SOURCES = ("raft_tick", "leader_fanout", "ae_sync", "group_digest")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -5,7 +5,9 @@
 //   commit_majority_kernel   -> commit_kernel   (majority commit length)
 //   apply_last_wins_kernel   -> apply_kernel    (last-wins KV apply)
 //
-// Every array carries a leading batch axis B (B = 1 for one cluster).
+// Every array carries a leading batch axis B: one launch serves every
+// member of a fleet (B = 1 for one cluster), as the Pallas kernels did
+// under vmap.
 // bool arrays arrive as one byte per element.  Each C entry point
 // launches on the caller's stream, allocates nothing, and returns
 // cudaGetLastError() so the Python wrapper can raise on a refused launch.
@@ -76,7 +78,8 @@ __global__ void lma_kernel(int32_t* __restrict__ term,
 }
 
 // ---------------------------------------------------------------------
-// 2. commit_majority: one block per batch.  count(vmatch >= l) is
+// 2. commit_majority: one block per batch member, each with its own
+// majority (fleets mix cluster sizes).  count(vmatch >= l) is
 // non-increasing in l, so count >= majority exactly for l <= kth, the
 // majority-th largest voter match (non-voters count -1).  A counting pass
 // finds kth without a sort (N <= 1024); a block max-reduce then takes the
@@ -87,9 +90,11 @@ __global__ void commit_kernel(const int32_t* __restrict__ match,
                               const uint8_t* __restrict__ voter_alive,
                               const int32_t* __restrict__ lterm,
                               const int32_t* __restrict__ cur_term,
+                              const int32_t* __restrict__ majority_b,
                               int32_t* __restrict__ out,
-                              int N, int L, int majority) {
+                              int N, int L) {
   const int b = blockIdx.x;
+  const int majority = majority_b[b];
   __shared__ int s_v[1024];
   __shared__ int s_kth;
   __shared__ int s_best;
@@ -164,12 +169,12 @@ int raft_log_match_append(void* term, void* key, void* val, void* lterm,
 }
 
 int raft_commit_majority(void* match, void* voter_alive, void* lterm,
-                         void* cur_term, void* out, int B, int N, int L,
-                         int majority, void* stream) {
+                         void* cur_term, void* majority, void* out, int B,
+                         int N, int L, void* stream) {
   commit_kernel<<<B, 256, 0, (cudaStream_t)stream>>>(
       (const int32_t*)match, (const uint8_t*)voter_alive,
-      (const int32_t*)lterm, (const int32_t*)cur_term, (int32_t*)out, N, L,
-      majority);
+      (const int32_t*)lterm, (const int32_t*)cur_term,
+      (const int32_t*)majority, (int32_t*)out, N, L);
   return (int)cudaGetLastError();
 }
 

@@ -44,16 +44,16 @@ def log_match_append(term, key, val, lterm, lkey, lval, log_len, frm, upto,
              B, N, L, w, _stream(term)), "log_match_append")
 
 
-def commit_majority(match, voter_alive, lterm, cur_term, out, *,
-                    majority: int) -> None:
-    """match/voter_alive (B, N); lterm (B, L); cur_term (B,) int32; the
-    commit lengths land in out (B,) int32."""
+def commit_majority(match, voter_alive, lterm, cur_term, majority,
+                    out) -> None:
+    """match/voter_alive (B, N); lterm (B, L); cur_term and majority
+    (B,) int32; the commit lengths land in out (B,) int32."""
     B, N = match.shape
     L = lterm.shape[1]
-    f = _fn("raft_commit_majority", 5, 4)
+    f = _fn("raft_commit_majority", 6, 3)
     _check(f(*(t.data_ptr() for t in (match, voter_alive, lterm, cur_term,
-                                      out)),
-             B, N, L, majority, _stream(match)), "commit_majority")
+                                      majority, out)),
+             B, N, L, _stream(match)), "commit_majority")
 
 
 def apply_last_wins(kv, keys, vals, valid) -> None:

@@ -4,6 +4,7 @@
 Listing 1's client surface:
     revision_id <- put(key, value)
     (value, revision_id) <- get(key)
+    (value, revision_id) <- get_stale(key)     # the digest tier
 
 String keys hash into the bounded integer key space.  `put` appends at
 the leader and returns once the entry commits; `get` runs an explicit
@@ -13,7 +14,7 @@ until its apply index reaches the fence, then read.  The service steps
 the cluster one tick at a time, each tick with a one-tick draw bundle
 from the simulator's draw source, and reads the state on the host
 between ticks — it is the interactive client, not the throughput path.
-The bounded-staleness `get_stale` of the digest tier is not ported yet.
+`get_stale` is the digest tier's bounded-staleness read (DESIGN.md §13).
 """
 from __future__ import annotations
 
@@ -25,9 +26,8 @@ import numpy as np
 import torch
 
 from repro_torch.core import state as SM
-from repro_torch.core import step as step_mod
 from repro_torch.core.draws import row
-from repro_torch.core.runtime import BWRaftSim
+from repro_torch.core.runtime import BWRaftSim, run_tick
 
 
 class NotLeader(Exception):
@@ -71,9 +71,7 @@ class BWKVService:
     def _step(self, n: int = 1) -> None:
         sim = self.sim
         for _ in range(n):
-            bundle = sim.draws.tick(sim.state, sim.cfg_c)
-            sim.state, _ = step_mod.tick(sim.state, sim.static_t, sim.cfg_c,
-                                         row(bundle, 0))
+            run_tick(sim, row(sim.draws.tick(sim.state, sim.cfg_c), 0))
 
     def put(self, key: str, value: int) -> PutResult:
         """Submit a write through the leader; block until committed."""
@@ -178,3 +176,44 @@ class BWKVService:
             "fence": readindex, "node": node})
         self._record_read(now - t0)
         return value, readindex
+
+    def get_stale(self, key: str) -> Tuple[int, int]:
+        """Bounded-staleness read through the digest tier (DESIGN.md
+        §13): no read-index fence.  A live digest observer serves when it
+        is within the staleness bound (`tick - dobs_synced_t <=
+        staleness_bound`) and not behind this session's floor
+        (`dobs_applied >= session_floor`); the freshest such observer
+        serves.  It holds no log, so the value is the last-wins replay of
+        its source's applied prefix `log[:dobs_applied]`, the state its
+        digest certifies.  Returns `(value, revision)` with `revision =
+        dobs_applied` (value -1 for a key never written) and raises the
+        session floor to it.  With no qualifying observer (tier off, all
+        stale, or all behind the floor) the read reroutes to the fenced
+        `get`."""
+        if int(self.sim.static.get("O", 0)) == 0:
+            return self.get(key)
+        st = self.sim.state
+        kid = self._key_id(key)
+        t0 = self._tick_now()
+        alive = st["dobs_alive"].cpu().numpy()
+        applied = st["dobs_applied"].cpu().numpy()
+        synced = st["dobs_synced_t"].cpu().numpy()
+        bound = int(self.sim.cfg_c["staleness_bound"])
+        ok = alive & (t0 - synced <= bound) & (applied >= self.session_floor)
+        cand = np.where(ok)[0]
+        if not cand.size:
+            return self.get(key)
+        o = int(cand[np.argmax(applied[cand])])
+        revision = int(applied[o])
+        fol = int(st["dobs_fol"][o])
+        keys = st["log_key"][fol][:revision].cpu().numpy()
+        vals = st["log_val"][fol][:revision].cpu().numpy()
+        hits = np.where(keys == kid)[0]
+        value = int(vals[hits[-1]]) if hits.size else -1
+        self.session_floor = max(self.session_floor, revision)
+        now = self._tick_now()
+        self.annotations.append({
+            "name": f"read.stale {key}", "start_tick": t0, "end_tick": now,
+            "revision": revision, "observer": o})
+        self._record_read(now - t0)
+        return value, revision

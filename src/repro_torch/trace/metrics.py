@@ -2,7 +2,7 @@
 of `repro.trace.metrics`.
 
 Named counters accumulated in the `(NCOUNTER,)` int32 `metrics_ctr`
-state leaf, reduced through the epoch digest and surfaced as
+state leaf (`(B, NCOUNTER)` in the tick's batched state), reduced through the epoch digest and surfaced as
 `EpochReport.metrics`.  Counters are always on (not gated by
 `trace_on`) and reset at compaction.
 """
@@ -33,16 +33,17 @@ INDEX = {name: i for i, name in enumerate(COUNTERS)}
 
 
 def add_at(vec: torch.Tensor, i: int, amount: torch.Tensor) -> torch.Tensor:
-    """`vec` with the 0-d tensor `amount` added at the static position
-    `i`, as a new tensor; nothing is read on or copied from the host."""
+    """`vec` (B, C) with the per-member (B,) `amount` added at the
+    static column `i`, as a new tensor; nothing is read on or copied
+    from the host."""
     out = vec.clone()
-    out[i:i + 1] += amount.reshape(1).to(vec.dtype)
+    out[:, i] += amount.to(vec.dtype)
     return out
 
 
 def bump(state: Dict, name: str, amount) -> Dict:
-    """Add `amount` to one named counter; a passthrough on minimal
-    states without the registry leaf."""
+    """Add the per-member `amount` to one named counter; a passthrough
+    on minimal states without the registry leaf."""
     if "metrics_ctr" not in state:
         return state
     return dict(state, metrics_ctr=add_at(state["metrics_ctr"],

@@ -2,9 +2,11 @@
 `repro.trace.ring`.
 
 Control-plane events are appended inside the tick into one
-fixed-capacity `(CAP, LANES)` int32 ring whose lanes are
+fixed-capacity `(CAP, LANES)` int32 ring per member whose lanes are
 `(code, tick, node, term, aux)`, plus a monotone int32 write cursor and
-a per-class gated-emit counter.  Capture is gated by `trace_on` and the
+a per-class gated-emit counter.  The tick's state carries a leading
+member axis B, so the leaves are `(B, CAP, LANES)`, `(B,)` and
+`(B, NCLASS)` there, and every member records into its own ring.  Capture is gated by `trace_on` and the
 per-class `trace_mask` in `cfg_c` — tensors, so the gate is computed on
 the device and the tick never reads it on the host.  With the gate down
 nothing is written and the cursor adds zero.
@@ -76,45 +78,61 @@ def trace_leaves(capacity: int, device) -> Dict[str, torch.Tensor]:
     }
 
 
-def _lane(x, n: int, device) -> torch.Tensor:
-    """One (n,) int32 lane; a python int is filled on the device (no
-    host-to-device copy, which would wait for the stream)."""
+def _lane(x, shape, device) -> torch.Tensor:
+    """One (B, n) int32 lane from a python int (filled on the device: no
+    host-to-device copy, which would wait for the stream), a per-member
+    (B,) tensor, or a (B, n) / (1, n) tensor."""
     if isinstance(x, int):
-        return torch.full((n,), x, dtype=torch.int32, device=device)
-    return torch.broadcast_to(x.to(torch.int32), (n,))
+        return torch.full(shape, x, dtype=torch.int32, device=device)
+    x = x.to(torch.int32)
+    if x.dim() == 1:
+        x = x[:, None]
+    return torch.broadcast_to(x, shape)
+
+
+def _per_member(valid) -> torch.Tensor:
+    """`valid` as (B, n): a (B,) mask is one lane per member."""
+    return valid[:, None] if valid.dim() == 1 else valid
 
 
 def emit(state: Dict, cfg_c: Dict, code: int, *, valid, node,
          term=0, aux=0) -> Dict:
-    """Append up to `valid.sum()` events of one code into the ring.
+    """Append up to `valid.sum(-1)` events of one code into each
+    member's ring.
 
-    `valid` is a bool tensor, 0-d or (n,); `node`/`term`/`aux` broadcast
-    against it.  States without trace leaves pass through untouched."""
+    `valid` is a bool tensor, (B,) or (B, n); `node`/`term`/`aux`
+    broadcast against it: python ints, per-member (B,) tensors, or
+    (B, n) / (1, n) tensors.  States without trace leaves pass through
+    untouched."""
     if "trace_ev" not in state:
         return state
     ring = state["trace_ev"]
     dev = ring.device
+    B, cap = ring.shape[0], ring.shape[1]
     cls = int(EVENT_CLASS[code])
-    gate = cfg_c["trace_on"] & cfg_c["trace_mask"][cls]
-    valid = torch.atleast_1d(valid)
-    n = valid.shape[0]
-    v = valid & gate
+    gate = cfg_c["trace_on"] & cfg_c["trace_mask"][:, cls]
+    valid = _per_member(valid)
+    shape = (B, valid.shape[1])
+    v = valid & gate[:, None]
     vi = v.to(torch.int32)
-    total = vi.sum(dtype=torch.int32)
-    rank = torch.cumsum(vi, 0, dtype=torch.int32)
-    cap = ring.shape[0]
-    keep = v & (rank + cap > total)
-    slot = torch.where(keep, (state["trace_pos"] + rank - 1) % cap, cap)
+    total = vi.sum(1, dtype=torch.int32)
+    rank = torch.cumsum(vi, 1, dtype=torch.int32)
+    keep = v & (rank + cap > total[:, None])
+    slot = torch.where(keep, (state["trace_pos"][:, None] + rank - 1) % cap,
+                       cap)
     row = torch.stack([
-        _lane(code, n, dev),
-        _lane(state["tick"], n, dev),
-        _lane(node, n, dev),
-        _lane(term, n, dev),
-        _lane(aux, n, dev)], dim=1)
-    # one spare row takes every dropped lane; kept slots are unique
-    ext = torch.cat([ring, ring.new_zeros((1, LANES))])
-    ext.index_put_((slot.long(),), row)
-    return dict(state, trace_ev=ext[:cap],
+        _lane(code, shape, dev),
+        _lane(state["tick"], shape, dev),
+        _lane(node, shape, dev),
+        _lane(term, shape, dev),
+        _lane(aux, shape, dev)], dim=2)
+    # one spare row per member takes every dropped lane; kept slots are
+    # unique within a member
+    ext = torch.cat([ring, ring.new_zeros((B, 1, LANES))], dim=1)
+    base = torch.arange(B, device=dev)[:, None] * (cap + 1)
+    ext.view(-1, LANES).index_put_(((base + slot).reshape(-1),),
+                                   row.reshape(-1, LANES))
+    return dict(state, trace_ev=ext[:, :cap],
                 trace_pos=state["trace_pos"] + total,
                 trace_emit=_metrics.add_at(state["trace_emit"], cls, total))
 
@@ -122,12 +140,12 @@ def emit(state: Dict, cfg_c: Dict, code: int, *, valid, node,
 def record(state: Dict, cfg_c: Dict, code: int, *, valid, node,
            term=0, aux=0, counter: Optional[str] = None,
            count=None) -> Dict:
-    """`emit` + metrics bump in one call: the counter (always on) adds
-    `count` when given, else the number of valid lanes."""
+    """`emit` + metrics bump in one call: each member's counter (always
+    on) adds `count` when given, else its number of valid lanes."""
     state = emit(state, cfg_c, code, valid=valid, node=node, term=term,
                  aux=aux)
     if counter is not None and "metrics_ctr" in state:
-        amt = (torch.atleast_1d(valid).sum(dtype=torch.int32)
+        amt = (_per_member(valid).sum(1, dtype=torch.int32)
                if count is None else count)
         state = _metrics.bump(state, counter, amt)
     return state

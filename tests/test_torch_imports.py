@@ -1,8 +1,9 @@
 """Package rules of the PyTorch port: importing `repro_torch` and every
-one of its modules loads no `jax` module and nothing of the `repro`
-package (checked in a fresh interpreter), importing builds nothing, and
-an entry point given no device runs on the card or raises — it never
-falls back to the CPU silently."""
+one of its modules (the fleet, Multi-Raft and both new kernel families
+included) loads no `jax` module and nothing of the `repro` package
+(checked in a fresh interpreter), importing builds nothing, and an entry
+point given no device runs on the card or raises — it never falls back
+to the CPU silently."""
 from __future__ import annotations
 
 import os
@@ -36,7 +37,7 @@ def test_port_imports_no_jax_and_no_repro():
                          capture_output=True, text=True, timeout=120,
                          check=True)
     lines = out.stdout.splitlines() + [""]
-    assert int(lines[0]) >= 25, out.stdout
+    assert int(lines[0]) >= 33, out.stdout
     assert lines[1] == "", f"the port imported {lines[1]}"
 
 
@@ -52,13 +53,26 @@ def test_entry_points_need_a_device():
     if torch.cuda.is_available():
         assert resolve_device(None).type == "cuda"
         return
+    from repro_torch.core.fleet import FleetSim, MemberSpec
+    from repro_torch.core.multiraft import MultiRaftSim
     with pytest.raises(RuntimeError, match="device='cpu'"):
         BWRaftSim(CONFIG)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        FleetSim([MemberSpec(cfg=CONFIG)])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        MultiRaftSim(CONFIG)
     assert BWRaftSim(CONFIG, device="cpu").state["kv"].device.type == "cpu"
 
 
-def test_digest_tier_not_ported_raises():
+def test_digest_tier_builds_and_unported_fleet_paths_raise():
+    """The digest tier is ported (a rack of 550 slots builds on the
+    CPU); what is not ported yet raises and names its ROADMAP item."""
     from repro_torch.configs.bwraft_kv import CONFIG
+    from repro_torch.core.fleet import FleetSim, MemberSpec
     from repro_torch.core.runtime import BWRaftSim
+    sim = BWRaftSim(CONFIG, n_observers=550, device="cpu")
+    assert sim.state["dobs_alive"].shape == (550,)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        BWRaftSim(CONFIG, n_observers=4, device="cpu")
+        FleetSim([MemberSpec(cfg=CONFIG, market="trace")], device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        FleetSim([MemberSpec(cfg=CONFIG)], pipeline="host", device="cpu")

@@ -98,13 +98,17 @@ def _jax_phase_chain(static, cfg_c):
 
 
 def _port_phase(name, state, static, cfg_c, draws):
+    """One phase of the batched tick at B = 1 on an unbatched state."""
+    state, cfg_c, draws = (TSM.batch1(t) for t in (state, cfg_c, draws))
     if name == "spot":
-        return TST.spot_step(state, static, cfg_c, draws)[0]
-    if name in ("workload", "election", "leader"):
-        return getattr(TST, f"{name}_step")(state, static, cfg_c, draws)
-    if name == "read":
-        return TST.read_step(state, static, cfg_c)[0]
-    return getattr(TST, f"{name}_step")(state, static, cfg_c)
+        out = TST.spot_step(state, static, cfg_c, draws)[0]
+    elif name in ("workload", "election", "leader"):
+        out = getattr(TST, f"{name}_step")(state, static, cfg_c, draws)
+    elif name == "read":
+        out = TST.read_step(state, static, cfg_c)[0]
+    else:
+        out = getattr(TST, f"{name}_step")(state, static, cfg_c)
+    return TSM.member(out, 0)
 
 
 def _np(tree):
@@ -118,7 +122,7 @@ def test_each_phase_matches_jax(variant):
     applied to the JAX state before it, equals the JAX state after it."""
     sim, _, state = jax_run(variant)
     chain = _jax_phase_chain(sim.static, sim.cfg_c)
-    static_t = TSM.from_numpy(sim.static, "cpu")
+    static_t = TSM.stack_static([sim.static], "cpu")
     cfg_t = TSM.from_numpy(_np(sim.cfg_c), "cpu")
     rng = jax.random.PRNGKey(7)
     for t in range(4):

@@ -54,8 +54,8 @@ def port_config(cfg):
             "heartbeat_interval")})
 
 
-@functools.partial(jax.jit, static_argnames=("N", "K"))
-def _tick_draws(keys, tick0, c, *, N, K):
+@functools.partial(jax.jit, static_argnames=("N", "K", "O"))
+def _tick_draws(keys, tick0, c, *, N, K, O):
     """Every non-price draw of the ticks whose keys are `keys`, in a
     scan like the sim's epoch."""
     def body(t, k):
@@ -70,6 +70,8 @@ def _tick_draws(keys, tick0, c, *, N, K):
         r_timeout, = jax.random.split(r_elec, 1)
         out = {
             "fail_u": jax.random.uniform(r_fail, (N,)),
+            "dobs_fail_u": jax.random.uniform(jax.random.fold_in(r_fail, 1),
+                                              (O,)),
             "n_writes": jax.random.poisson(r_w, lam_w).astype(jnp.int32),
             "n_reads": jax.random.poisson(r_r, lam_r).astype(jnp.int32),
             "keys_uniform": jax.random.randint(r_lead, (N_WINDOW,), 0, K),
@@ -107,9 +109,10 @@ class JaxTape:
     def _bundle(self, keys, state, cfg_c, price):
         N = state["role"].shape[0]
         K = state["kv"].shape[1]
+        O = state["dobs_alive"].shape[0]
         c = _jax_tree(cfg_c)
         tick0 = jnp.int32(int(state["tick"]))
-        draws = _tick_draws(keys, tick0, c, N=N, K=K)
+        draws = _tick_draws(keys, tick0, c, N=N, K=K, O=O)
         dev = state["role"].device
         out = {k: torch.as_tensor(np.array(v), device=dev)
                for k, v in draws.items()}
@@ -144,7 +147,7 @@ def test_tape_price_path_matches_live_jax_sim():
     tape = JaxTape(0)
     for _ in range(3):
         st = {k: torch.as_tensor(np.array(sim.state[k]))
-              for k in ("role", "kv", "tick", "spot_price")}
+              for k in ("role", "kv", "tick", "spot_price", "dobs_alive")}
         cfg_c = tstate.from_numpy(
             {k: np.asarray(v) for k, v in sim.cfg_c.items()}, "cpu")
         bundle = tape.epoch(cfg.period_ticks, st, cfg_c)

@@ -28,7 +28,7 @@ def test_tick_trajectory_matches_jax(variant):
     ticks from the same leased state (the 256-entry log fills on the
     way, so the window-full accept rule is exercised too)."""
     sim, tick, state = jax_run(variant)
-    static_t = TSM.from_numpy(sim.static, "cpu")
+    static_t = TSM.stack_static([sim.static], "cpu")
     cfg_t = TSM.from_numpy(_np(sim.cfg_c), "cpu")
     tape = JaxTape(99)
     rng = jax.random.PRNGKey(99)
@@ -36,8 +36,9 @@ def test_tick_trajectory_matches_jax(variant):
     for t in range(300):
         rng, sub = jax.random.split(rng)
         state, jm = tick(state, sub)
-        st_t, tm = TST.tick(st_t, static_t, cfg_t,
-                            row(tape.tick(st_t, cfg_t), 0))
+        bt, tm = TST.tick(TSM.batch1(st_t), static_t, TSM.batch1(cfg_t),
+                          TSM.batch1(row(tape.tick(st_t, cfg_t), 0)))
+        st_t = TSM.member(bt, 0)
         if t % 50 == 49:
             assert_states_equal(state, st_t, f"{variant} tick {t}")
     for k in ("has_leader", "leader_term", "n_leaders", "killed",
