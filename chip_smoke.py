@@ -3,8 +3,10 @@
 
     python3 chip_smoke.py            # the smoke run on one GPU
     python3 chip_smoke.py --profile  # also profiles 10 ticks of the solo
-                                     # and of the fleet path (device busy
-                                     # share, kernels by name)
+                                     # and of the fleet path, and a
+                                     # prefill and 4 decode steps of the
+                                     # serve path (device busy share,
+                                     # kernels by name)
 
 Phases, each fatal on failure:
 
@@ -36,7 +38,25 @@ Phases, each fatal on failure:
    multi-epoch path;
 7. one fleet epoch, group digest included, on the card and on the CPU
    from the same state and bundles, held as in phase 4;
-8. a `kernels` JSON line, the card line, and the last line
+8. the two attention kernels against their twins on the card, bfloat16
+   and float32, ragged S, T and cache_len, GQA groups 1, 3 and 8, within
+   float32 2e-4 / bfloat16 3e-2; then device times of kernel, twin and
+   one library call (`scaled_dot_product_attention`, timed only) at the
+   serve shapes (flash B=8, S=512, 15 heads over 5, hd=64; decode B=8,
+   T=544) and the long ones (flash B=1, S=8192; decode B=32, T=32768),
+   with the caches rotated through enough copies to defeat the L2;
+9. serving at full width on the card and the CPU: smollm-360m cut to 2
+   layers, B=2, one 128-token prefill and 8 decode steps fed the CPU's
+   greedy tokens; in float32 logits within 1e-3 and greedy tokens equal
+   wherever the CPU's top-2 margin exceeds twice that; in bfloat16 the
+   agreement at 3e-2 is reported (random weights make attention too
+   peaked for a bf16 rounding not to flip some rows);
+10. the serve path: `launch.serve.serve()` on smollm-360m at full width
+   and depth (32 layers, bfloat16, random weights from seed 0), 64
+   requests in batches of 8, prompt 512, 32 generated tokens, revoke_p
+   0.1, with every launch count set to 0 just before and read just
+   after (flash 32 x 8 = 256, decode 32 x 8 x 32 = 8,192);
+11. a `kernels` JSON line, the card line, and the last line
    `{"ok": true, "device": {...}}`.
 
 Exits non-zero, printing no result, without a CUDA device or outside a
@@ -55,7 +75,24 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
 INT_OPS_PER_S = 67e12              # non-tensor-core 32-bit rate (fp32 peak)
+MATMUL_FLOPS = {"bfloat16": 989e12,    # dense tensor-core rate
+                "float32": 67e12}      # f32 outside the tensor cores
 FLOAT_RTOL = 1e-5
+ATT_TOL = {"float32": 2e-4, "bfloat16": 3e-2}     # rtol = atol
+# card vs CPU logits of the 2-layer full-width model in float32: the model
+# amplifies float32 rounding (its random attention scores are hundreds
+# wide), so the two devices are held at 1e-3, five times the kernels' 2e-4
+SERVE_F32_TOL = 1e-3
+# ... and in bfloat16 at the kernels' 3e-2, which a small share of logits
+# may exceed: one bf16 rounding of a score can flip the key a row attends
+# to.  Chip readings on the H100: 379 of 13,369,344 logits (2.8e-5)
+# outside 3e-2, the largest 0.0472; the gate allows a share of 1e-4 and
+# a largest difference of 0.125
+SERVE_BF16_SHARE = 1e-4
+SERVE_BF16_MAX = 0.125
+L2_DEFEAT_BYTES = 128 * 2 ** 20    # > the 50 MB L2: rotate input copies
+SERVE = dict(requests=64, batch=8, prompt_len=512, gen_len=32,
+             revoke_p=0.1, seed=0)
 REPLACES = {
     "log_match_append": "src/repro/kernels/raft_tick/kernel.py:108",
     "commit_majority": "src/repro/kernels/raft_tick/kernel.py:173",
@@ -63,6 +100,8 @@ REPLACES = {
     "leader_fanout": "src/repro/kernels/leader_fanout/kernel.py:124",
     "ae_sync": "src/repro/kernels/ae_sync/kernel.py:107",
     "group_reduce": "src/repro/kernels/group_digest/kernel.py:61",
+    "flash_attention": "src/repro/kernels/flash_attention/kernel.py:64",
+    "decode_attention": "src/repro/kernels/decode_attention/kernel.py:57",
 }
 SOURCE = {
     "log_match_append": "src/repro_torch/kernels/csrc/raft_tick.cu",
@@ -71,7 +110,11 @@ SOURCE = {
     "leader_fanout": "src/repro_torch/kernels/csrc/leader_fanout.cu",
     "ae_sync": "src/repro_torch/kernels/csrc/ae_sync.cu",
     "group_reduce": "src/repro_torch/kernels/csrc/group_digest.cu",
+    "flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
+    "decode_attention": "src/repro_torch/kernels/csrc/decode_attention.cu",
 }
+RAFT = ("log_match_append", "commit_majority", "apply_last_wins",
+        "leader_fanout", "ae_sync", "group_reduce")
 PER_TICK = ("log_match_append", "commit_majority", "apply_last_wins",
             "leader_fanout")
 FLEET_B = 5
@@ -668,7 +711,8 @@ def run_fleet_path(dev, cfg):
     ticks = 3 * T
     log(f"launches over {ticks} fleet ticks of B={B}: {json.dumps(counts)}")
     for name, n in counts.items():
-        want = 3 if name == "group_reduce" else ticks
+        want = (3 if name == "group_reduce" else ticks) if name in RAFT \
+            else 0
         if n != want:
             raise AssertionError(f"{name} launched {n} times on the fleet "
                                  f"path, expected {want}")
@@ -759,10 +803,423 @@ def run_profile(tag, state, static, cfg_c, bundle, ticks):
             f"{e.count / n:6.1f}/tick  {e.key[:90]}")
 
 
+# --------------------------------------------------------------------- #
+# phase 8: the attention kernels against their twins; device times
+# --------------------------------------------------------------------- #
+def att_inputs(gen, dev, dtype, q_shape, kv_shape):
+    import torch
+    return [torch.randn(s, generator=gen, device=dev, dtype=torch.float32)
+            .to(dtype) for s in (q_shape, kv_shape, kv_shape)]
+
+
+def dtype_name(dt) -> str:
+    return str(dt).split(".")[-1]
+
+
+def att_compare(name, got, want, dtype, ctx) -> float:
+    """max |kernel - twin|; raises unless within the dtype's tolerance."""
+    import torch
+    tol = ATT_TOL[dtype_name(dtype)]
+    g, w = got.float(), want.float()
+    if not torch.isfinite(g).all():
+        raise AssertionError(f"{name} {ctx}: non-finite output")
+    bad = ((g - w).abs() > tol + tol * w.abs()).sum().item()
+    if bad:
+        raise AssertionError(f"{name} {ctx}: {bad} elements outside "
+                             f"{tol} of the twin")
+    return (g - w).abs().max().item()
+
+
+def flash_work(q, k, causal=True):
+    """Bytes (q, k, v read once, out written once) and matmul FLOPs
+    (Q.K^T and P.V over the key positions each row sees)."""
+    import numpy as np
+    B, S, H, hd = q.shape
+    T = k.shape[1]
+    if causal:
+        i = np.arange(S)
+        pairs = int(np.clip(i + (T - S) + 1, 0, T).sum())
+    else:
+        pairs = S * T
+    nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
+    return nbytes, 4 * B * H * pairs * hd
+
+
+def decode_work(q, k, clen):
+    """Bytes (q, out, the cache rows below cache_len, cache_len) and
+    matmul FLOPs over those rows."""
+    B, _, H, hd = q.shape
+    KV = k.shape[2]
+    rows = int(clen.clamp(0, k.shape[1]).sum().item())
+    nbytes = (2 * q.numel() + 2 * rows * KV * hd) * q.element_size() + 4 * B
+    return nbytes, 4 * H * rows * hd
+
+
+def att_bound_ms(nbytes, flops, dtype):
+    return max(nbytes / HBM_BYTES_PER_S,
+               flops / MATMUL_FLOPS[dtype_name(dtype)]) * 1e3
+
+
+def att_bound_by(nbytes, flops, dtype):
+    return ("bytes" if nbytes / HBM_BYTES_PER_S >=
+            flops / MATMUL_FLOPS[dtype_name(dtype)] else "operations")
+
+
+def rotating(make, nbytes):
+    """Enough copies of an input set to exceed L2_DEFEAT_BYTES, and a
+    function that returns the next copy on each call."""
+    n = max(1, -(-L2_DEFEAT_BYTES // max(nbytes, 1)))
+    copies = [make() for _ in range(n)]
+    it = {"i": 0}
+
+    def nxt():
+        it["i"] = (it["i"] + 1) % n
+        return copies[it["i"]]
+    return nxt
+
+
+def run_attention_checks(dev, long_shapes=True):
+    """Both attention kernels == their twins on the card within the
+    stated tolerance over the correctness cases; then device times at
+    the serve shapes and (long_shapes) the long ones.  Returns {name:
+    {"max_abs_err": x, "cases": n, tag: {ms, plain_ms, library_ms,
+    bytes, flops, dtype}}}."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch import kernels as K_
+    from repro_torch.kernels.decode_attention import ops as da
+    from repro_torch.kernels.decode_attention import ref as da_ref
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    gen = torch.Generator(device=dev).manual_seed(0)
+    bf16, f32 = torch.bfloat16, torch.float32
+    res = {"flash_attention": {"max_abs_err": 0.0, "cases": 0},
+           "decode_attention": {"max_abs_err": 0.0, "cases": 0}}
+
+    # (B, S, T, H, KV, hd): the serve shape, ragged S and T, S < T, GQA
+    # groups 3, 1 (MHA), 8 (MQA and qwen2.5-3b's 16 over 2), hd 16..128
+    for dt in (bf16, f32):
+        for B, S, T, H, KV, hd in [(8, 512, 512, 15, 5, 64),
+                                   (2, 77, 77, 15, 5, 64),
+                                   (2, 24, 61, 6, 2, 32),
+                                   (1, 100, 100, 8, 8, 128),
+                                   (1, 33, 33, 8, 1, 16),
+                                   (2, 200, 200, 16, 2, 128)]:
+            q, k, v = att_inputs(gen, dev, dt, (B, S, H, hd), (B, T, KV, hd))
+            got = fa.flash_attention(q, k, v)
+            torch.cuda.synchronize()
+            err = att_compare("flash_attention", got,
+                              fa_ref.flash_attention_ref(q, k, v), dt,
+                              (B, S, T, H, KV, hd, dtype_name(dt)))
+            r = res["flash_attention"]
+            r["max_abs_err"] = max(r["max_abs_err"], err)
+            r["cases"] += 1
+        # (B, T, H, KV, hd) with ragged cache_len including 1 and T
+        for B, T, H, KV, hd in [(8, 544, 15, 5, 64), (3, 1000, 8, 8, 64),
+                                (4, 77, 16, 2, 128), (2, 33, 8, 1, 16),
+                                (32, 4096, 15, 5, 64), (1, 1, 3, 3, 32)]:
+            q, k, v = att_inputs(gen, dev, dt, (B, 1, H, hd), (B, T, KV, hd))
+            clen = torch.randint(1, T + 1, (B,), generator=gen, device=dev,
+                                 dtype=torch.int32)
+            clen[0], clen[-1] = T, 1
+            got = da.decode_attention(q, k, v, clen)
+            torch.cuda.synchronize()
+            err = att_compare("decode_attention", got,
+                              da_ref.decode_attention_ref(q, k, v, clen), dt,
+                              (B, T, H, KV, hd, dtype_name(dt)))
+            r = res["decode_attention"]
+            r["max_abs_err"] = max(r["max_abs_err"], err)
+            r["cases"] += 1
+            zero = da.decode_attention(q, k, v, torch.zeros_like(clen))
+            if not torch.equal(zero, torch.zeros_like(zero)):
+                raise AssertionError("decode_attention: cache_len 0 did not "
+                                     "give 0")
+    for name in res:
+        log(f"kernel {name}: within tolerance of its twin on "
+            f"{res[name]['cases']} cases, max |kernel - twin| "
+            f"{res[name]['max_abs_err']:.3g}")
+
+    def sdpa_flash(qt, kt, vt):
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                              enable_gqa=True)
+
+    def sdpa_decode(qt, kt, vt, mask):
+        return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                              enable_gqa=True)
+
+    timed = [("flash_attention", "serve", (8, 512, 15, 5, 64))]
+    timed += [("decode_attention", "serve", (8, 544, 15, 5, 64))]
+    if long_shapes:
+        timed += [("flash_attention", "long", (1, 8192, 15, 5, 64)),
+                  ("decode_attention", "long", (32, 32768, 15, 5, 64))]
+    for name, tag, (B, T, H, KV, hd) in timed:
+        S = T if name == "flash_attention" else 1
+        dt = bf16
+        q_shape, kv_shape = (B, S, H, hd), (B, T, KV, hd)
+
+        def make():
+            q, k, v = att_inputs(gen, dev, dt, q_shape, kv_shape)
+            clen = torch.full((B,), T, dtype=torch.int32, device=dev)
+            return q, k, v, clen
+        q, k, v, clen = make()
+        if name == "flash_attention":
+            nbytes, flops = flash_work(q, k)
+            op = lambda a: fa.flash_attention(a[0], a[1], a[2])
+            twin = lambda a: fa_ref.flash_attention_ref(a[0], a[1], a[2])
+            qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+            lib = lambda: sdpa_flash(qt, kt, vt)
+        else:
+            nbytes, flops = decode_work(q, k, clen)
+            op = lambda a: da.decode_attention(*a)
+            twin = lambda a: da_ref.decode_attention_ref(*a)
+            qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+            mask = (torch.arange(T, device=dev)[None, :] <
+                    clen[:, None])[:, None, None, :]
+            lib = lambda: sdpa_decode(qt, kt, vt, mask)
+        want = op((q, k, v, clen))
+        att_compare(f"{name} library", lib().transpose(1, 2), want, dt, tag)
+        nxt = rotating(make, nbytes)
+        reps = 50 if tag == "serve" else 10
+        ms = device_ms(lambda: op(nxt()), reps, 4_000_000)
+        plain_ms = device_ms(lambda: twin((q, k, v, clen)),
+                             5 if tag == "long" else 20, 40_000_000)
+        lib_ms = device_ms(lib, reps, 4_000_000)
+        res[name][tag] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                              bytes=nbytes, flops=flops, dtype=dt)
+        log(f"kernel {name} [{tag}, B={B}, {'S' if S > 1 else 'T'}={T}, "
+            f"H={H}, KV={KV}, hd={hd}, bf16]: {ms * 1e3:.2f} us (twin "
+            f"{plain_ms * 1e3:.2f} us, library {lib_ms * 1e3:.2f} us), "
+            f"{nbytes} B, {flops} matmul FLOPs, bound "
+            f"{att_bound_ms(nbytes, flops, dt) * 1e3:.2f} us by "
+            f"{att_bound_by(nbytes, flops, dt)}")
+        del q, k, v, qt, kt, vt, nxt
+        torch.cuda.empty_cache()
+    K_.reset_launch_counts()
+    return res
+
+
+# --------------------------------------------------------------------- #
+# phase 9: serving, card against CPU; phase 10: the serve path
+# --------------------------------------------------------------------- #
+def run_serve_card_vs_cpu(dev, dtype, layers=2, B=2, S=128, steps=8):
+    """One prefill and `steps` decode steps of smollm-360m at full width
+    (`layers` layers) on the card and on the CPU from the same weights
+    and tokens; the decode steps are fed the CPU's greedy tokens.
+
+    Logits: float32 all within SERVE_F32_TOL; bfloat16 at most a share
+    SERVE_BF16_SHARE outside 3e-2 and none further than SERVE_BF16_MAX
+    (the random weights -- the JAX fan-in rule gives wq a std of
+    1/sqrt(H) -- make attention scores hundreds wide, so a bf16 rounding
+    can flip which key a row attends to and move that row's logits past
+    3e-2 on either device).  Greedy tokens, both dtypes: the card's token
+    must be one whose CPU logit is within twice the tolerance band
+    tol (1 + |top|) of the CPU's best, so the tokens are equal wherever
+    the CPU's top-2 margin exceeds that."""
+    import copy
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.models import lm
+    torch.backends.cuda.matmul.allow_tf32 = False    # full f32 products
+    name = dtype_name(dtype)
+    cfg = get_config("smollm-360m").with_layers(layers)
+    runcfg = RunConfig(remat=False, param_dtype=name, activation_dtype=name)
+    cpu = torch.device("cpu")
+    m_cpu = lm.init_lm(cfg, runcfg, seed=1, device=cpu)
+    m_gpu = copy.deepcopy(m_cpu).to(dev)
+    tol = SERVE_F32_TOL if name == "float32" else ATT_TOL[name]
+    toks = torch.as_tensor(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (B, S)).astype(np.int32))
+    c_cpu = lm.alloc_caches(cfg, B, S + steps, dtype, cpu)
+    c_gpu = lm.alloc_caches(cfg, B, S + steps, dtype, dev)
+    max_err, n_out, n_all, n_cmp, n_tok = 0.0, 0, 0, 0, 0
+    with torch.no_grad():
+        l_cpu, _ = lm.forward(m_cpu, toks, mode="prefill", caches=c_cpu)
+        l_gpu, _ = lm.forward(m_gpu, toks.to(dev), mode="prefill",
+                              caches=c_gpu)
+        pos = torch.full((B,), S, dtype=torch.int32)
+        for step in range(steps + 1):
+            a, b = l_gpu.float().cpu(), l_cpu.float()
+            where = f"serve card-vs-CPU {name} step {step}"
+            if not torch.isfinite(a).all():
+                raise AssertionError(f"{where}: non-finite logits on the "
+                                     f"card")
+            n_out += int(((a - b).abs() > tol + tol * b.abs()).sum())
+            n_all += b.numel()
+            max_err = max(max_err, (a - b).abs().max().item())
+            if name == "float32" and n_out:
+                raise AssertionError(f"{where}: {n_out} logits outside {tol}")
+            if name == "bfloat16" and max_err > SERVE_BF16_MAX:
+                raise AssertionError(f"{where}: max |card - CPU| {max_err:.4g}"
+                                     f" > {SERVE_BF16_MAX}")
+            top = b[:, -1].max(-1).values
+            band = 2 * (tol + tol * top.abs())
+            second = b[:, -1].topk(2, dim=-1).values[:, 1]
+            g_cpu, g_gpu = b[:, -1].argmax(-1), a[:, -1].argmax(-1)
+            picked = b[:, -1].gather(1, g_gpu[:, None])[:, 0]
+            if not bool((picked >= top - band).all()):
+                raise AssertionError(f"{where}: the card's greedy token has "
+                                     f"a CPU logit more than {2 * tol} "
+                                     f"(1 + |top|) below the CPU's best")
+            n_cmp += int((top - second > band).sum())
+            n_tok += int((g_cpu == g_gpu).sum())
+            if step == steps:
+                break
+            nxt = g_cpu.to(torch.int32)[:, None]
+            l_cpu, _ = lm.forward(m_cpu, nxt, mode="decode", caches=c_cpu,
+                                  cache_len=pos)
+            l_gpu, _ = lm.forward(m_gpu, nxt.to(dev), mode="decode",
+                                  caches=c_gpu, cache_len=pos.to(dev))
+            pos = pos + 1
+    share = n_out / n_all
+    log(f"serve card vs CPU (smollm-360m, {layers} layers, {name}, B={B}, "
+        f"prefill {S} + {steps} decode steps): {n_all - n_out}/{n_all} "
+        f"logits within {tol} (share outside {share:.3g}), max |card - CPU| "
+        f"{max_err:.3g}; greedy tokens equal on {n_tok}/{B * (steps + 1)} "
+        f"positions, {n_cmp} of them with a top-2 margin over {2 * tol} "
+        f"(1 + |top|)")
+    if name == "bfloat16" and share > SERVE_BF16_SHARE:
+        raise AssertionError(f"serve card-vs-CPU bfloat16: {n_out} of "
+                             f"{n_all} logits outside {tol}, a share of "
+                             f"{share:.3g} > {SERVE_BF16_SHARE}")
+
+
+def run_serve_path(dev):
+    """`serve()` on smollm-360m at full width and depth on the card, with
+    the launch counts set to 0 just before and read just after."""
+    import torch
+    from repro_torch import kernels as K_
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.launch.serve import serve, summary_line
+    from repro_torch.models import lm
+    cfg = get_config("smollm-360m")
+    runcfg = RunConfig(remat=False)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = lm.init_lm(cfg, runcfg, seed=SERVE["seed"], device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"serve: smollm-360m, {cfg.num_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads, "
+        f"{n_params} parameters in bf16, made in "
+        f"{(time.perf_counter() - t0) * 1e3:.0f} ms; {json.dumps(SERVE)}")
+    K_.reset_launch_counts()
+    r = serve(cfg, runcfg, params=model, device=dev, **SERVE)
+    counts = K_.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    B, G, L = SERVE["batch"], SERVE["gen_len"], cfg.num_layers
+    n_batches = len(r["generated"])
+    log(summary_line(r))
+    want = {"flash_attention": L * n_batches,
+            "decode_attention": L * n_batches * G}
+    log(f"launches on the serve path: {json.dumps(counts)}")
+    for name, n in counts.items():
+        if n != want.get(name, 0):
+            raise AssertionError(f"{name} launched {n} times on the serve "
+                                 f"path, expected {want.get(name, 0)}")
+    for i, g in enumerate(r["generated"]):
+        if g.shape != (B, G + 1) or g.min() < 0 or \
+                g.max() >= cfg.padded_vocab:
+            raise AssertionError(f"serve batch {i}: tokens {g.shape} out "
+                                 f"of range")
+    steady = slice(1, None)           # batch 0 pays the first-call set-up
+    pre = statistics.median(r["prefill_ms"][steady])
+    dec = statistics.median(r["decode_ms"][steady]) / G
+    log(f"serve: {r['tok_per_s']:.1f} generated tokens/s over "
+        f"{r['seconds']:.2f} s; prefill {pre:.2f} ms per batch of "
+        f"{B} x {SERVE['prompt_len']} (median of batches 1-"
+        f"{n_batches - 1}; batch 0 {r['prefill_ms'][0]:.1f} ms); decode "
+        f"{dec:.3f} ms per token step of B={B} (median); peak device "
+        f"memory {peak:.0f} MiB; pool served={r['served']} "
+        f"rerouted={r['rerouted']} replicas={r['replicas']}")
+    return model, counts, r
+
+
+def check_serve_sync_free(model, dev):
+    """Reports whether a prefill and two decode steps of the serve path
+    run without the host waiting for the card (any synchronizing call
+    raises under the sync debug mode).  A report, not a gate: a wait
+    costs time, not correctness."""
+    import torch
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.launch import steps as S_
+    from repro_torch.models import lm
+    cfg, runcfg = model.cfg, RunConfig(remat=False)
+    layers = lm.alloc_caches(cfg, 2, 20, torch.bfloat16, dev)
+    prefill = S_.make_prefill_step(cfg, runcfg)
+    decode = S_.make_decode_step(cfg, runcfg)
+    toks = torch.randint(0, cfg.vocab_size, (2, 16), device=dev)
+    tok, caches = prefill(model, {"tokens": toks}, layers)      # warm
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        tok, caches = prefill(model, {"tokens": toks}, layers)
+        for _ in range(2):
+            tok, caches = decode(model, caches, tok[:, None])
+        verdict = "ran with no host synchronization"
+    except RuntimeError as e:          # only the sync debug mode's own error
+        if "synchroniz" not in str(e):
+            raise
+        verdict = f"synchronizes the host: {str(e).splitlines()[0][:160]}"
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    log(f"serve sync check: a prefill and 2 decode steps {verdict}")
+
+
+def run_serve_profile(model, dev, steps=4):
+    """Device busy share and kernel time by name over one prefill and,
+    separately, `steps` decode steps of the serve path."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.launch import steps as S_
+    from repro_torch.models import lm
+    cfg = model.cfg
+    runcfg = RunConfig(remat=False)
+    B, P, G = SERVE["batch"], SERVE["prompt_len"], SERVE["gen_len"]
+    layers = lm.alloc_caches(cfg, B, P + G, torch.bfloat16, dev)
+    prefill = S_.make_prefill_step(cfg, runcfg)
+    decode = S_.make_decode_step(cfg, runcfg)
+    toks = torch.randint(0, cfg.vocab_size, (B, P), device=dev)
+    tok, caches = prefill(model, {"tokens": toks}, layers)     # warm
+    tok, caches = decode(model, caches, tok[:, None])
+    for tag, fn, n in (
+            ("serve prefill", lambda: prefill(model, {"tokens": toks},
+                                              layers), 1),
+            ("serve decode", None, steps)):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            if fn is not None:
+                fn()
+            else:
+                for _ in range(n):
+                    tok, caches = decode(model, caches, tok[:, None])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        evs = [e for e in prof.key_averages()
+               if e.self_device_time_total > 0
+               and not e.key.startswith("aten::")]
+        dev_us = sum(e.self_device_time_total for e in evs)
+        log(f"{tag} profile over {n} step(s): wall {wall * 1e3 / n:.3f} "
+            f"ms/step, device busy {dev_us / 1e3 / n:.3f} ms/step "
+            f"({100 * dev_us / 1e6 / wall:.1f}% of wall), "
+            f"{sum(e.count for e in evs) / n:.0f} device kernels/step")
+        for e in sorted(evs, key=lambda e: -e.self_device_time_total)[:8]:
+            log(f"  {e.self_device_time_total / n:9.2f} us/step "
+                f"{e.count / n:6.1f}/step  {e.key[:90]}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
-                    help="also profile 10 ticks of the solo and fleet paths")
+                    help="also profile 10 ticks of the solo and fleet "
+                    "paths and a prefill and 4 decode steps of serving")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -808,6 +1265,11 @@ def main() -> int:
     run_card_vs_cpu("fleet", fleet.state, [m.static for m in fleet.members],
                     fleet._cfg_c, CONFIG.period_ticks, fleet._gids,
                     fleet.n_groups)
+    att = run_attention_checks(dev)
+    run_serve_card_vs_cpu(dev, torch.float32)
+    run_serve_card_vs_cpu(dev, torch.bfloat16)
+    model, serve_counts, _ = run_serve_path(dev)
+    check_serve_sync_free(model, dev)
     if args.profile:
         b = sim.draws.epoch(10, sim.state, sim.cfg_c)
         run_profile("solo", SM.batch1(sim.state), sim.static_t,
@@ -816,8 +1278,9 @@ def main() -> int:
         run_profile("fleet", fleet.state, fleet._bstatic, fleet._cfg_c,
                     fleet_epoch(fleet.draws, 10, fleet.state, fleet._cfg_c),
                     10)
+        run_serve_profile(model, dev)
     kernels = []
-    for name in REPLACES:
+    for name in RAFT:
         r = results[name]["fleet"]
         entry = {
             "name": name, "route": "cuda", "source": SOURCE[name],
@@ -831,6 +1294,25 @@ def main() -> int:
             s = results[name]["solo"]
             entry.update(ms_solo=s["ms"], plain_ms_solo=s["plain_ms"],
                          bound_ms_solo=bound_ms(s["bytes"], s["ops"]))
+        kernels.append(entry)
+    for name in ("flash_attention", "decode_attention"):
+        a = att[name]
+        r = a["serve"]
+        entry = {
+            "name": name, "route": "cuda", "source": SOURCE[name],
+            "replaces": REPLACES[name], "launches": serve_counts[name],
+            "max_abs_err": a["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"],
+            "bound_ms": att_bound_ms(r["bytes"], r["flops"], r["dtype"]),
+            "bound_by": att_bound_by(r["bytes"], r["flops"], r["dtype"]),
+            "library_ms": r["library_ms"]}
+        if "long" in a:
+            g = a["long"]
+            entry.update(
+                ms_long=g["ms"], plain_ms_long=g["plain_ms"],
+                library_ms_long=g["library_ms"],
+                bound_ms_long=att_bound_ms(g["bytes"], g["flops"],
+                                           g["dtype"]))
         kernels.append(entry)
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))

@@ -1,5 +1,6 @@
 """Hand-written CUDA kernels of the port, one family per Pallas family
-of `repro.kernels` (DESIGN.md §8).
+of `repro.kernels` (DESIGN.md §8; the two attention families serve the
+model stack, DESIGN.md §3).
 
 Each family is `kernel.py` (the ctypes launcher of `csrc/<family>.cu`),
 `ref.py` (the plain PyTorch twin) and `ops.py` (the public op).  An op
@@ -15,11 +16,14 @@ from typing import Dict, Sequence
 import torch
 
 OPS = ("log_match_append", "commit_majority", "apply_last_wins",
-       "leader_fanout", "ae_sync", "group_reduce")
+       "leader_fanout", "ae_sync", "group_reduce", "flash_attention",
+       "decode_attention")
 
 
 def _ops():
     from repro_torch.kernels.ae_sync import ops as ae
+    from repro_torch.kernels.decode_attention import ops as da
+    from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.kernels.group_digest import ops as gd
     from repro_torch.kernels.leader_fanout import ops as lf
     from repro_torch.kernels.raft_tick import ops as rt
@@ -28,7 +32,9 @@ def _ops():
             "apply_last_wins": rt.apply_last_wins,
             "leader_fanout": lf.leader_fanout,
             "ae_sync": ae.ae_sync,
-            "group_reduce": gd.group_reduce}
+            "group_reduce": gd.group_reduce,
+            "flash_attention": fa.flash_attention,
+            "decode_attention": da.decode_attention}
 
 
 def launch_counts() -> Dict[str, int]:

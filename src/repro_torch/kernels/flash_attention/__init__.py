@@ -1,0 +1,1 @@
+"""flash_attention kernel family: CUDA kernel, plain twin and op."""

@@ -1,0 +1,65 @@
+"""Public op of the flash-attention family: the causal self-attention of
+prefill (`models/attention.py:causal_attention`), as
+`repro.kernels.flash_attention.ops.flash_attention` is for the JAX
+model's `attention_impl="pallas"` path.
+
+q (B,S,H,hd) against k, v (B,T,KV,hd) with H % KV == 0, no `repeat_kv`:
+query head h reads KV head h // (H // KV).  S and T need not be
+multiples of any tile.  A CPU tensor runs the twin in `ref.py`; a CUDA
+tensor launches the kernel in `csrc/flash_attention.cu` after the
+operands are checked (bfloat16 or float32, head_dim 16, 32, 64 or 128,
+contiguous, 16-byte aligned), else the op raises.  Every launch adds one
+to `flash_attention.launches`.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import on_cpu
+from repro_torch.kernels.flash_attention import kernel as K
+from repro_torch.kernels.flash_attention import ref
+
+
+def check_attention_operands(op: str, q, k, v, q_len: int = None):
+    """Raise unless q (B,S,H,hd) and k, v (B,T,KV,hd) are what the CUDA
+    kernels take: one device and one dtype (bfloat16 or float32), H a
+    multiple of KV, a supported head_dim, contiguous and 16-byte
+    aligned.  `q_len` pins S."""
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError(f"{op}: q, k and v must be 4-D (B,S,H,hd)")
+    B, S, H, hd = q.shape
+    if q_len is not None and S != q_len:
+        raise ValueError(f"{op}: q has {S} positions, expected {q_len}")
+    if k.shape != v.shape or k.shape[0] != B or k.shape[3] != hd:
+        raise ValueError(f"{op}: k {tuple(k.shape)} / v {tuple(v.shape)} "
+                         f"do not match q {tuple(q.shape)}")
+    if H % k.shape[2]:
+        raise ValueError(f"{op}: {H} query heads over {k.shape[2]} KV heads")
+    if hd not in K.HEAD_DIMS:
+        raise ValueError(f"{op}: head_dim {hd} not in {K.HEAD_DIMS}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.dtype not in K.DTYPE_CODE or t.dtype != q.dtype:
+            raise ValueError(f"{op}: {name} has dtype {t.dtype}; expected "
+                             f"one of bfloat16/float32, equal for q, k, v")
+        if t.device != q.device:
+            raise ValueError(f"{op}: {name} on {t.device}, q on {q.device}")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{op}: {name} must be contiguous and 16-byte "
+                             f"aligned")
+
+
+def flash_attention(q, k, v, *, causal: bool = True):
+    """Blocked online-softmax attention.  Returns (B,S,H,hd) in q's
+    dtype; query row i sees key j iff j <= i + T - S when causal."""
+    if on_cpu(q, "flash_attention"):
+        return ref.flash_attention_ref(q, k, v, causal=causal)
+    check_attention_operands("flash_attention", q, k, v)
+    out = torch.empty_like(q)
+    if q.numel() == 0:
+        return out
+    K.flash_attention(q, k, v, out, causal)
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0

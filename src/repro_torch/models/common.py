@@ -1,0 +1,143 @@
+"""Parameter descriptors, initialization and shared layer math (the port
+of `repro.models.common`).
+
+A model is (1) a tree of `ParamSpec` descriptors built from its config,
+with the JAX package's shapes and nesting, and (2) functions that apply
+it.  `init_tree` materializes a spec tree on a `torch.Generator`'s
+device with the same fan-in rule as the JAX `init_tree`; the numbers
+differ (torch cannot reproduce `jax.random`), so the tests carry JAX's
+own weights across instead (`models/lm.py:from_numpy`).
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Callable, Dict, Iterator, NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+
+
+DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+class ParamSpec(NamedTuple):
+    shape: Tuple[int, ...]
+    dtype: Any                            # a torch dtype
+    axes: Tuple[Optional[str], ...]       # logical axis names, len == ndim
+    init: str = "normal"                  # normal | zeros | ones | embed
+    scale: float = 1.0
+
+
+def _is_spec(x) -> bool:
+    return isinstance(x, ParamSpec)
+
+
+def tree_items(tree, prefix: Tuple[str, ...] = ()) -> Iterator[
+        Tuple[Tuple[str, ...], Any]]:
+    """(path, leaf) pairs of a nested dict in JAX's flatten order (keys
+    sorted at every level)."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from tree_items(tree[k], prefix + (k,))
+    else:
+        yield prefix, tree
+
+
+def tree_map(fn: Callable, tree):
+    """`fn` applied to every leaf of a nested dict (ParamSpecs are
+    leaves)."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def init_tree(gen: torch.Generator, tree) -> Dict:
+    """Materialize parameters on `gen`'s device, one leaf after another
+    in flatten order: fan-in scaled normal by default (`std = scale /
+    sqrt(shape[-2])`, or `shape[-1]` for a vector), zeros or ones."""
+    def one(p: ParamSpec):
+        if p.init == "zeros":
+            return torch.zeros(p.shape, dtype=p.dtype, device=gen.device)
+        if p.init == "ones":
+            return torch.ones(p.shape, dtype=p.dtype, device=gen.device)
+        fan_in = p.shape[-2] if len(p.shape) >= 2 else p.shape[-1]
+        std = p.scale / math.sqrt(max(fan_in, 1))
+        a = torch.randn(p.shape, generator=gen, dtype=torch.float32,
+                        device=gen.device)
+        return (a * std).to(p.dtype)
+
+    out: Dict = {}
+    for path, p in tree_items(tree):
+        node = out
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = one(p)
+    return out
+
+
+def zeros_tree(tree, device) -> Dict:
+    """A zero tensor for every ParamSpec of a nested dict."""
+    return tree_map(lambda p: torch.zeros(p.shape, dtype=p.dtype,
+                                          device=device), tree)
+
+
+def param_count(tree) -> int:
+    return sum(int(np.prod(p.shape)) for _, p in tree_items(tree))
+
+
+def param_bytes(tree) -> int:
+    return sum(int(np.prod(p.shape)) * p.dtype.itemsize
+               for _, p in tree_items(tree))
+
+
+# ---------------------------------------------------------------------------
+# Shared layer math (the same float32 upcasts as the JAX forms)
+# ---------------------------------------------------------------------------
+
+def rms_norm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-6):
+    dt = x.dtype
+    x = x.float()
+    x = x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps)
+    return (x * gamma.float()).to(dt)
+
+
+def rope_freqs(head_dim: int, theta: float) -> np.ndarray:
+    return 1.0 / (theta ** (np.arange(0, head_dim, 2, dtype=np.float32)
+                            / head_dim))
+
+
+_FREQS: Dict[Tuple[int, float, torch.device], torch.Tensor] = {}
+
+
+def _freqs_on(hd: int, theta: float, device) -> torch.Tensor:
+    """`rope_freqs` on `device`, copied there once: a host-to-device copy
+    per layer would make the host wait for the card at every layer."""
+    key = (hd, theta, device)
+    if key not in _FREQS:
+        _FREQS[key] = torch.as_tensor(rope_freqs(hd, theta), device=device)
+    return _FREQS[key]
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float):
+    """x: (..., S, H, hd); positions: broadcastable to (..., S)."""
+    hd = x.shape[-1]
+    freqs = _freqs_on(hd, theta, x.device)
+    ang = positions[..., :, None].float() * freqs          # (..., S, hd/2)
+    cos = torch.cos(ang)[..., :, None, :]                 # (..., S, 1, hd/2)
+    sin = torch.sin(ang)[..., :, None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def swiglu(x, wg, wu, wd, *, bg=None, bu=None, bd=None):
+    g = x @ wg
+    u = x @ wu
+    if bg is not None:
+        g = g + bg
+        u = u + bu
+    h = torch.nn.functional.silu(g.float()).to(x.dtype) * u
+    out = h @ wd
+    if bd is not None:
+        out = out + bd
+    return out

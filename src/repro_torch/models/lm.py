@@ -1,0 +1,293 @@
+"""The dense LM (the port of `repro.models.lm`): attention + SwiGLU MLP
+layers, a tied or separate head, prefill and single-token decode with a
+KV cache (DESIGN.md §3).
+
+Parameters keep the JAX package's names and shapes — wq (D,H,hd), wo
+(H,hd,D), the `blocks/r{r}` groups — so JAX weights carry across
+(`from_numpy`).  Where the JAX stack scans the G layers of each period
+position, `LM` holds them unstacked, layer g*P + r at `blocks[g*P + r]`,
+and `run_stack` is a Python loop.  Caches keep the JAX tree and layout,
+{"r{r}": {"self": {"k", "v"}}} with leaves (G,B,T,KV,hd), allocated at
+capacity once and written in place by prefill and decode.  Public
+functions keep the JAX layout (B,S,H,hd).
+
+The MoE, SSD, cross-attention and encoder branches are not ported yet and
+raise `NotImplementedError` naming their ROADMAP item.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, NamedTuple, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from repro_torch.models import attention as attn_mod
+from repro_torch.models.common import (DTYPES, ParamSpec, init_tree,
+                                       rms_norm, swiglu, tree_items,
+                                       tree_map, zeros_tree)
+
+
+class LayerKind(NamedTuple):
+    mixer: str          # "attn" | "ssd"
+    ffn: str            # "mlp" | "moe" | "none"
+    cross: bool = False
+
+
+def unported(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported yet "
+                               f"(ROADMAP.md §1 item {item})")
+
+
+def layer_kinds(cfg) -> Tuple[LayerKind, ...]:
+    P = cfg.layer_period
+    kinds = []
+    for r in range(P):
+        mixer = "attn" if cfg.is_attn_layer(r) else "ssd"
+        ffn = "moe" if cfg.is_moe_layer(r) else ("mlp" if cfg.d_ff else "none")
+        kinds.append(LayerKind(mixer, ffn, cfg.is_cross_attn_layer(r)))
+    return tuple(kinds)
+
+
+# ---------------------------------------------------------------------------
+# Parameter trees
+# ---------------------------------------------------------------------------
+
+def mlp_params(cfg, dtype):
+    D, F = cfg.d_model, cfg.d_ff
+    return {
+        "wg": ParamSpec((D, F), dtype, ("embed", "mlp")),
+        "wu": ParamSpec((D, F), dtype, ("embed", "mlp")),
+        "wd": ParamSpec((F, D), dtype, ("mlp", "embed")),
+        "pre_norm": ParamSpec((D,), torch.float32, ("unsharded",), "ones"),
+    }
+
+
+def block_params(cfg, kind: LayerKind, dtype):
+    if kind.mixer != "attn":
+        raise unported("the SSD mixer", "10b")
+    if kind.cross:
+        raise unported("cross-attention", "10d")
+    if kind.ffn == "moe":
+        raise unported("the MoE MLP", "10d")
+    p: Dict[str, Any] = {"attn": attn_mod.attention_params(cfg, dtype=dtype)}
+    if kind.ffn == "mlp":
+        p["mlp"] = mlp_params(cfg, dtype)
+    return p
+
+
+def _stack(tree, n: int):
+    return tree_map(lambda ps: ParamSpec((n,) + ps.shape, ps.dtype,
+                                         ("layers",) + ps.axes, ps.init,
+                                         ps.scale), tree)
+
+
+def build_param_specs(cfg, dtype=torch.bfloat16):
+    D, Vp = cfg.d_model, cfg.padded_vocab
+    kinds = layer_kinds(cfg)
+    P = len(kinds)
+    assert cfg.num_layers % P == 0, (cfg.name, cfg.num_layers, P)
+    G = cfg.num_layers // P
+    if cfg.encoder_layers:
+        raise unported("the encoder stack", "10d")
+    params: Dict[str, Any] = {
+        "embed": ParamSpec((Vp, D), dtype, ("vocab", "embed"), "normal"),
+        "final_norm": ParamSpec((D,), torch.float32, ("unsharded",), "ones"),
+        "blocks": {f"r{r}": _stack(block_params(cfg, k, dtype), G)
+                   for r, k in enumerate(kinds)},
+    }
+    if not cfg.tie_embeddings:
+        params["head"] = ParamSpec((D, Vp), dtype, ("embed", "vocab"))
+    return params
+
+
+def cache_specs(cfg, batch: int, cache_cap: int, dtype=torch.bfloat16):
+    """ParamSpec tree for decode caches (leading G per position)."""
+    kinds = layer_kinds(cfg)
+    G = cfg.num_layers // len(kinds)
+    KV, hd = cfg.num_kv_heads, cfg.head_dim
+    out = {}
+    for r, kind in enumerate(kinds):
+        if kind.mixer != "attn":
+            raise unported("the SSD decode state", "10b")
+        if kind.cross:
+            raise unported("the cross-attention cache", "10d")
+        spec = ParamSpec((G, batch, cache_cap, KV, hd), dtype,
+                         ("layers", "batch", "kv_seq", "kv_heads",
+                          "head_dim"), "zeros")
+        out[f"r{r}"] = {"self": {"k": spec, "v": spec}}
+    return out
+
+
+def alloc_caches(cfg, batch: int, cache_cap: int, dtype, device):
+    """Zeroed decode caches at capacity, allocated once; prefill and
+    decode then write into them in place."""
+    return zeros_tree(cache_specs(cfg, batch, cache_cap, dtype), device)
+
+
+# ---------------------------------------------------------------------------
+# Modules
+# ---------------------------------------------------------------------------
+
+class Block(nn.Module):
+    def __init__(self, kind: LayerKind, tree):
+        super().__init__()
+        self.kind = kind
+        self.attn = nn.ParameterDict(tree["attn"])
+        self.mlp = nn.ParameterDict(tree["mlp"]) if "mlp" in tree else None
+
+
+class LM(nn.Module):
+    """The model: `embed` (Vp,D), `final_norm`, `head` (D,Vp) when the
+    embeddings are not tied, and `blocks`, one `Block` per layer whose
+    `attn` and `mlp` map the JAX names to parameters.  Inference only:
+    no parameter takes a gradient.  Applied by `forward`."""
+
+    def __init__(self, cfg, tree):
+        super().__init__()
+        self.cfg = cfg
+        self.kinds = layer_kinds(cfg)
+        P = len(self.kinds)
+        G = cfg.num_layers // P
+        self.embed = nn.Parameter(tree["embed"])
+        self.final_norm = nn.Parameter(tree["final_norm"])
+        self.head = nn.Parameter(tree["head"]) if "head" in tree else None
+        self.blocks = nn.ModuleList(
+            Block(self.kinds[r],
+                  tree_map(lambda a, g=g: a[g], tree["blocks"][f"r{r}"]))
+            for g in range(G) for r in range(P))
+        self.requires_grad_(False)
+
+
+def init_lm(cfg, runcfg, *, seed: int = 0, device=None) -> LM:
+    """Random weights from `seed`, made on `device` by `init_tree`."""
+    device = torch.device(device or "cpu")
+    gen = torch.Generator(device=device).manual_seed(seed)
+    specs = build_param_specs(cfg, DTYPES[runcfg.param_dtype])
+    return LM(cfg, init_tree(gen, specs))
+
+
+def from_numpy(params_np, cfg, runcfg, device=None) -> LM:
+    """The JAX parameter tree (`repro.models.common.init_tree` of
+    `param_specs`) as numpy arrays -> the port's `LM` on `device`.
+    bfloat16 leaves come as their uint16 bits (`a.view(np.uint16)`),
+    since `torch.from_numpy` takes no bfloat16.  Every leaf is copied
+    (JAX's numpy views are read-only).  The model-side
+    counterpart of `core/state.from_numpy`."""
+    device = torch.device(device or "cpu")
+    specs = build_param_specs(cfg, DTYPES[runcfg.param_dtype])
+    tree: Dict[str, Any] = {}
+    for path, spec in tree_items(specs):
+        node = params_np
+        for k in path:
+            node = node[k]
+        a = np.asarray(node)
+        if tuple(a.shape) != tuple(spec.shape):
+            raise ValueError(f"{'/'.join(path)}: shape {a.shape}, expected "
+                             f"{spec.shape}")
+        if spec.dtype == torch.bfloat16:
+            if a.dtype != np.uint16:
+                raise ValueError(f"{'/'.join(path)}: a bfloat16 leaf must "
+                                 f"come as uint16 bits, got {a.dtype}")
+            t = torch.from_numpy(np.array(a)).view(torch.bfloat16)
+        else:
+            t = torch.from_numpy(np.array(a)).to(spec.dtype)
+        out = tree
+        for k in path[:-1]:
+            out = out.setdefault(k, {})
+        out[path[-1]] = t.to(device)
+    return LM(cfg, tree)
+
+
+# ---------------------------------------------------------------------------
+# Layer application
+# ---------------------------------------------------------------------------
+
+def _attn_mixer(p, h, cfg, *, mode, cache, positions, cache_len=None):
+    """Causal self-attention mixer; writes this layer's K/V into `cache`
+    (a cache at capacity) in place.  Returns its output."""
+    B, S, _ = h.shape
+    x = rms_norm(h, p["pre_norm"], cfg.norm_eps)
+    q, k, v = attn_mod._project_qkv(p, x, x, cfg, positions, positions,
+                                    rope=True)
+    ck, cv = cache["k"], cache["v"]
+    if mode == "decode":
+        # The JAX step writes position cache_len[b] with a one-hot select
+        # over the whole cache (elementwise, so a sequence-sharded cache
+        # never sees a scatter).  On one card an indexed write in place
+        # gives the same cache and moves one row per batch entry.  It
+        # needs cache_len < T, as the serve loop's capacity P + G ensures.
+        rows = torch.arange(B, device=h.device)
+        pos = cache_len.long()
+        ck[rows, pos] = k[:, 0].to(ck.dtype)
+        cv[rows, pos] = v[:, 0].to(cv.dtype)
+        o = attn_mod.decode_attention(q, ck, cv, cache_len + 1)
+    else:
+        o = attn_mod.causal_attention(q, k, v)
+        ck[:, :S] = k
+        cv[:, :S] = v
+    wo = p["wo"]
+    return o.reshape(B, S, -1) @ wo.reshape(-1, wo.shape[-1])
+
+
+def apply_block(block: Block, h, cfg, *, mode, cache, positions,
+                cache_len=None):
+    """One layer; `cache` is its {"self": {"k", "v"}} slice.  Returns h."""
+    kind = block.kind
+    if kind.mixer != "attn":
+        raise unported("the SSD mixer", "10b")
+    h = h + _attn_mixer(block.attn, h, cfg, mode=mode, cache=cache["self"],
+                        positions=positions, cache_len=cache_len)
+    if kind.ffn == "mlp":
+        p = block.mlp
+        x = rms_norm(h, p["pre_norm"], cfg.norm_eps)
+        h = h + swiglu(x, p["wg"], p["wu"], p["wd"])
+    elif kind.ffn == "moe":
+        raise unported("the MoE MLP", "10d")
+    return h
+
+
+def run_stack(model: LM, h, *, mode, caches, positions, cache_len=None):
+    """All num_layers layers, layer g*P + r in order, each writing its
+    slice of `caches` (the JAX tree with leading G) in place."""
+    cfg, kinds = model.cfg, model.kinds
+    P = len(kinds)
+    G = cfg.num_layers // P
+    for g in range(G):
+        for r in range(P):
+            h = apply_block(model.blocks[g * P + r], h, cfg, mode=mode,
+                            cache=tree_map(lambda a: a[g], caches[f"r{r}"]),
+                            positions=positions, cache_len=cache_len)
+    return h
+
+
+# ---------------------------------------------------------------------------
+# Whole-model forward
+# ---------------------------------------------------------------------------
+
+def _embed(model: LM, tokens):
+    return model.embed[tokens.long()]
+
+
+def _unembed(model: LM, h):
+    h = rms_norm(h, model.final_norm, model.cfg.norm_eps)
+    head = model.embed.T if model.cfg.tie_embeddings else model.head
+    return h @ head
+
+
+def forward(model: LM, tokens, *, mode: str, caches, cache_len=None):
+    """tokens: (B,S) int.  `caches` are decode caches at capacity T >= S
+    (`alloc_caches`), written in place.  mode "prefill" (positions
+    0..S-1, K/V into cache positions 0..S-1) or "decode" (S = 1 at
+    positions cache_len).  Returns (logits (B,S,Vp), caches)."""
+    if mode not in ("prefill", "decode"):
+        raise unported(f"forward mode {mode!r} (training)", "10c")
+    B, S = tokens.shape
+    if mode == "decode":
+        positions = cache_len[:, None]
+    else:
+        positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
+    h = _embed(model, tokens)
+    h = run_stack(model, h, mode=mode, caches=caches, positions=positions,
+                  cache_len=cache_len)
+    return _unembed(model, h), caches

@@ -7,8 +7,11 @@ imports no JAX, so it runs on a machine that has only the port:
 
 The same inputs on the CPU run the twins, which `test_torch_kernels.py`
 holds bit-equal to the JAX kernels; here the kernel must equal the twin
-bit for bit, floats included, and each launch must count once.  Every op
-takes a leading member axis B; the cases run at B = 1 and at B = 3."""
+bit for bit, floats included, and each launch must count once.  Every
+consensus op takes a leading member axis B; the cases run at B = 1 and at
+B = 3.  The two attention kernels (held to the JAX kernels by
+`test_torch_attention_kernels.py`) match their twins within float32
+2e-4 and bfloat16 3e-2: the sums run in another order."""
 from __future__ import annotations
 
 import numpy as np
@@ -154,3 +157,94 @@ def test_group_reduce(B, G, Fi, Ff, dropped):
     got = gd.group_reduce(*[a.cuda() for a in args], n_groups=G)
     assert gd.group_reduce.launches == n0 + 1
     _equal(gd.group_reduce(*args, n_groups=G), got)
+
+
+# --------------------------------------------------------------------- #
+# the model stack's attention kernels: kernel == twin within tolerance
+# --------------------------------------------------------------------- #
+ATT_TOLS = {torch.float32: dict(rtol=2e-4, atol=2e-4),
+            torch.bfloat16: dict(rtol=3e-2, atol=3e-2)}
+
+
+def _att(rng, shape, dtype):
+    return torch.as_tensor(rng.standard_normal(shape).astype(np.float32)
+                           ).to(dtype)
+
+
+def _close(want, got, dtype):
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().numpy(), **ATT_TOLS[dtype])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S,T,H,KV,hd", [
+    (2, 512, 512, 15, 5, 64), (1, 130, 130, 15, 5, 64), (2, 77, 77, 6, 6, 128),
+    (1, 33, 33, 8, 1, 16), (2, 24, 61, 6, 2, 32), (1, 1, 1, 2, 1, 64)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention(B, S, T, H, KV, hd, dtype):
+    _need_cuda()
+    from repro_torch.kernels.flash_attention import ops as fa
+    rng = np.random.default_rng(B * S + T + H)
+    q, k, v = (_att(rng, (B, S, H, hd), dtype), _att(rng, (B, T, KV, hd), dtype),
+               _att(rng, (B, T, KV, hd), dtype))
+    n0 = fa.flash_attention.launches
+    got = fa.flash_attention(q.cuda(), k.cuda(), v.cuda())
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == n0 + 1
+    _close(fa.flash_attention(q, k, v), got, dtype)
+
+
+@pytest.mark.gpu
+def test_flash_attention_noncausal():
+    _need_cuda()
+    from repro_torch.kernels.flash_attention import ops as fa
+    rng = np.random.default_rng(5)
+    q, k, v = (_att(rng, (2, 70, 6, 64), torch.float32),
+               _att(rng, (2, 90, 2, 64), torch.float32),
+               _att(rng, (2, 90, 2, 64), torch.float32))
+    got = fa.flash_attention(q.cuda(), k.cuda(), v.cuda(), causal=False)
+    _close(fa.flash_attention(q, k, v, causal=False), got, torch.float32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,T,H,KV,hd", [
+    (8, 544, 15, 5, 64), (3, 1000, 8, 1, 64), (4, 77, 16, 2, 128),
+    (2, 33, 8, 4, 16), (32, 4096, 15, 5, 64), (1, 1, 3, 3, 32)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention(B, T, H, KV, hd, dtype):
+    _need_cuda()
+    from repro_torch.kernels.decode_attention import ops as da
+    rng = np.random.default_rng(B * T + H)
+    q, k, v = (_att(rng, (B, 1, H, hd), dtype), _att(rng, (B, T, KV, hd), dtype),
+               _att(rng, (B, T, KV, hd), dtype))
+    clen = torch.as_tensor(rng.integers(1, T + 1, B).astype(np.int32))
+    clen[0], clen[-1] = T, 1
+    n0 = da.decode_attention.launches
+    got = da.decode_attention(q.cuda(), k.cuda(), v.cuda(), clen.cuda())
+    torch.cuda.synchronize()
+    assert da.decode_attention.launches == n0 + 1
+    _close(da.decode_attention(q, k, v, clen), got, dtype)
+    zero = da.decode_attention(q.cuda(), k.cuda(), v.cuda(),
+                               torch.zeros_like(clen).cuda())
+    assert torch.equal(zero.cpu(), torch.zeros_like(zero.cpu()))
+
+
+@pytest.mark.gpu
+def test_reduced_serve_on_the_card():
+    """The reduced model served on the card: flash once per layer per
+    batch, decode once per layer per token, tokens in range."""
+    _need_cuda()
+    from repro_torch import kernels as K_
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.launch.serve import serve
+    cfg = get_config("smollm-360m").reduced().with_layers(2)
+    K_.reset_launch_counts()
+    r = serve(cfg, RunConfig(remat=False), device="cuda", requests=16,
+              batch=8, prompt_len=24, gen_len=5, seed=1)
+    counts = K_.launch_counts()
+    assert counts["flash_attention"] == 2 * 2
+    assert counts["decode_attention"] == 2 * 2 * 5
+    for g in r["generated"]:
+        assert g.shape == (8, 6) and g.min() >= 0 and \
+            g.max() < cfg.padded_vocab

@@ -1,9 +1,9 @@
 """Package rules of the PyTorch port: importing `repro_torch` and every
-one of its modules (the fleet, Multi-Raft and both new kernel families
-included) loads no `jax` module and nothing of the `repro` package
-(checked in a fresh interpreter), importing builds nothing, and an entry
-point given no device runs on the card or raises — it never falls back
-to the CPU silently."""
+one of its modules (the fleet, Multi-Raft, the model stack, the serving
+loop and every kernel family included) loads no `jax` module and
+nothing of the `repro` package (checked in a fresh interpreter),
+importing builds nothing, and an entry point given no device runs on
+the card or raises — it never falls back to the CPU silently."""
 from __future__ import annotations
 
 import os
@@ -37,7 +37,7 @@ def test_port_imports_no_jax_and_no_repro():
                          capture_output=True, text=True, timeout=120,
                          check=True)
     lines = out.stdout.splitlines() + [""]
-    assert int(lines[0]) >= 33, out.stdout
+    assert int(lines[0]) >= 63, out.stdout
     assert lines[1] == "", f"the port imported {lines[1]}"
 
 
@@ -61,6 +61,12 @@ def test_entry_points_need_a_device():
         FleetSim([MemberSpec(cfg=CONFIG)])
     with pytest.raises(RuntimeError, match="device='cpu'"):
         MultiRaftSim(CONFIG)
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.launch.serve import serve
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve(get_config("smollm-360m").reduced(), RunConfig(), requests=1,
+              batch=1, prompt_len=4, gen_len=1)
     assert BWRaftSim(CONFIG, device="cpu").state["kv"].device.type == "cpu"
 
 
