@@ -4,14 +4,16 @@
     python3 chip_smoke.py            # the smoke run on one GPU
     python3 chip_smoke.py --profile  # also profiles 10 ticks of the solo
                                      # and of the fleet path, and a
-                                     # prefill and 4 decode steps of the
-                                     # serve path (device busy share,
+                                     # prefill and 4 decode steps of each
+                                     # serve path, smollm-360m and
+                                     # mamba2-130m (device busy share,
                                      # kernels by name)
 
 Phases, each fatal on failure:
 
 1. print the card's name and power limit, build the CUDA kernels from
-   `src/repro_torch/kernels/csrc/` (one nvcc per source, in parallel);
+   the seven sources of `src/repro_torch/kernels/csrc/` (one nvcc per
+   source, in parallel);
 2. each of the six kernels against its plain PyTorch twin on the same
    CUDA inputs, exact equality (floats included): at the solo path's
    shapes (B=1, N=87, L=4096, K=1024, W=256, A=8), at the fleet path's
@@ -45,18 +47,34 @@ Phases, each fatal on failure:
    serve shapes (flash B=8, S=512, 15 heads over 5, hd=64; decode B=8,
    T=544) and the long ones (flash B=1, S=8192; decode B=32, T=32768),
    with the caches rotated through enough copies to defeat the L2;
-9. serving at full width on the card and the CPU: smollm-360m cut to 2
+9. the SSD scan against its twin on the card: bfloat16 and float32
+   inputs, y in the input dtype and in float32, one chunk and ragged
+   chunks (Q = 48, 100), H = 24, P = 64, N = 128 at B = 1 and 8 (and the
+   reduced P = N = 16), within float32 2e-4 / bfloat16 3e-2; then device
+   times of kernel and twin at the serve shape (x (8,2,256,24,64) bf16,
+   y f32) and the long one (B = 1, S = 65,536: 256 chunks); no single
+   PyTorch call computes the scan, so there is no library time;
+10. serving at full width on the card and the CPU: smollm-360m cut to 2
    layers, B=2, one 128-token prefill and 8 decode steps fed the CPU's
-   greedy tokens; in float32 logits within 1e-3 and greedy tokens equal
-   wherever the CPU's top-2 margin exceeds twice that; in bfloat16 the
-   agreement at 3e-2 is reported (random weights make attention too
-   peaked for a bf16 rounding not to flip some rows);
-10. the serve path: `launch.serve.serve()` on smollm-360m at full width
+   greedy tokens; in float32 logits within 1e-3 and the card's greedy
+   tokens within the tolerance band of the CPU's best; in bfloat16 at
+   most a share SERVE_BF16_SHARE of the logits outside 3e-2 and none
+   beyond SERVE_BF16_MAX (random weights make attention too peaked for a
+   bf16 rounding not to flip some rows);
+11. the same for mamba2-130m cut to 2 layers: B=2, a 300-token prefill
+   (one full chunk of 256 and a ragged one) and 8 decode steps; float32
+   within SSM_F32_TOL (2e-4), bfloat16 gated by SSM_BF16_SHARE /
+   SSM_BF16_MAX;
+12. the serve path: `launch.serve.serve()` on smollm-360m at full width
    and depth (32 layers, bfloat16, random weights from seed 0), 64
    requests in batches of 8, prompt 512, 32 generated tokens, revoke_p
    0.1, with every launch count set to 0 just before and read just
-   after (flash 32 x 8 = 256, decode 32 x 8 x 32 = 8,192);
-11. a `kernels` JSON line, the card line, and the last line
+   after (flash 32 x 8 = 256, decode 32 x 8 x 32 = 8,192, ssd_scan 0),
+   then a sync-free check of a prefill and 2 decode steps;
+13. the same for mamba2-130m at full width and depth (24 SSD layers,
+   bfloat16, seed 0; ssd_scan 24 x 8 = 192, every other kernel 0), and
+   its sync-free check;
+14. a `kernels` JSON line, the card line, and the last line
    `{"ok": true, "device": {...}}`.
 
 Exits non-zero, printing no result, without a CUDA device or outside a
@@ -90,6 +108,15 @@ SERVE_F32_TOL = 1e-3
 # a largest difference of 0.125
 SERVE_BF16_SHARE = 1e-4
 SERVE_BF16_MAX = 0.125
+# card vs CPU logits of the 2-layer full-width mamba2-130m (no attention to
+# amplify rounding).  Chip readings on the H100: float32 all 31,066,112
+# logits within 1e-3, the largest difference 5.7e-5, so the gate is 2e-4;
+# bfloat16 one logit outside 3e-2 (a share of 3.2e-8), the largest 0.0391
+# (a bf16 rounding of a scan weight or projection landing on the other
+# side of a tie), so the gate allows a share of 1e-6 and at most 0.1
+SSM_F32_TOL = 2e-4
+SSM_BF16_SHARE = 1e-6
+SSM_BF16_MAX = 0.1
 L2_DEFEAT_BYTES = 128 * 2 ** 20    # > the 50 MB L2: rotate input copies
 SERVE = dict(requests=64, batch=8, prompt_len=512, gen_len=32,
              revoke_p=0.1, seed=0)
@@ -102,6 +129,7 @@ REPLACES = {
     "group_reduce": "src/repro/kernels/group_digest/kernel.py:61",
     "flash_attention": "src/repro/kernels/flash_attention/kernel.py:64",
     "decode_attention": "src/repro/kernels/decode_attention/kernel.py:57",
+    "ssd_scan": "src/repro/kernels/ssd_scan/kernel.py:79",
 }
 SOURCE = {
     "log_match_append": "src/repro_torch/kernels/csrc/raft_tick.cu",
@@ -112,6 +140,7 @@ SOURCE = {
     "group_reduce": "src/repro_torch/kernels/csrc/group_digest.cu",
     "flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
     "decode_attention": "src/repro_torch/kernels/csrc/decode_attention.cu",
+    "ssd_scan": "src/repro_torch/kernels/csrc/ssd_scan.cu",
 }
 RAFT = ("log_match_append", "commit_majority", "apply_last_wins",
         "leader_fanout", "ae_sync", "group_reduce")
@@ -999,22 +1028,119 @@ def run_attention_checks(dev, long_shapes=True):
 
 
 # --------------------------------------------------------------------- #
-# phase 9: serving, card against CPU; phase 10: the serve path
+# phase 9: the SSD scan against its twin; device times
 # --------------------------------------------------------------------- #
-def run_serve_card_vs_cpu(dev, dtype, layers=2, B=2, S=128, steps=8):
-    """One prefill and `steps` decode steps of smollm-360m at full width
+def ssd_inputs(gen, dev, dtype, B, nc, Q, H, P, N):
+    import torch
+    import torch.nn.functional as F
+    r = lambda *s: torch.randn(s, generator=gen, device=dev)
+    return ((r(B, nc, Q, H, P) * 0.5).to(dtype),
+            (r(B, nc, Q, N) * 0.5).to(dtype), (r(B, nc, Q, N) * 0.5).to(dtype),
+            F.softplus(r(B, nc, Q, H) - 1.0), -torch.exp(r(H) * 0.3))
+
+
+def ssd_work(x, Bm, out_dtype):
+    """Bytes (x, B, C, dt, A read once; y in `out_dtype` and the state
+    written once) and the matmul FLOPs the scan needs: C.B^T once per
+    (batch row, chunk) over the causal pairs, w.x over the causal pairs
+    and x^T.wB per (batch row, chunk, head), C.h_prev per head for every
+    chunk after the first (the first starts from a zero state)."""
+    import torch
+    B, nc, Q, H, P = x.shape
+    N = Bm.shape[-1]
+    pairs = Q * (Q + 1) // 2
+    out_size = torch.empty((), dtype=out_dtype).element_size()
+    nbytes = (x.numel() * (x.element_size() + out_size)
+              + 2 * Bm.numel() * Bm.element_size() + 4 * B * nc * Q * H
+              + 4 * H + 4 * B * H * P * N)
+    flops = (2 * B * nc * pairs * N
+             + 2 * B * nc * H * (pairs * P + Q * P * N)
+             + 2 * B * (nc - 1) * H * Q * N * P)
+    return nbytes, flops
+
+
+def run_ssd_checks(dev):
+    """ssd_scan == its twin on the card within the stated tolerance over
+    the correctness cases; then device times at the serve and the long
+    shape.  Returns {"max_abs_err": x, "cases": n, tag: {ms, plain_ms,
+    library_ms, bytes, flops, dtype}}."""
+    import torch
+    from repro_torch import kernels as K_
+    from repro_torch.kernels.ssd_scan import ops as ss
+    from repro_torch.kernels.ssd_scan import ref as ss_ref
+    gen = torch.Generator(device=dev).manual_seed(0)
+    bf16, f32 = torch.bfloat16, torch.float32
+    res = {"max_abs_err": 0.0, "cases": 0}
+    # (B, nc, Q, H, P, N): one chunk, the serve shape, ragged chunks, the
+    # reduced model's P = N = 16 and a P = 16, N = 128 mix
+    for dt in (bf16, f32):
+        for out in (None, f32):
+            for shape in [(1, 1, 256, 24, 64, 128), (8, 2, 256, 24, 64, 128),
+                          (8, 1, 48, 24, 64, 128), (1, 3, 48, 24, 64, 128),
+                          (2, 4, 16, 8, 16, 16), (2, 2, 100, 3, 16, 128)]:
+                args = ssd_inputs(gen, dev, dt, *shape)
+                y, st = ss.ssd_scan(*args, out_dtype=out)
+                torch.cuda.synchronize()
+                yw, sw = ss_ref.ssd_scan_ref(*args, out_dtype=out)
+                if y.dtype != yw.dtype:
+                    raise AssertionError(f"ssd_scan {shape}: y dtype "
+                                         f"{y.dtype}, twin {yw.dtype}")
+                ctx = shape + (dtype_name(dt), dtype_name(out or dt))
+                err = max(att_compare("ssd_scan y", y, yw, dt, ctx),
+                          att_compare("ssd_scan state", st, sw, dt, ctx))
+                res["max_abs_err"] = max(res["max_abs_err"], err)
+                res["cases"] += 1
+    log(f"kernel ssd_scan: within tolerance of its twin on {res['cases']} "
+        f"cases, max |kernel - twin| {res['max_abs_err']:.3g}")
+    for tag, shape, reps in (("serve", (8, 2, 256, 24, 64, 128), 50),
+                             ("long", (1, 256, 256, 24, 64, 128), 5)):
+        make = lambda: ssd_inputs(gen, dev, bf16, *shape)
+        args = make()
+        nbytes, flops = ssd_work(args[0], args[1], f32)
+        op = lambda a: ss.ssd_scan(*a, out_dtype=f32)
+        nxt = rotating(make, sum(t.numel() * t.element_size() for t in args))
+        ms = device_ms(lambda: op(nxt()), reps, 4_000_000)
+        plain_ms = device_ms(lambda: ss_ref.ssd_scan_ref(*args, out_dtype=f32),
+                             3 if tag == "long" else 20, 40_000_000)
+        res[tag] = dict(ms=ms, plain_ms=plain_ms, library_ms=None,
+                        bytes=nbytes, flops=flops, dtype=bf16)
+        B, nc, Q, H, P, N = shape
+        log(f"kernel ssd_scan [{tag}, B={B}, S={nc * Q} ({nc} chunks of "
+            f"{Q}), H={H}, P={P}, N={N}, bf16 in, f32 y]: {ms * 1e3:.2f} us "
+            f"(twin {plain_ms * 1e3:.2f} us, library none), {nbytes} B, "
+            f"{flops} matmul FLOPs, bound "
+            f"{att_bound_ms(nbytes, flops, bf16) * 1e3:.2f} us by "
+            f"{att_bound_by(nbytes, flops, bf16)}; {B * H} blocks")
+        del args, nxt
+        torch.cuda.empty_cache()
+    K_.reset_launch_counts()
+    return res
+
+
+# --------------------------------------------------------------------- #
+# phases 10-11: serving, card against CPU; phases 12-13: the serve paths
+# --------------------------------------------------------------------- #
+SERVE_GATES = {   # arch: (float32 tol, bfloat16 share, bfloat16 max)
+    "smollm-360m": (SERVE_F32_TOL, SERVE_BF16_SHARE, SERVE_BF16_MAX),
+    "mamba2-130m": (SSM_F32_TOL, SSM_BF16_SHARE, SSM_BF16_MAX),
+}
+
+
+def run_serve_card_vs_cpu(dev, dtype, arch="smollm-360m", layers=2, B=2,
+                          S=128, steps=8):
+    """One prefill and `steps` decode steps of `arch` at full width
     (`layers` layers) on the card and on the CPU from the same weights
     and tokens; the decode steps are fed the CPU's greedy tokens.
 
-    Logits: float32 all within SERVE_F32_TOL; bfloat16 at most a share
-    SERVE_BF16_SHARE outside 3e-2 and none further than SERVE_BF16_MAX
-    (the random weights -- the JAX fan-in rule gives wq a std of
-    1/sqrt(H) -- make attention scores hundreds wide, so a bf16 rounding
-    can flip which key a row attends to and move that row's logits past
-    3e-2 on either device).  Greedy tokens, both dtypes: the card's token
-    must be one whose CPU logit is within twice the tolerance band
-    tol (1 + |top|) of the CPU's best, so the tokens are equal wherever
-    the CPU's top-2 margin exceeds that."""
+    Logits (limits by arch in SERVE_GATES): float32 all within the f32
+    tolerance; bfloat16 at most a share outside 3e-2 and none further
+    than a maximum (for smollm the random weights -- the JAX fan-in rule
+    gives wq a std of 1/sqrt(H) -- make attention scores hundreds wide,
+    so a bf16 rounding can flip which key a row attends to and move that
+    row's logits past 3e-2 on either device).  Greedy tokens, both
+    dtypes: the card's token must be one whose CPU logit is within twice
+    the tolerance band tol (1 + |top|) of the CPU's best, so the tokens
+    are equal wherever the CPU's top-2 margin exceeds that."""
     import copy
     import numpy as np
     import torch
@@ -1023,12 +1149,13 @@ def run_serve_card_vs_cpu(dev, dtype, layers=2, B=2, S=128, steps=8):
     from repro_torch.models import lm
     torch.backends.cuda.matmul.allow_tf32 = False    # full f32 products
     name = dtype_name(dtype)
-    cfg = get_config("smollm-360m").with_layers(layers)
+    cfg = get_config(arch).with_layers(layers)
     runcfg = RunConfig(remat=False, param_dtype=name, activation_dtype=name)
     cpu = torch.device("cpu")
     m_cpu = lm.init_lm(cfg, runcfg, seed=1, device=cpu)
     m_gpu = copy.deepcopy(m_cpu).to(dev)
-    tol = SERVE_F32_TOL if name == "float32" else ATT_TOL[name]
+    f32_tol, bf16_share, bf16_max = SERVE_GATES[arch]
+    tol = f32_tol if name == "float32" else ATT_TOL[name]
     toks = torch.as_tensor(np.random.default_rng(1).integers(
         0, cfg.vocab_size, (B, S)).astype(np.int32))
     c_cpu = lm.alloc_caches(cfg, B, S + steps, dtype, cpu)
@@ -1041,7 +1168,7 @@ def run_serve_card_vs_cpu(dev, dtype, layers=2, B=2, S=128, steps=8):
         pos = torch.full((B,), S, dtype=torch.int32)
         for step in range(steps + 1):
             a, b = l_gpu.float().cpu(), l_cpu.float()
-            where = f"serve card-vs-CPU {name} step {step}"
+            where = f"serve card-vs-CPU {arch} {name} step {step}"
             if not torch.isfinite(a).all():
                 raise AssertionError(f"{where}: non-finite logits on the "
                                      f"card")
@@ -1050,9 +1177,9 @@ def run_serve_card_vs_cpu(dev, dtype, layers=2, B=2, S=128, steps=8):
             max_err = max(max_err, (a - b).abs().max().item())
             if name == "float32" and n_out:
                 raise AssertionError(f"{where}: {n_out} logits outside {tol}")
-            if name == "bfloat16" and max_err > SERVE_BF16_MAX:
+            if name == "bfloat16" and max_err > bf16_max:
                 raise AssertionError(f"{where}: max |card - CPU| {max_err:.4g}"
-                                     f" > {SERVE_BF16_MAX}")
+                                     f" > {bf16_max}")
             top = b[:, -1].max(-1).values
             band = 2 * (tol + tol * top.abs())
             second = b[:, -1].topk(2, dim=-1).values[:, 1]
@@ -1073,28 +1200,31 @@ def run_serve_card_vs_cpu(dev, dtype, layers=2, B=2, S=128, steps=8):
                                   caches=c_gpu, cache_len=pos.to(dev))
             pos = pos + 1
     share = n_out / n_all
-    log(f"serve card vs CPU (smollm-360m, {layers} layers, {name}, B={B}, "
+    log(f"serve card vs CPU ({arch}, {layers} layers, {name}, B={B}, "
         f"prefill {S} + {steps} decode steps): {n_all - n_out}/{n_all} "
         f"logits within {tol} (share outside {share:.3g}), max |card - CPU| "
         f"{max_err:.3g}; greedy tokens equal on {n_tok}/{B * (steps + 1)} "
         f"positions, {n_cmp} of them with a top-2 margin over {2 * tol} "
         f"(1 + |top|)")
-    if name == "bfloat16" and share > SERVE_BF16_SHARE:
-        raise AssertionError(f"serve card-vs-CPU bfloat16: {n_out} of "
-                             f"{n_all} logits outside {tol}, a share of "
-                             f"{share:.3g} > {SERVE_BF16_SHARE}")
+    if name == "bfloat16" and share > bf16_share:
+        raise AssertionError(f"serve card-vs-CPU {arch} bfloat16: {n_out} "
+                             f"of {n_all} logits outside {tol}, a share of "
+                             f"{share:.3g} > {bf16_share}")
 
 
-def run_serve_path(dev):
-    """`serve()` on smollm-360m at full width and depth on the card, with
-    the launch counts set to 0 just before and read just after."""
+def run_serve_path(dev, arch="smollm-360m"):
+    """`serve()` on `arch` at full width and depth on the card, with the
+    launch counts set to 0 just before and read just after: every
+    attention layer launches flash once per batch and decode once per
+    token, every SSD layer ssd_scan once per batch, and nothing else
+    launches."""
     import torch
     from repro_torch import kernels as K_
     from repro_torch.configs import get_config
     from repro_torch.configs.base import RunConfig
     from repro_torch.launch.serve import serve, summary_line
     from repro_torch.models import lm
-    cfg = get_config("smollm-360m")
+    cfg = get_config(arch)
     runcfg = RunConfig(remat=False)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1102,20 +1232,28 @@ def run_serve_path(dev):
     model = lm.init_lm(cfg, runcfg, seed=SERVE["seed"], device=dev)
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in model.parameters())
-    log(f"serve: smollm-360m, {cfg.num_layers} layers, d_model "
-        f"{cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads, "
+    kinds = lm.layer_kinds(cfg)
+    n_attn = sum(k.mixer == "attn" for k in kinds) * (
+        cfg.num_layers // len(kinds))
+    n_ssd = cfg.num_layers - n_attn
+    heads = (f"{cfg.num_heads}/{cfg.num_kv_heads} heads" if n_attn else
+             f"{cfg.ssm_heads} SSD heads of {cfg.ssm_head_dim}, state "
+             f"{cfg.ssm_state}, chunk {cfg.ssm_chunk}")
+    log(f"serve: {arch}, {cfg.num_layers} layers, d_model "
+        f"{cfg.d_model}, {heads}, "
         f"{n_params} parameters in bf16, made in "
         f"{(time.perf_counter() - t0) * 1e3:.0f} ms; {json.dumps(SERVE)}")
     K_.reset_launch_counts()
     r = serve(cfg, runcfg, params=model, device=dev, **SERVE)
     counts = K_.launch_counts()
     peak = torch.cuda.max_memory_allocated() / 2 ** 20
-    B, G, L = SERVE["batch"], SERVE["gen_len"], cfg.num_layers
+    B, G = SERVE["batch"], SERVE["gen_len"]
     n_batches = len(r["generated"])
     log(summary_line(r))
-    want = {"flash_attention": L * n_batches,
-            "decode_attention": L * n_batches * G}
-    log(f"launches on the serve path: {json.dumps(counts)}")
+    want = {"flash_attention": n_attn * n_batches,
+            "decode_attention": n_attn * n_batches * G,
+            "ssd_scan": n_ssd * n_batches}
+    log(f"launches on the {arch} serve path: {json.dumps(counts)}")
     for name, n in counts.items():
         if n != want.get(name, 0):
             raise AssertionError(f"{name} launched {n} times on the serve "
@@ -1128,7 +1266,7 @@ def run_serve_path(dev):
     steady = slice(1, None)           # batch 0 pays the first-call set-up
     pre = statistics.median(r["prefill_ms"][steady])
     dec = statistics.median(r["decode_ms"][steady]) / G
-    log(f"serve: {r['tok_per_s']:.1f} generated tokens/s over "
+    log(f"serve {arch}: {r['tok_per_s']:.1f} generated tokens/s over "
         f"{r['seconds']:.2f} s; prefill {pre:.2f} ms per batch of "
         f"{B} x {SERVE['prompt_len']} (median of batches 1-"
         f"{n_batches - 1}; batch 0 {r['prefill_ms'][0]:.1f} ms); decode "
@@ -1167,7 +1305,8 @@ def check_serve_sync_free(model, dev):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
-    log(f"serve sync check: a prefill and 2 decode steps {verdict}")
+    log(f"serve sync check ({cfg.name}): a prefill and 2 decode steps "
+        f"{verdict}")
 
 
 def run_serve_profile(model, dev, steps=4):
@@ -1206,7 +1345,8 @@ def run_serve_profile(model, dev, steps=4):
                if e.self_device_time_total > 0
                and not e.key.startswith("aten::")]
         dev_us = sum(e.self_device_time_total for e in evs)
-        log(f"{tag} profile over {n} step(s): wall {wall * 1e3 / n:.3f} "
+        log(f"{cfg.name} {tag} profile over {n} step(s): wall "
+            f"{wall * 1e3 / n:.3f} "
             f"ms/step, device busy {dev_us / 1e3 / n:.3f} ms/step "
             f"({100 * dev_us / 1e6 / wall:.1f}% of wall), "
             f"{sum(e.count for e in evs) / n:.0f} device kernels/step")
@@ -1219,7 +1359,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
                     help="also profile 10 ticks of the solo and fleet "
-                    "paths and a prefill and 4 decode steps of serving")
+                    "paths and a prefill and 4 decode steps of each "
+                    "serve path")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -1266,10 +1407,15 @@ def main() -> int:
                     fleet._cfg_c, CONFIG.period_ticks, fleet._gids,
                     fleet.n_groups)
     att = run_attention_checks(dev)
+    ssd = run_ssd_checks(dev)
     run_serve_card_vs_cpu(dev, torch.float32)
     run_serve_card_vs_cpu(dev, torch.bfloat16)
+    for dt in (torch.float32, torch.bfloat16):
+        run_serve_card_vs_cpu(dev, dt, arch="mamba2-130m", S=300)
     model, serve_counts, _ = run_serve_path(dev)
     check_serve_sync_free(model, dev)
+    mamba, mamba_counts, _ = run_serve_path(dev, "mamba2-130m")
+    check_serve_sync_free(mamba, dev)
     if args.profile:
         b = sim.draws.epoch(10, sim.state, sim.cfg_c)
         run_profile("solo", SM.batch1(sim.state), sim.static_t,
@@ -1279,6 +1425,7 @@ def main() -> int:
                     fleet_epoch(fleet.draws, 10, fleet.state, fleet._cfg_c),
                     10)
         run_serve_profile(model, dev)
+        run_serve_profile(mamba, dev)
     kernels = []
     for name in RAFT:
         r = results[name]["fleet"]
@@ -1314,6 +1461,18 @@ def main() -> int:
                 bound_ms_long=att_bound_ms(g["bytes"], g["flops"],
                                            g["dtype"]))
         kernels.append(entry)
+    r, g = ssd["serve"], ssd["long"]
+    kernels.append({
+        "name": "ssd_scan", "route": "cuda", "source": SOURCE["ssd_scan"],
+        "replaces": REPLACES["ssd_scan"],
+        "launches": mamba_counts["ssd_scan"],
+        "max_abs_err": ssd["max_abs_err"], "ms": r["ms"],
+        "plain_ms": r["plain_ms"],
+        "bound_ms": att_bound_ms(r["bytes"], r["flops"], r["dtype"]),
+        "bound_by": att_bound_by(r["bytes"], r["flops"], r["dtype"]),
+        "library_ms": None, "ms_long": g["ms"],
+        "plain_ms_long": g["plain_ms"], "library_ms_long": None,
+        "bound_ms_long": att_bound_ms(g["bytes"], g["flops"], g["dtype"])})
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(card)

@@ -1,6 +1,6 @@
 """Hand-written CUDA kernels of the port, one family per Pallas family
-of `repro.kernels` (DESIGN.md §8; the two attention families serve the
-model stack, DESIGN.md §3).
+of `repro.kernels` (DESIGN.md §8; the two attention families and the SSD
+scan serve the model stack, DESIGN.md §3).
 
 Each family is `kernel.py` (the ctypes launcher of `csrc/<family>.cu`),
 `ref.py` (the plain PyTorch twin) and `ops.py` (the public op).  An op
@@ -17,7 +17,7 @@ import torch
 
 OPS = ("log_match_append", "commit_majority", "apply_last_wins",
        "leader_fanout", "ae_sync", "group_reduce", "flash_attention",
-       "decode_attention")
+       "decode_attention", "ssd_scan")
 
 
 def _ops():
@@ -27,6 +27,7 @@ def _ops():
     from repro_torch.kernels.group_digest import ops as gd
     from repro_torch.kernels.leader_fanout import ops as lf
     from repro_torch.kernels.raft_tick import ops as rt
+    from repro_torch.kernels.ssd_scan import ops as ss
     return {"log_match_append": rt.log_match_append,
             "commit_majority": rt.commit_majority,
             "apply_last_wins": rt.apply_last_wins,
@@ -34,7 +35,8 @@ def _ops():
             "ae_sync": ae.ae_sync,
             "group_reduce": gd.group_reduce,
             "flash_attention": fa.flash_attention,
-            "decode_attention": da.decode_attention}
+            "decode_attention": da.decode_attention,
+            "ssd_scan": ss.ssd_scan}
 
 
 def launch_counts() -> Dict[str, int]:

@@ -21,7 +21,7 @@ PKG_DIR = Path(__file__).resolve().parent
 CSRC = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 SOURCES = ("raft_tick", "leader_fanout", "ae_sync", "group_digest",
-           "flash_attention", "decode_attention")
+           "flash_attention", "decode_attention", "ssd_scan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

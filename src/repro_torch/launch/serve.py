@@ -7,14 +7,19 @@ Usage:
   python -m repro_torch.launch.serve --no-reduced --prompt-len 512 \
       --gen-len 32                              # full width, on the card
   python -m repro_torch.launch.serve --device cpu   # the twins, on the CPU
+  python -m repro_torch.launch.serve --arch mamba2-130m --no-reduced
+  python -m repro_torch.launch.serve --arch mamba2-130m --device cpu
 
 `--reduced` keeps the reference's default (the reduced model) but can be
 turned off: the JAX CLI declares it `store_true` with default True and so
 can never serve full width.  The loop is the reference's; `serve()` is it
 as a function that takes carried weights (`models.lm.from_numpy`) and
-returns what it generated and timed.  The caches are allocated at
-capacity P + G once, and each batch's prefill writes its prompt into
-them, where the reference pads fresh prefill caches to capacity.
+returns what it generated and timed.  The caches (K/V for attention
+layers, states and conv tails for SSD layers) are allocated at capacity
+P + G once, and each batch's prefill writes into them, where the
+reference pads fresh prefill caches to capacity by shape (and so, for an
+SSM model, also pads the SSM state when P equals the head count, and
+the conv tails when P is the conv width less one).
 """
 from __future__ import annotations
 

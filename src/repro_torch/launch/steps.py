@@ -23,7 +23,7 @@ def param_specs(cfg: ModelConfig, runcfg: RunConfig):
 
 def decode_state_specs(cfg: ModelConfig, shape: ShapeConfig,
                        runcfg: RunConfig):
-    """Serving state: KV caches + position counter."""
+    """Serving state: KV/SSM caches + position counter."""
     B, T = shape.global_batch, shape.seq_len
     layers = lm.cache_specs(cfg, B, T, DTYPES[runcfg.activation_dtype])
     return {"pos": ParamSpec((B,), torch.int32, ("batch",), "zeros"),
@@ -35,7 +35,8 @@ def make_prefill_step(cfg: ModelConfig, runcfg: RunConfig):
     def prefill_step(model, batch, layers):
         """batch["tokens"]: (B,S); `layers`: caches at capacity
         (`lm.alloc_caches`), whose first S positions take the prompt's
-        K/V.  Returns (next_token (B,) int32, caches {"pos", "layers"})."""
+        K/V and whose SSM leaves take the states after the prompt.
+        Returns (next_token (B,) int32, caches {"pos", "layers"})."""
         tokens = batch["tokens"]
         logits, layer_caches = lm.forward(model, tokens, mode="prefill",
                                           caches=layers)

@@ -1,17 +1,20 @@
-"""The dense LM (the port of `repro.models.lm`): attention + SwiGLU MLP
-layers, a tied or separate head, prefill and single-token decode with a
-KV cache (DESIGN.md §3).
+"""The LM stack (the port of `repro.models.lm`): dense attention + SwiGLU
+MLP layers and attention-free SSD layers (mamba2), a tied or separate
+head, prefill and single-token decode with per-layer caches (DESIGN.md
+§3).
 
 Parameters keep the JAX package's names and shapes — wq (D,H,hd), wo
 (H,hd,D), the `blocks/r{r}` groups — so JAX weights carry across
 (`from_numpy`).  Where the JAX stack scans the G layers of each period
 position, `LM` holds them unstacked, layer g*P + r at `blocks[g*P + r]`,
 and `run_stack` is a Python loop.  Caches keep the JAX tree and layout,
-{"r{r}": {"self": {"k", "v"}}} with leaves (G,B,T,KV,hd), allocated at
-capacity once and written in place by prefill and decode.  Public
-functions keep the JAX layout (B,S,H,hd).
+{"r{r}": {"self": {"k", "v"}}} with leaves (G,B,T,KV,hd) for attention
+and {"r{r}": {"ssm": {"ssm", "conv_x", "conv_B", "conv_C"}}} with leaves
+(G,B,...) for SSD layers, allocated at capacity once and written in
+place by prefill and decode.  Public functions keep the JAX layout
+(B,S,H,hd).
 
-The MoE, SSD, cross-attention and encoder branches are not ported yet and
+The MoE, cross-attention and encoder branches are not ported yet and
 raise `NotImplementedError` naming their ROADMAP item.
 """
 from __future__ import annotations
@@ -23,6 +26,7 @@ import torch
 from torch import nn
 
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import ssd as ssd_mod
 from repro_torch.models.common import (DTYPES, ParamSpec, init_tree,
                                        rms_norm, swiglu, tree_items,
                                        tree_map, zeros_tree)
@@ -64,13 +68,15 @@ def mlp_params(cfg, dtype):
 
 
 def block_params(cfg, kind: LayerKind, dtype):
-    if kind.mixer != "attn":
-        raise unported("the SSD mixer", "10b")
     if kind.cross:
         raise unported("cross-attention", "10d")
     if kind.ffn == "moe":
         raise unported("the MoE MLP", "10d")
-    p: Dict[str, Any] = {"attn": attn_mod.attention_params(cfg, dtype=dtype)}
+    p: Dict[str, Any] = {}
+    if kind.mixer == "attn":
+        p["attn"] = attn_mod.attention_params(cfg, dtype=dtype)
+    else:
+        p["ssd"] = ssd_mod.ssd_params(cfg, dtype)
     if kind.ffn == "mlp":
         p["mlp"] = mlp_params(cfg, dtype)
     return p
@@ -102,20 +108,33 @@ def build_param_specs(cfg, dtype=torch.bfloat16):
 
 
 def cache_specs(cfg, batch: int, cache_cap: int, dtype=torch.bfloat16):
-    """ParamSpec tree for decode caches (leading G per position)."""
+    """ParamSpec tree for decode caches (leading G per position): K/V at
+    capacity `cache_cap` for attention layers; for SSD layers the state,
+    float32 whatever `dtype`, and the conv tails in `dtype`."""
     kinds = layer_kinds(cfg)
     G = cfg.num_layers // len(kinds)
     KV, hd = cfg.num_kv_heads, cfg.head_dim
+
+    def spec(shape, axes, dt=dtype):
+        return ParamSpec((G, batch) + shape, dt, ("layers", "batch") + axes,
+                         "zeros")
+
     out = {}
     for r, kind in enumerate(kinds):
-        if kind.mixer != "attn":
-            raise unported("the SSD decode state", "10b")
         if kind.cross:
             raise unported("the cross-attention cache", "10d")
-        spec = ParamSpec((G, batch, cache_cap, KV, hd), dtype,
-                         ("layers", "batch", "kv_seq", "kv_heads",
-                          "head_dim"), "zeros")
-        out[f"r{r}"] = {"self": {"k": spec, "v": spec}}
+        if kind.mixer == "attn":
+            kv = spec((cache_cap, KV, hd), ("kv_seq", "kv_heads", "head_dim"))
+            out[f"r{r}"] = {"self": {"k": kv, "v": kv}}
+            continue
+        H, P, N = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
+        W, DI = cfg.ssm_conv, cfg.d_inner
+        out[f"r{r}"] = {"ssm": {
+            "ssm": spec((H, P, N), ("ssm_heads", None, "ssm_state"),
+                        torch.float32),
+            "conv_x": spec((W - 1, DI), (None, "ssm_inner")),
+            "conv_B": spec((W - 1, N), (None, "ssm_state")),
+            "conv_C": spec((W - 1, N), (None, "ssm_state"))}}
     return out
 
 
@@ -133,15 +152,17 @@ class Block(nn.Module):
     def __init__(self, kind: LayerKind, tree):
         super().__init__()
         self.kind = kind
-        self.attn = nn.ParameterDict(tree["attn"])
+        self.attn = nn.ParameterDict(tree["attn"]) if "attn" in tree else None
+        self.ssd = nn.ParameterDict(tree["ssd"]) if "ssd" in tree else None
         self.mlp = nn.ParameterDict(tree["mlp"]) if "mlp" in tree else None
 
 
 class LM(nn.Module):
     """The model: `embed` (Vp,D), `final_norm`, `head` (D,Vp) when the
     embeddings are not tied, and `blocks`, one `Block` per layer whose
-    `attn` and `mlp` map the JAX names to parameters.  Inference only:
-    no parameter takes a gradient.  Applied by `forward`."""
+    `attn` or `ssd`, and `mlp`, map the JAX names to parameters.
+    Inference only: no parameter takes a gradient.  Applied by
+    `forward`."""
 
     def __init__(self, cfg, tree):
         super().__init__()
@@ -230,14 +251,30 @@ def _attn_mixer(p, h, cfg, *, mode, cache, positions, cache_len=None):
     return o.reshape(B, S, -1) @ wo.reshape(-1, wo.shape[-1])
 
 
+def _ssd_mixer(p, h, cfg, *, mode, cache):
+    """SSD mixer: prefill scans the prompt from a zero state (any state in
+    `cache` is ignored, as in the JAX model) and copies the final state
+    into `cache`; decode updates `cache` in place.  Returns its output."""
+    x = rms_norm(h, p["pre_norm"], cfg.norm_eps)
+    if mode == "decode":
+        return ssd_mod.ssd_decode(p, x, cache, cfg)[0]
+    o, state = ssd_mod.ssd_apply(p, x, cfg)
+    for k, v in state.items():
+        cache[k].copy_(v)
+    return o
+
+
 def apply_block(block: Block, h, cfg, *, mode, cache, positions,
                 cache_len=None):
-    """One layer; `cache` is its {"self": {"k", "v"}} slice.  Returns h."""
+    """One layer; `cache` is its {"self": {"k", "v"}} (attention) or
+    {"ssm": {...}} (SSD) slice.  Returns h."""
     kind = block.kind
-    if kind.mixer != "attn":
-        raise unported("the SSD mixer", "10b")
-    h = h + _attn_mixer(block.attn, h, cfg, mode=mode, cache=cache["self"],
-                        positions=positions, cache_len=cache_len)
+    if kind.mixer == "attn":
+        h = h + _attn_mixer(block.attn, h, cfg, mode=mode,
+                            cache=cache["self"], positions=positions,
+                            cache_len=cache_len)
+    else:
+        h = h + _ssd_mixer(block.ssd, h, cfg, mode=mode, cache=cache["ssm"])
     if kind.ffn == "mlp":
         p = block.mlp
         x = rms_norm(h, p["pre_norm"], cfg.norm_eps)
@@ -278,8 +315,9 @@ def _unembed(model: LM, h):
 def forward(model: LM, tokens, *, mode: str, caches, cache_len=None):
     """tokens: (B,S) int.  `caches` are decode caches at capacity T >= S
     (`alloc_caches`), written in place.  mode "prefill" (positions
-    0..S-1, K/V into cache positions 0..S-1) or "decode" (S = 1 at
-    positions cache_len).  Returns (logits (B,S,Vp), caches)."""
+    0..S-1, K/V into cache positions 0..S-1, SSD states after token S-1)
+    or "decode" (S = 1 at positions cache_len).  Returns (logits
+    (B,S,Vp), caches)."""
     if mode not in ("prefill", "decode"):
         raise unported(f"forward mode {mode!r} (training)", "10c")
     B, S = tokens.shape

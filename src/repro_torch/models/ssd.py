@@ -1,0 +1,171 @@
+"""Mamba2-style SSD (state-space duality) block (the port of
+`repro.models.ssd`): per-head scalar decay ``a_t = exp(-softplus(dt) *
+exp(A_log))``, rank-1 state updates ``h_t = a_t h_{t-1} + dt_t (B_t ⊗
+x_t)`` with shared (G=1) B/C projections, computed chunk-parallel in
+prefill and one token at a time in decode (arXiv:2405.21060).
+
+`ssd_apply` runs the chunked scan through the `ssd_scan` op, so on the
+card it is the hand-written kernel (`kernels/csrc/ssd_scan.cu`) and on
+the CPU its plain twin.  The op accumulates both chunk products in
+float32, as the Pallas kernel does, where the JAX `ssd_apply` rounds
+its intra-chunk output and chunk states to the activation dtype; in
+float32 the two agree to rounding, in bfloat16 by one bf16 rounding.
+The JAX forms' `unroll` (a Python loop over chunks for the roofline
+path) and `cn` (a sharding constrainer) have no meaning on one card and
+are dropped.
+
+Parameters keep the JAX names and shapes.  The decode state is the JAX
+cache, {"ssm" (B,H,P,N) float32, "conv_x" (B,W-1,DI), "conv_B",
+"conv_C" (B,W-1,N)} in the activation dtype; `ssd_decode` updates it in
+place.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels.ssd_scan.ops import ssd_scan
+from repro_torch.models.common import ParamSpec, rms_norm
+
+
+def ssd_params(cfg, dtype=torch.bfloat16):
+    D = cfg.d_model
+    DI = cfg.d_inner
+    N = cfg.ssm_state
+    H = cfg.ssm_heads
+    W = cfg.ssm_conv
+    f32 = torch.float32
+    return {
+        "wz": ParamSpec((D, DI), dtype, ("embed", "ssm_inner")),
+        "wx": ParamSpec((D, DI), dtype, ("embed", "ssm_inner")),
+        "wB": ParamSpec((D, N), dtype, ("embed", "ssm_state")),
+        "wC": ParamSpec((D, N), dtype, ("embed", "ssm_state")),
+        "wdt": ParamSpec((D, H), dtype, ("embed", "ssm_heads")),
+        "conv_x": ParamSpec((W, DI), dtype, ("conv", "ssm_inner"), "normal",
+                            0.5),
+        "conv_B": ParamSpec((W, N), dtype, ("conv", "ssm_state"), "normal",
+                            0.5),
+        "conv_C": ParamSpec((W, N), dtype, ("conv", "ssm_state"), "normal",
+                            0.5),
+        "A_log": ParamSpec((H,), f32, ("ssm_heads",), "zeros"),
+        "D_skip": ParamSpec((H,), f32, ("ssm_heads",), "ones"),
+        "dt_bias": ParamSpec((H,), f32, ("ssm_heads",), "zeros"),
+        "gate_norm": ParamSpec((DI,), f32, ("ssm_inner",), "ones"),
+        "out_proj": ParamSpec((DI, D), dtype, ("ssm_inner", "embed")),
+        "pre_norm": ParamSpec((D,), f32, ("unsharded",), "ones"),
+    }
+
+
+def _causal_conv(x, w, state=None):
+    """Depthwise causal conv. x:(B,S,C), w:(W,C). state:(B,W-1,C) or None
+    (zero padding).  Returns (y, new_state), new_state the last W-1
+    inputs."""
+    W = w.shape[0]
+    if state is None:
+        xp = F.pad(x, (0, 0, W - 1, 0))
+    else:
+        xp = torch.cat([state.to(x.dtype), x], dim=1)
+    y = sum(xp[:, i:i + x.shape[1], :] * w[i] for i in range(W))
+    return y, xp[:, xp.shape[1] - (W - 1):, :]
+
+
+def _project(p, x):
+    z = x @ p["wz"]
+    xs = x @ p["wx"]
+    Bm = x @ p["wB"]
+    Cm = x @ p["wC"]
+    dt = F.softplus((x @ p["wdt"]).float() + p["dt_bias"])
+    return z, xs, Bm, Cm, dt
+
+
+def _silu(t, dtype):
+    return F.silu(t.float()).to(dtype)
+
+
+def _gate_out(p, y, z, x_dtype, cfg):
+    """rms_norm on gate_norm, the silu(z) gate and out_proj (y float32)."""
+    y = rms_norm(y, p["gate_norm"], cfg.norm_eps)
+    y = y * _silu(z, y.dtype)
+    return y.to(x_dtype) @ p["out_proj"]
+
+
+def ssd_apply(p, x, cfg):
+    """Prefill path from a zero state. x:(B,S,D) -> (y:(B,S,D), final
+    state {"ssm", "conv_x", "conv_B", "conv_C"}).  A tail that does not
+    fill a chunk is padded after the projection with dt = 0, so the
+    padded steps are exact no-ops and the state is the state at S."""
+    B, S, _ = x.shape
+    H, P, N = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
+    Q = min(cfg.ssm_chunk, S)
+    S_pad = -(-S // Q) * Q
+
+    z, xs, Bm, Cm, dt = _project(p, x)
+    xs, conv_x_st = _causal_conv(xs, p["conv_x"])
+    Bm, conv_B_st = _causal_conv(Bm, p["conv_B"])
+    Cm, conv_C_st = _causal_conv(Cm, p["conv_C"])
+    xs, Bm, Cm = (_silu(t, x.dtype) for t in (xs, Bm, Cm))
+    if S_pad != S:
+        pad = (0, 0, 0, S_pad - S)
+        xs, Bm, Cm, dt = (F.pad(t, pad) for t in (xs, Bm, Cm, dt))
+    nc = S_pad // Q
+
+    xh = xs.reshape(B, nc, Q, H, P)
+    A = -torch.exp(p["A_log"])
+    y, h_last = ssd_scan(xh, Bm.reshape(B, nc, Q, N).contiguous(),
+                         Cm.reshape(B, nc, Q, N).contiguous(),
+                         dt.reshape(B, nc, Q, H).contiguous(), A,
+                         out_dtype=torch.float32)
+    y = y + xh.float() * p["D_skip"][:, None]
+    y = y.reshape(B, S_pad, H * P)[:, :S]
+    out = _gate_out(p, y, z, x.dtype, cfg)
+    state = {"ssm": h_last, "conv_x": conv_x_st.to(x.dtype),
+             "conv_B": conv_B_st.to(x.dtype),
+             "conv_C": conv_C_st.to(x.dtype)}
+    return out, state
+
+
+def ssd_init_cache(cfg, batch: int, dtype=torch.bfloat16, device=None):
+    H, P, N = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
+    W, DI = cfg.ssm_conv, cfg.d_inner
+    z = lambda *s, dt=dtype: torch.zeros(s, dtype=dt, device=device)
+    return {"ssm": z(batch, H, P, N, dt=torch.float32),
+            "conv_x": z(batch, W - 1, DI), "conv_B": z(batch, W - 1, N),
+            "conv_C": z(batch, W - 1, N)}
+
+
+def ssd_decode(p, x, cache, cfg):
+    """Single-token step in plain torch. x:(B,1,D); `cache` as from
+    `ssd_init_cache`, updated in place.  Returns (y (B,1,D), cache)."""
+    B = x.shape[0]
+    H, P = cfg.ssm_heads, cfg.ssm_head_dim
+    z, xs, Bm, Cm, dt = _project(p, x)
+    xs, cx = _causal_conv(xs, p["conv_x"], cache["conv_x"])
+    Bm, cb = _causal_conv(Bm, p["conv_B"], cache["conv_B"])
+    Cm, cc = _causal_conv(Cm, p["conv_C"], cache["conv_C"])
+    xs = F.silu(xs.float())[:, 0]                          # (B,DI)
+    Bm = F.silu(Bm.float())[:, 0]                          # (B,N)
+    Cm = F.silu(Cm.float())[:, 0]
+    dt = dt[:, 0]                                          # (B,H)
+    xh = xs.reshape(B, H, P)
+    a = torch.exp(-torch.exp(p["A_log"]) * dt)             # (B,H)
+    upd = (dt[..., None] * xh)[..., None] * Bm[:, None, None, :]
+    h = cache["ssm"] * a[:, :, None, None] + upd           # (B,H,P,N)
+    y = torch.einsum("bhpn,bn->bhp", h, Cm)
+    y = y + xh * p["D_skip"][None, :, None]
+    out = _gate_out(p, y.reshape(B, 1, H * P), z, x.dtype, cfg)
+    cache["ssm"].copy_(h)
+    cache["conv_x"].copy_(cx)
+    cache["conv_B"].copy_(cb)
+    cache["conv_C"].copy_(cc)
+    return out, cache
+
+
+def ssd_reference(p, x, cfg):
+    """Sequential per-token oracle (O(S) decode steps) for tests."""
+    B, S, _ = x.shape
+    cache = ssd_init_cache(cfg, B, x.dtype, x.device)
+    ys = []
+    for t in range(S):
+        y, cache = ssd_decode(p, x[:, t:t + 1], cache, cfg)
+        ys.append(y)
+    return torch.cat(ys, dim=1)

@@ -10,8 +10,9 @@ holds bit-equal to the JAX kernels; here the kernel must equal the twin
 bit for bit, floats included, and each launch must count once.  Every
 consensus op takes a leading member axis B; the cases run at B = 1 and at
 B = 3.  The two attention kernels (held to the JAX kernels by
-`test_torch_attention_kernels.py`) match their twins within float32
-2e-4 and bfloat16 3e-2: the sums run in another order."""
+`test_torch_attention_kernels.py`) and the SSD scan (held to the JAX
+kernel by `test_torch_ssd.py`) match their twins within float32 2e-4 and
+bfloat16 3e-2: the sums run in another order."""
 from __future__ import annotations
 
 import numpy as np
@@ -248,3 +249,70 @@ def test_reduced_serve_on_the_card():
     for g in r["generated"]:
         assert g.shape == (8, 6) and g.min() >= 0 and \
             g.max() < cfg.padded_vocab
+
+
+# --------------------------------------------------------------------- #
+# the SSD scan and mamba2 serving
+# --------------------------------------------------------------------- #
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,nc,Q,H,P,N", [
+    (2, 2, 256, 24, 64, 128), (1, 1, 48, 24, 64, 128), (3, 4, 16, 8, 16, 16),
+    (1, 2, 100, 3, 16, 128), (2, 1, 7, 5, 64, 16)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("out_dtype", [None, torch.float32])
+def test_ssd_scan(B, nc, Q, H, P, N, dtype, out_dtype):
+    _need_cuda()
+    from repro_torch.kernels.ssd_scan import ops as ss
+    rng = np.random.default_rng(B * nc + Q + H)
+    x, Bm, Cm = (_att(rng, s, dtype) * 0.5 for s in
+                 ((B, nc, Q, H, P), (B, nc, Q, N), (B, nc, Q, N)))
+    dt = torch.nn.functional.softplus(_att(rng, (B, nc, Q, H), torch.float32))
+    A = -torch.exp(_att(rng, (H,), torch.float32) * 0.3)
+    n0 = ss.ssd_scan.launches
+    y, st = ss.ssd_scan(*[t.cuda() for t in (x, Bm, Cm, dt, A)],
+                        out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert ss.ssd_scan.launches == n0 + 1
+    yw, sw = ss.ssd_scan(x, Bm, Cm, dt, A, out_dtype=out_dtype)
+    assert y.dtype == yw.dtype and st.dtype == torch.float32
+    _close(yw, y, dtype)
+    _close(sw, st, dtype)
+
+
+@pytest.mark.gpu
+def test_mamba2_prefill_decode_on_the_card():
+    """The reduced mamba2 at a ragged prompt: the card's prefill and two
+    decode steps against the CPU's on the same float32 weights, ssd_scan
+    once per layer in prefill and never in decode."""
+    _need_cuda()
+    import copy
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.kernels.ssd_scan import ops as ss
+    from repro_torch.models import lm
+    cfg = get_config("mamba2-130m").reduced().with_layers(2)
+    run = RunConfig(remat=False, param_dtype="float32",
+                    activation_dtype="float32")
+    m_cpu = lm.init_lm(cfg, run, seed=2, device="cpu")
+    m_gpu = copy.deepcopy(m_cpu).to("cuda")
+    toks = torch.as_tensor(np.random.default_rng(3).integers(
+        0, 256, (2, 37)).astype(np.int32))
+    outs = []
+    for model, dev in ((m_cpu, "cpu"), (m_gpu, "cuda")):
+        caches = lm.alloc_caches(cfg, 2, 40, torch.float32, dev)
+        n0 = ss.ssd_scan.launches
+        with torch.no_grad():
+            logits = [lm.forward(model, toks.to(dev), mode="prefill",
+                                 caches=caches)[0]]
+            pos = torch.full((2,), 37, dtype=torch.int32, device=dev)
+            for step in range(2):
+                nxt = toks[:, step:step + 1].to(dev)
+                logits.append(lm.forward(model, nxt, mode="decode",
+                                         caches=caches,
+                                         cache_len=pos + step)[0])
+        n = ss.ssd_scan.launches - n0
+        assert n == (2 if dev == "cuda" else 0)
+        outs.append([t.cpu() for t in logits])
+    for want, got in zip(*outs):
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=2e-4,
+                                   atol=2e-4)

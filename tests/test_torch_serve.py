@@ -1,14 +1,23 @@
 """The port's serving entry point against the JAX one on the CPU: `serve()`
 and a replica of the `repro.launch.serve.main` loop, given the same
 float32 weights (JAX `init_tree`, carried across by
-`models.lm.from_numpy`) and the same seed, on the reduced smollm-360m.
-The generated tokens of every batch and the elastic pool's `served`,
-`rerouted` and alive count must be equal."""
+`models.lm.from_numpy`) and the same seed, on the reduced smollm-360m
+and the reduced mamba2-130m.  The generated tokens of every batch and
+the elastic pool's `served`, `rerouted` and alive count must be equal.
+
+The replica grows only the attention caches to capacity.  The
+reference's `grow` pads every cache leaf whose axis 2 equals the prompt
+length, which for mamba2 also catches the SSM state (G,B,H,P,N) when
+the prompt length equals the head count and the conv tails (G,B,W-1,.)
+when it is W-1, and its decode then fails; the mamba2 case runs at
+prompt length 8, the reduced head count, to show the port has no such
+fault."""
 from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
 from repro.configs import get_config as j_get_config
 from repro.configs.base import RunConfig as JRunConfig
@@ -49,9 +58,10 @@ def _jax_serve(cfg, runcfg, params, *, requests, batch, prompt_len,
             pool.route(0)
         toks = rng.integers(0, cfg.vocab_size, (B, P)).astype(np.int32)
         tok, caches = prefill(params, {"tokens": jnp.asarray(toks)})
-        caches = {"pos": caches["pos"], "layers": jax.tree.map(
-            lambda x: jnp.pad(x, [(0, 0), (0, 0), (0, G), (0, 0), (0, 0)]),
-            caches["layers"])}
+        grow = lambda x: jnp.pad(x, [(0, 0), (0, 0), (0, G), (0, 0), (0, 0)])
+        caches = {"pos": caches["pos"], "layers": {
+            r: dict(c, self=jax.tree.map(grow, c["self"])) if "self" in c
+            else c for r, c in caches["layers"].items()}}
         out = [np.asarray(tok)]
         for _ in range(G):
             tok, caches = decode(params, caches, tok[:, None])
@@ -64,11 +74,11 @@ def _jax_serve(cfg, runcfg, params, *, requests, batch, prompt_len,
     return generated, pool
 
 
-def test_serve_matches_the_jax_loop():
-    kw = dict(requests=20, batch=8, prompt_len=16, gen_len=6,
+def _check_serve(arch, prompt_len):
+    kw = dict(requests=20, batch=8, prompt_len=prompt_len, gen_len=6,
               revoke_p=0.5, seed=3)
-    jcfg = j_get_config("smollm-360m").reduced()
-    tcfg = get_config("smollm-360m").reduced()
+    jcfg = j_get_config(arch).reduced()
+    tcfg = get_config(arch).reduced()
     params = init_tree(jax.random.PRNGKey(kw["seed"]),
                        JS.param_specs(jcfg, JRunConfig(**RUN)))
     model = tlm.from_numpy(jax.tree.map(np.asarray, params), tcfg,
@@ -84,6 +94,15 @@ def test_serve_matches_the_jax_loop():
         (jpool.served, jpool.rerouted, len(jpool.alive))
     assert got["requests"] == 20 and got["tokens"] == 20 * kw["gen_len"]
     assert got["served"] < 20     # revoked replicas took queued requests
+
+
+def test_serve_matches_the_jax_loop():
+    _check_serve("smollm-360m", 16)
+
+
+@pytest.mark.parametrize("prompt_len", [16, 8])
+def test_mamba2_serve_matches_the_jax_loop(prompt_len):
+    _check_serve("mamba2-130m", prompt_len)
 
 
 def test_main_cli(capsys):
