@@ -40,13 +40,22 @@ Phases, each fatal on failure:
    multi-epoch path;
 7. one fleet epoch, group digest included, on the card and on the CPU
    from the same state and bundles, held as in phase 4;
-8. the two attention kernels against their twins on the card, bfloat16
-   and float32, ragged S, T and cache_len, GQA groups 1, 3 and 8, within
-   float32 2e-4 / bfloat16 3e-2; then device times of kernel, twin and
+8. the attention kernels' compiled instructions (`cuobjdump -sass`:
+   HGMMA, HMMA, UTMALDG and LDGSTS counts; fatal if the flash library
+   has no HGMMA, a note if cuobjdump is absent); the two attention
+   kernels against their twins on the card, bfloat16 and float32,
+   causal and not, ragged S, T and cache_len, S < T and S > T, the
+   tensor-core route's tile edges (S = 1, 63, 64, 65, 127, 129; T off
+   the 64-row tile; cache_len 1 and T), GQA groups 1, 3 and 8, hd 16 to
+   128, within float32 2e-4 / bfloat16 3e-2, with the launches of each
+   route (tensor_core: bf16 at hd 64/128; scalar: the rest) printed and
+   both routes required to run; then device times of kernel, twin and
    one library call (`scaled_dot_product_attention`, timed only) at the
    serve shapes (flash B=8, S=512, 15 heads over 5, hd=64; decode B=8,
    T=544) and the long ones (flash B=1, S=8192; decode B=32, T=32768),
-   with the caches rotated through enough copies to defeat the L2;
+   kernel and library each on inputs rotated through enough copies to
+   defeat the L2, and decode also with one split (no combine) and at
+   B=1, T=32768, where its cache splits matter;
 9. the SSD scan against its twin on the card: bfloat16 and float32
    inputs, y in the input dtype and in float32, one chunk and ragged
    chunks (Q = 48, 100), H = 24, P = 64, N = 128 at B = 1 and 8 (and the
@@ -69,8 +78,9 @@ Phases, each fatal on failure:
    and depth (32 layers, bfloat16, random weights from seed 0), 64
    requests in batches of 8, prompt 512, 32 generated tokens, revoke_p
    0.1, with every launch count set to 0 just before and read just
-   after (flash 32 x 8 = 256, decode 32 x 8 x 32 = 8,192, ssd_scan 0),
-   then a sync-free check of a prefill and 2 decode steps;
+   after (flash 32 x 8 = 256, decode 32 x 8 x 32 = 8,192, ssd_scan 0,
+   every attention launch on the tensor-core route), then a sync-free
+   check of a prefill and 2 decode steps;
 13. the same for mamba2-130m at full width and depth (24 SSD layers,
    bfloat16, seed 0; ssd_scan 24 x 8 = 192, every other kernel 0), and
    its sync-free check;
@@ -84,6 +94,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -907,6 +918,42 @@ def rotating(make, nbytes):
     return nxt
 
 
+def cuobjdump_path():
+    import os
+    import shutil
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    for cand in (os.path.join(home, "bin", "cuobjdump"),
+                 shutil.which("cuobjdump")):
+        if cand and os.path.exists(cand):
+            return cand
+    return None
+
+
+def check_attention_sass():
+    """Counts the tensor-core instructions compiled into the two
+    attention libraries (`cuobjdump -sass`): HGMMA (wgmma) in flash,
+    HMMA (mma.sync) and HGMMA in decode.  Fails if the flash library has
+    no HGMMA; says so and checks nothing when cuobjdump is absent."""
+    from repro_torch.kernels import build
+    tool = cuobjdump_path()
+    if tool is None:
+        log("SASS check: cuobjdump not found, compiled instructions not "
+            "checked")
+        return None
+    counts = {}
+    for name in ("flash_attention", "decode_attention"):
+        sass = subprocess.run([tool, "-sass", str(build.lib_path(name))],
+                              capture_output=True, text=True, check=True,
+                              timeout=120).stdout
+        counts[name] = {op: len(re.findall(rf"\b{op}\.", sass))
+                        for op in ("HGMMA", "HMMA", "UTMALDG", "LDGSTS")}
+    log(f"SASS check (cuobjdump -sass): {json.dumps(counts)}")
+    if counts["flash_attention"]["HGMMA"] == 0:
+        raise AssertionError("flash_attention: no HGMMA instruction in the "
+                             "built library")
+    return counts
+
+
 def run_attention_checks(dev, long_shapes=True):
     """Both attention kernels == their twins on the card within the
     stated tolerance over the correctness cases; then device times at
@@ -916,37 +963,57 @@ def run_attention_checks(dev, long_shapes=True):
     import torch
     import torch.nn.functional as F
     from repro_torch import kernels as K_
+    from repro_torch.kernels.decode_attention import kernel as da_k
     from repro_torch.kernels.decode_attention import ops as da
     from repro_torch.kernels.decode_attention import ref as da_ref
     from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.kernels.flash_attention import ref as fa_ref
+    check_attention_sass()
     gen = torch.Generator(device=dev).manual_seed(0)
     bf16, f32 = torch.bfloat16, torch.float32
     res = {"flash_attention": {"max_abs_err": 0.0, "cases": 0},
            "decode_attention": {"max_abs_err": 0.0, "cases": 0}}
+    K_.reset_launch_counts()
 
     # (B, S, T, H, KV, hd): the serve shape, ragged S and T, S < T, GQA
-    # groups 3, 1 (MHA), 8 (MQA and qwen2.5-3b's 16 over 2), hd 16..128
+    # groups 3, 1 (MHA), 8 (MQA and qwen2.5-3b's 16 over 2), hd 16..128;
+    # then the tensor-core route's tile edges (64-row warpgroups, 128-row
+    # blocks, 128-key tiles): S = 1, 63, 64, 65, 127, 129, S < T, S > T
     for dt in (bf16, f32):
         for B, S, T, H, KV, hd in [(8, 512, 512, 15, 5, 64),
                                    (2, 77, 77, 15, 5, 64),
                                    (2, 24, 61, 6, 2, 32),
                                    (1, 100, 100, 8, 8, 128),
                                    (1, 33, 33, 8, 1, 16),
-                                   (2, 200, 200, 16, 2, 128)]:
+                                   (2, 200, 200, 16, 2, 128),
+                                   (1, 1, 1, 3, 1, 64),
+                                   (2, 63, 63, 8, 8, 128),
+                                   (1, 64, 64, 15, 5, 64),
+                                   (2, 65, 65, 16, 2, 128),
+                                   (1, 127, 127, 3, 3, 64),
+                                   (2, 129, 129, 24, 3, 128),
+                                   (2, 65, 300, 15, 5, 64),
+                                   (1, 130, 70, 8, 1, 128)]:
             q, k, v = att_inputs(gen, dev, dt, (B, S, H, hd), (B, T, KV, hd))
-            got = fa.flash_attention(q, k, v)
-            torch.cuda.synchronize()
-            err = att_compare("flash_attention", got,
-                              fa_ref.flash_attention_ref(q, k, v), dt,
-                              (B, S, T, H, KV, hd, dtype_name(dt)))
-            r = res["flash_attention"]
-            r["max_abs_err"] = max(r["max_abs_err"], err)
-            r["cases"] += 1
-        # (B, T, H, KV, hd) with ragged cache_len including 1 and T
+            for causal in (True, False):
+                got = fa.flash_attention(q, k, v, causal=causal)
+                torch.cuda.synchronize()
+                err = att_compare("flash_attention", got,
+                                  fa_ref.flash_attention_ref(
+                                      q, k, v, causal=causal), dt,
+                                  (B, S, T, H, KV, hd, dtype_name(dt),
+                                   "causal" if causal else "full"))
+                r = res["flash_attention"]
+                r["max_abs_err"] = max(r["max_abs_err"], err)
+                r["cases"] += 1
+        # (B, T, H, KV, hd) with ragged cache_len including 1 and T; then
+        # T off the 64-row tile, G = 1, 3, 8 at hd 64 and 128
         for B, T, H, KV, hd in [(8, 544, 15, 5, 64), (3, 1000, 8, 8, 64),
                                 (4, 77, 16, 2, 128), (2, 33, 8, 1, 16),
-                                (32, 4096, 15, 5, 64), (1, 1, 3, 3, 32)]:
+                                (32, 4096, 15, 5, 64), (1, 1, 3, 3, 32),
+                                (2, 63, 8, 1, 64), (3, 65, 6, 2, 128),
+                                (2, 129, 16, 16, 128), (5, 700, 24, 3, 128),
+                                (1, 1, 15, 5, 64)]:
             q, k, v = att_inputs(gen, dev, dt, (B, 1, H, hd), (B, T, KV, hd))
             clen = torch.randint(1, T + 1, (B,), generator=gen, device=dev,
                                  dtype=torch.int32)
@@ -963,10 +1030,15 @@ def run_attention_checks(dev, long_shapes=True):
             if not torch.equal(zero, torch.zeros_like(zero)):
                 raise AssertionError("decode_attention: cache_len 0 did not "
                                      "give 0")
+    routes = K_.route_counts()
     for name in res:
         log(f"kernel {name}: within tolerance of its twin on "
             f"{res[name]['cases']} cases, max |kernel - twin| "
-            f"{res[name]['max_abs_err']:.3g}")
+            f"{res[name]['max_abs_err']:.3g}; launches by route "
+            f"{json.dumps(routes[name])}")
+        for rt in routes[name]:
+            if not routes[name][rt]:
+                raise AssertionError(f"{name}: the {rt} route never ran")
 
     def sdpa_flash(qt, kt, vt):
         return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
@@ -978,6 +1050,9 @@ def run_attention_checks(dev, long_shapes=True):
 
     timed = [("flash_attention", "serve", (8, 512, 15, 5, 64))]
     timed += [("decode_attention", "serve", (8, 544, 15, 5, 64))]
+    # where the cache splits matter: one sequence, 5 (batch row, KV head)
+    # pairs for 132 SMs
+    timed += [("decode_attention", "one-row", (1, 32768, 15, 5, 64))]
     if long_shapes:
         timed += [("flash_attention", "long", (1, 8192, 15, 5, 64)),
                   ("decode_attention", "long", (32, 32768, 15, 5, 64))]
@@ -987,41 +1062,58 @@ def run_attention_checks(dev, long_shapes=True):
         q_shape, kv_shape = (B, S, H, hd), (B, T, KV, hd)
 
         def make():
+            # the kernel's operands, then the library's: the same values
+            # in its (B, H, S, hd) layout, transposed beforehand
             q, k, v = att_inputs(gen, dev, dt, q_shape, kv_shape)
             clen = torch.full((B,), T, dtype=torch.int32, device=dev)
-            return q, k, v, clen
-        q, k, v, clen = make()
+            return (q, k, v, clen,
+                    *(x.transpose(1, 2).contiguous() for x in (q, k, v)))
+        a0 = make()
+        q, k, v, clen = a0[:4]
         if name == "flash_attention":
             nbytes, flops = flash_work(q, k)
             op = lambda a: fa.flash_attention(a[0], a[1], a[2])
             twin = lambda a: fa_ref.flash_attention_ref(a[0], a[1], a[2])
-            qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-            lib = lambda: sdpa_flash(qt, kt, vt)
+            lib = lambda a: sdpa_flash(a[4], a[5], a[6])
         else:
             nbytes, flops = decode_work(q, k, clen)
-            op = lambda a: da.decode_attention(*a)
-            twin = lambda a: da_ref.decode_attention_ref(*a)
-            qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+            op = lambda a: da.decode_attention(*a[:4])
+            twin = lambda a: da_ref.decode_attention_ref(*a[:4])
             mask = (torch.arange(T, device=dev)[None, :] <
                     clen[:, None])[:, None, None, :]
-            lib = lambda: sdpa_decode(qt, kt, vt, mask)
-        want = op((q, k, v, clen))
-        att_compare(f"{name} library", lib().transpose(1, 2), want, dt, tag)
+            lib = lambda a: sdpa_decode(a[4], a[5], a[6], mask)
+        want = op(a0)
+        att_compare(f"{name} library", lib(a0).transpose(1, 2), want, dt,
+                    tag)
+        # kernel and library each read a fresh rotated copy per call, so
+        # neither finds its inputs in the L2
         nxt = rotating(make, nbytes)
-        reps = 50 if tag == "serve" else 10
+        reps = 10 if tag == "long" else 50
         ms = device_ms(lambda: op(nxt()), reps, 4_000_000)
-        plain_ms = device_ms(lambda: twin((q, k, v, clen)),
-                             5 if tag == "long" else 20, 40_000_000)
-        lib_ms = device_ms(lib, reps, 4_000_000)
+        lib_ms = device_ms(lambda: lib(nxt()), reps, 4_000_000)
+        plain_ms = device_ms(lambda: twin(a0), 5 if tag == "long" else 20,
+                             40_000_000)
         res[name][tag] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                               bytes=nbytes, flops=flops, dtype=dt)
+        extra = ""
+        if name == "decode_attention":
+            # what the cache splits and their combine buy: one split per
+            # (batch row, KV head), no combine
+            ns = da_k.n_splits(B, T, KV, da_k.sm_count(dev),
+                               da_k.tc_blocks_per_sm(dev, hd))
+            out1 = torch.empty_like(q)
+            ms1 = device_ms(lambda: da_k.decode_attention(
+                *nxt()[:4], out1, nsplit=1), reps, 4_000_000)
+            res[name][tag].update(n_splits=ns, ms_one_split=ms1)
+            extra = (f"; {ns} splits per (batch row, KV head), one split "
+                     f"(no combine) {ms1 * 1e3:.2f} us")
         log(f"kernel {name} [{tag}, B={B}, {'S' if S > 1 else 'T'}={T}, "
             f"H={H}, KV={KV}, hd={hd}, bf16]: {ms * 1e3:.2f} us (twin "
-            f"{plain_ms * 1e3:.2f} us, library {lib_ms * 1e3:.2f} us), "
-            f"{nbytes} B, {flops} matmul FLOPs, bound "
+            f"{plain_ms * 1e3:.2f} us, library {lib_ms * 1e3:.2f} us on "
+            f"rotated copies), {nbytes} B, {flops} matmul FLOPs, bound "
             f"{att_bound_ms(nbytes, flops, dt) * 1e3:.2f} us by "
-            f"{att_bound_by(nbytes, flops, dt)}")
-        del q, k, v, qt, kt, vt, nxt
+            f"{att_bound_by(nbytes, flops, dt)}{extra}")
+        del a0, q, k, v, clen, want, nxt
         torch.cuda.empty_cache()
     K_.reset_launch_counts()
     return res
@@ -1222,6 +1314,8 @@ def run_serve_path(dev, arch="smollm-360m"):
     from repro_torch import kernels as K_
     from repro_torch.configs import get_config
     from repro_torch.configs.base import RunConfig
+    from repro_torch.kernels.flash_attention.kernel import \
+        route as attn_route
     from repro_torch.launch.serve import serve, summary_line
     from repro_torch.models import lm
     cfg = get_config(arch)
@@ -1253,11 +1347,20 @@ def run_serve_path(dev, arch="smollm-360m"):
     want = {"flash_attention": n_attn * n_batches,
             "decode_attention": n_attn * n_batches * G,
             "ssd_scan": n_ssd * n_batches}
-    log(f"launches on the {arch} serve path: {json.dumps(counts)}")
+    routes = K_.route_counts()
+    log(f"launches on the {arch} serve path: {json.dumps(counts)}; by "
+        f"route {json.dumps(routes)}")
     for name, n in counts.items():
         if n != want.get(name, 0):
             raise AssertionError(f"{name} launched {n} times on the serve "
                                  f"path, expected {want.get(name, 0)}")
+    # every attention launch on the route its dtype and head_dim select
+    rt = attn_route(torch.bfloat16, cfg.head_dim)
+    for name in routes:
+        if routes[name][rt] != counts[name]:
+            raise AssertionError(f"{name}: {routes[name]} on the serve "
+                                 f"path, expected all {counts[name]} on "
+                                 f"the {rt} route")
     for i, g in enumerate(r["generated"]):
         if g.shape != (B, G + 1) or g.min() < 0 or \
                 g.max() >= cfg.padded_vocab:
@@ -1273,7 +1376,7 @@ def run_serve_path(dev, arch="smollm-360m"):
         f"{dec:.3f} ms per token step of B={B} (median); peak device "
         f"memory {peak:.0f} MiB; pool served={r['served']} "
         f"rerouted={r['rerouted']} replicas={r['replicas']}")
-    return model, counts, r
+    return model, dict(counts, routes=routes), r
 
 
 def check_serve_sync_free(model, dev):
@@ -1452,7 +1555,9 @@ def main() -> int:
             "plain_ms": r["plain_ms"],
             "bound_ms": att_bound_ms(r["bytes"], r["flops"], r["dtype"]),
             "bound_by": att_bound_by(r["bytes"], r["flops"], r["dtype"]),
-            "library_ms": r["library_ms"]}
+            "library_ms": r["library_ms"],
+            "launches_tensor_core": serve_counts["routes"][name][
+                "tensor_core"]}
         if "long" in a:
             g = a["long"]
             entry.update(

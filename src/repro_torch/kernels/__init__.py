@@ -7,7 +7,9 @@ Each family is `kernel.py` (the ctypes launcher of `csrc/<family>.cu`),
 picks by device: a CPU tensor runs the twin, a CUDA tensor launches the
 kernel after its operands are checked, or the op raises; there is no
 fallback.  Each op counts its kernel launches in a plain integer
-attribute, `<op>.launches`, which `launch_counts` reads.
+attribute, `<op>.launches`, which `launch_counts` reads; the two
+attention ops, which have a tensor-core and a scalar route, also count
+per route in `<op>.route_launches`, which `route_counts` reads.
 """
 from __future__ import annotations
 
@@ -44,9 +46,21 @@ def launch_counts() -> Dict[str, int]:
     return {name: fn.launches for name, fn in _ops().items()}
 
 
+ROUTED = ("flash_attention", "decode_attention")
+
+
+def route_counts() -> Dict[str, Dict[str, int]]:
+    """{op name: {route: CUDA launches so far}} for the routed ops."""
+    ops = _ops()
+    return {name: dict(ops[name].route_launches) for name in ROUTED}
+
+
 def reset_launch_counts() -> None:
-    for fn in _ops().values():
+    ops = _ops()
+    for fn in ops.values():
         fn.launches = 0
+    for name in ROUTED:
+        ops[name].route_launches = dict.fromkeys(ops[name].route_launches, 0)
 
 
 def on_cpu(t: torch.Tensor, op: str) -> bool:

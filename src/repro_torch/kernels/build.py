@@ -2,8 +2,9 @@
 library with a plain C interface, loaded with `ctypes`).
 
 Each `csrc/<name>.cu` compiles, at first use, to
-`_build/lib<name>-<hash>.so`, where the hash covers the source and the
-flags, so an edited source rebuilds and an unchanged one is reused.
+`_build/lib<name>-<hash>.so`, where the hash covers the source, every
+shared header `csrc/*.cuh` and the flags, so an edited source or header
+rebuilds and an unchanged one is reused.
 `build()` starts one `nvcc` per source, all at once, and waits for them
 together.  Nothing here runs at import time.
 """
@@ -38,9 +39,11 @@ def nvcc_path() -> str:
 
 
 def lib_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    h = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{h}.so"
+    h = hashlib.sha1((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def build(names: Iterable[str] = SOURCES) -> Dict[str, Path]:

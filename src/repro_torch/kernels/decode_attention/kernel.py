@@ -5,45 +5,96 @@
 One block per (cache split, KV head, batch row) serves all H // KV query
 heads of its KV head, so each cache byte is read once; the last block of
 a (batch row, KV head) to finish combines the splits' partial softmaxes.
-The design notes are in the CUDA source.
+Two routes, chosen by `route` before the launch as for flash attention:
+``"tensor_core"`` (bfloat16 at head_dim 64 or 128; cp.async ring,
+mma.sync scores and P.V) and ``"scalar"`` (float32, bfloat16 at
+head_dim 16 or 32); both take their cache splits from
+`n_splits`.  The design notes are in the CUDA source.
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.flash_attention.kernel import DTYPE_CODE
+from repro_torch.kernels.flash_attention.kernel import (DTYPE_CODE, ROUTES,
+                                                       route)
 
 MAX_GROUP = 8            # query heads per KV head the kernel serves
-MIN_SPLIT_KEYS = 256     # fewest cache positions worth a block of their own
+TILE_KEYS = 64           # cache rows per tile of the tensor-core route
+MIN_SPLIT_TILES = 8      # fewest tiles (512 keys) worth a split of their own
 _FNS = {}
 _SMS = {}
+_OCC = {}
 _SCRATCH = {}            # (device, stream) -> (part, counter)
 
 
-def _fn():
-    if "f" not in _FNS:
-        _FNS["f"] = build.bind(build.load("decode_attention"),
-                               "decode_attention", 7, 7)
-    return _FNS["f"]
+def _fn(name: str):
+    if name not in _FNS:
+        lib = build.load("decode_attention")
+        _FNS["scalar"] = build.bind(lib, "decode_attention", 7, 7)
+        _FNS["tensor_core"] = build.bind(lib, "decode_attention_tc", 7, 6)
+        occ = lib.decode_attention_tc_occupancy
+        occ.argtypes = [ctypes.c_int, ctypes.c_void_p]
+        occ.restype = ctypes.c_int
+        _FNS["occupancy"] = occ
+    return _FNS[name]
 
 
 def group_pad(G: int) -> int:
-    """The kernel's compiled head-group width: G rounded up to 1, 2, 4
-    or 8 (padded heads compute on a zero query and are not written)."""
+    """The scalar route's compiled head-group width: G rounded up to 1,
+    2, 4 or 8 (padded heads compute on a zero query and are not
+    written)."""
     return 1 if G <= 1 else 2 if G <= 2 else 4 if G <= 4 else 8
 
 
-def n_splits(B: int, T: int, KV: int, device) -> int:
-    """Cache splits per (batch row, KV head): enough blocks for four per
-    SM (whole waves balance better), but no split shorter than
-    MIN_SPLIT_KEYS positions."""
-    idx = device.index if device.index is not None else \
+def n_splits(B: int, T: int, KV: int, sms: int, blocks_per_sm: int) -> int:
+    """Cache splits per (batch row, KV head).
+
+    One streaming block per SM keeps enough cache bytes in flight to
+    reach HBM, and every split past that only adds combine work
+    (`chip_smoke.py` phase 8 on an H100: one split was as fast as 13 at
+    B = 32, T = 32768 and ~1 µs faster than 3 or 4 at B = 8, T = 544,
+    while at B = 1, T = 32768 this rule's 27 splits ran 8.7x faster than
+    one).  So the grid aims at one block per SM, all of it
+    resident at once (one wave at `blocks_per_sm`, the occupancy the
+    card reports), with no split shorter than MIN_SPLIT_TILES tiles; a
+    batch with a (batch row, KV head) pair per SM or more gets one split.
+    T is the cache capacity (cache_len lives on the card and is not
+    read)."""
+    pairs = max(B * KV, 1)
+    tiles = max(-(-T // TILE_KEYS), 1)
+    one_per_sm = -(-sms // pairs)
+    one_wave = max(sms * blocks_per_sm // pairs, 1)
+    return max(1, min(one_per_sm, one_wave, tiles // MIN_SPLIT_TILES))
+
+
+def _device_index(device) -> int:
+    return device.index if device.index is not None else \
         torch.cuda.current_device()
+
+
+def sm_count(device) -> int:
+    idx = _device_index(device)
     if idx not in _SMS:
         _SMS[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
-    want = -(-4 * _SMS[idx] // max(B * KV, 1))
-    return max(1, min(want, -(-T // MIN_SPLIT_KEYS)))
+    return _SMS[idx]
+
+
+def tc_blocks_per_sm(device, hd: int) -> int:
+    """Resident blocks per SM of the tensor-core route at head_dim hd,
+    from the occupancy calculator on `device` (once per device)."""
+    idx = _device_index(device)
+    if (idx, hd) not in _OCC:
+        n = ctypes.c_int(0)
+        with torch.cuda.device(idx):
+            rc = _fn("occupancy")(hd, ctypes.addressof(n))
+        if rc != 0 or n.value < 1:
+            raise RuntimeError(f"decode_attention: occupancy query failed "
+                               f"(error {rc}, {n.value} blocks per SM)")
+        _OCC[(idx, hd)] = n.value
+    return _OCC[(idx, hd)]
 
 
 def _scratch(dev, stream, n_part: int, n_ctr: int):
@@ -62,24 +113,37 @@ def _scratch(dev, stream, n_part: int, n_ctr: int):
     return part, ctr
 
 
-def decode_attention(q, k_cache, v_cache, cache_len, out) -> None:
+def decode_attention(q, k_cache, v_cache, cache_len, out,
+                     nsplit: int = None) -> str:
     """q, out: (B,1,H,hd); caches (B,T,KV,hd); cache_len (B,) int32;
-    checked by the op."""
+    checked by the op.  `nsplit` overrides the split choice (timing
+    only).  Returns the route it launched."""
     B, _, H, hd = q.shape
     T, KV = k_cache.shape[1], k_cache.shape[2]
     dev = q.device
     stream = torch.cuda.current_stream(dev).cuda_stream
-    ns = n_splits(B, T, KV, dev)
-    gp = group_pad(H // KV)
+    r = route(q.dtype, hd)
+    if r == "tensor_core":
+        ns = nsplit or n_splits(B, T, KV, sm_count(dev),
+                                tc_blocks_per_sm(dev, hd))
+        rec = H // KV
+    else:                       # the scalar route: one wave of one block/SM
+        ns = nsplit or n_splits(B, T, KV, sm_count(dev), 1)
+        rec = group_pad(H // KV)
     if ns > 1:
-        part, counter = _scratch(dev, stream, B * KV * ns * gp * (hd + 2),
+        part, counter = _scratch(dev, stream, B * KV * ns * rec * (hd + 2),
                                  B * KV)
         p_part, p_ctr = part.data_ptr(), counter.data_ptr()
     else:
         p_part = p_ctr = None
-    rc = _fn()(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-               cache_len.data_ptr(), out.data_ptr(), p_part, p_ctr,
-               B, T, H, KV, hd, DTYPE_CODE[q.dtype], ns, stream)
+    args = (q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+            cache_len.data_ptr(), out.data_ptr(), p_part, p_ctr,
+            B, T, H, KV, hd)
+    if r == "tensor_core":
+        rc = _fn(r)(*args, ns, stream)
+    else:
+        rc = _fn(r)(*args, DTYPE_CODE[q.dtype], ns, stream)
     if rc != 0:
-        raise RuntimeError(f"decode_attention: CUDA launch failed with "
-                           f"error {rc}")
+        raise RuntimeError(f"decode_attention ({r} route): CUDA launch "
+                           f"failed with error {rc}")
+    return r

@@ -10,7 +10,8 @@ per KV head read by head index.  T need not be a multiple of any tile.
 A CPU tensor runs the twin in `ref.py`; a CUDA tensor launches the
 kernel in `csrc/decode_attention.cu` after the operands are checked,
 else the op raises.  Every launch adds one to
-`decode_attention.launches`.
+`decode_attention.launches` and one to
+`decode_attention.route_launches[route]` (`kernel.route`).
 """
 from __future__ import annotations
 
@@ -37,9 +38,11 @@ def decode_attention(q, k_cache, v_cache, cache_len):
     out = torch.empty_like(q)
     if q.numel() == 0:
         return out
-    K.decode_attention(q, k_cache, v_cache, cache_len, out)
+    r = K.decode_attention(q, k_cache, v_cache, cache_len, out)
     decode_attention.launches += 1
+    decode_attention.route_launches[r] += 1
     return out
 
 
 decode_attention.launches = 0
+decode_attention.route_launches = dict.fromkeys(K.ROUTES, 0)

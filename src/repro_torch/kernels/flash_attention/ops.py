@@ -9,7 +9,9 @@ multiples of any tile.  A CPU tensor runs the twin in `ref.py`; a CUDA
 tensor launches the kernel in `csrc/flash_attention.cu` after the
 operands are checked (bfloat16 or float32, head_dim 16, 32, 64 or 128,
 contiguous, 16-byte aligned), else the op raises.  Every launch adds one
-to `flash_attention.launches`.
+to `flash_attention.launches` and one to
+`flash_attention.route_launches[route]` (`kernel.route`: bf16 at
+head_dim 64/128 on the tensor cores, the rest scalar).
 """
 from __future__ import annotations
 
@@ -57,9 +59,11 @@ def flash_attention(q, k, v, *, causal: bool = True):
     out = torch.empty_like(q)
     if q.numel() == 0:
         return out
-    K.flash_attention(q, k, v, out, causal)
+    r = K.flash_attention(q, k, v, out, causal)
     flash_attention.launches += 1
+    flash_attention.route_launches[r] += 1
     return out
 
 
 flash_attention.launches = 0
+flash_attention.route_launches = dict.fromkeys(K.ROUTES, 0)

@@ -12,7 +12,9 @@ consensus op takes a leading member axis B; the cases run at B = 1 and at
 B = 3.  The two attention kernels (held to the JAX kernels by
 `test_torch_attention_kernels.py`) and the SSD scan (held to the JAX
 kernel by `test_torch_ssd.py`) match their twins within float32 2e-4 and
-bfloat16 3e-2: the sums run in another order."""
+bfloat16 3e-2: the sums run in another order.  The attention kernels'
+tile edges also check which route (tensor cores for bfloat16 at
+head_dim 64/128, scalar for the rest) each launch took."""
 from __future__ import annotations
 
 import numpy as np
@@ -228,6 +230,69 @@ def test_decode_attention(B, T, H, KV, hd, dtype):
     zero = da.decode_attention(q.cuda(), k.cuda(), v.cuda(),
                                torch.zeros_like(clen).cuda())
     assert torch.equal(zero.cpu(), torch.zeros_like(zero.cpu()))
+
+
+# the routes' tile edges: 64-row warpgroups and 128-row blocks of the
+# tensor-core flash kernel, its 64-key tiles, the decode kernel's 64-row
+# cache tiles; G = 1, 3, 8 at hd 64 and 128, bf16 (tensor cores) and f32
+# (scalar).  Each case checks which route's counter moved.
+EDGE_GROUPS = [(3, 3, 64), (15, 5, 64), (16, 2, 128), (6, 2, 128),
+               (8, 1, 64)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S,T", [(1, 1), (63, 63), (64, 64), (65, 65),
+                                 (127, 127), (129, 129), (65, 200),
+                                 (1, 129), (130, 70)])
+@pytest.mark.parametrize("H,KV,hd", EDGE_GROUPS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_routes(S, T, H, KV, hd, dtype):
+    _need_cuda()
+    from repro_torch import kernels as K_
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.flash_attention import ops as fa
+    rng = np.random.default_rng(S * T + H + hd)
+    q, k, v = (_att(rng, (2, S, H, hd), dtype), _att(rng, (2, T, KV, hd), dtype),
+               _att(rng, (2, T, KV, hd), dtype))
+    route = fk.route(dtype, hd)
+    assert route == ("tensor_core" if dtype == torch.bfloat16 else "scalar")
+    for causal in (True, False):
+        n0 = K_.route_counts()["flash_attention"]
+        got = fa.flash_attention(q.cuda(), k.cuda(), v.cuda(), causal=causal)
+        torch.cuda.synchronize()
+        n1 = K_.route_counts()["flash_attention"]
+        assert {r: n1[r] - n0[r] for r in n1} == {
+            r: int(r == route) for r in fk.ROUTES}
+        _close(fa.flash_attention(q, k, v, causal=causal), got, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T", [1, 63, 64, 65, 129, 700])
+@pytest.mark.parametrize("H,KV,hd", EDGE_GROUPS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_routes(T, H, KV, hd, dtype):
+    _need_cuda()
+    from repro_torch import kernels as K_
+    from repro_torch.kernels.decode_attention import kernel as dk
+    from repro_torch.kernels.decode_attention import ops as da
+    rng = np.random.default_rng(T + H + hd)
+    B = 3
+    q, k, v = (_att(rng, (B, 1, H, hd), dtype), _att(rng, (B, T, KV, hd), dtype),
+               _att(rng, (B, T, KV, hd), dtype))
+    clen = torch.as_tensor(np.array([T, 1, (T + 1) // 2], dtype=np.int32))
+    route = dk.route(dtype, hd)
+    n0 = K_.route_counts()["decode_attention"]
+    got = da.decode_attention(q.cuda(), k.cuda(), v.cuda(), clen.cuda())
+    torch.cuda.synchronize()
+    n1 = K_.route_counts()["decode_attention"]
+    assert {r: n1[r] - n0[r] for r in n1} == {
+        r: int(r == route) for r in dk.ROUTES}
+    _close(da.decode_attention(q, k, v, clen), got, dtype)
+    # one split (no combine) and the chosen split agree
+    out = torch.empty_like(q.cuda())
+    dk.decode_attention(q.cuda(), k.cuda(), v.cuda(), clen.cuda(), out,
+                        nsplit=1)
+    _close(da.decode_attention(q, k, v, clen), out, dtype)
 
 
 @pytest.mark.gpu
