@@ -40,9 +40,10 @@ Phases, each fatal on failure:
    multi-epoch path;
 7. one fleet epoch, group digest included, on the card and on the CPU
    from the same state and bundles, held as in phase 4;
-8. the attention kernels' compiled instructions (`cuobjdump -sass`:
-   HGMMA, HMMA, UTMALDG and LDGSTS counts; fatal if the flash library
-   has no HGMMA, a note if cuobjdump is absent); the two attention
+8. the compiled instructions of the attention and SSD libraries
+   (`cuobjdump -sass`: HGMMA, HMMA, UTMALDG and LDGSTS counts; fatal if
+   the flash library has no HGMMA or the ssd_scan library neither HGMMA
+   nor HMMA, a note if cuobjdump is absent); the two attention
    kernels against their twins on the card, bfloat16 and float32,
    causal and not, ragged S, T and cache_len, S < T and S > T, the
    tensor-core route's tile edges (S = 1, 63, 64, 65, 127, 129; T off
@@ -58,11 +59,16 @@ Phases, each fatal on failure:
    B=1, T=32768, where its cache splits matter;
 9. the SSD scan against its twin on the card: bfloat16 and float32
    inputs, y in the input dtype and in float32, one chunk and ragged
-   chunks (Q = 48, 100), H = 24, P = 64, N = 128 at B = 1 and 8 (and the
-   reduced P = N = 16), within float32 2e-4 / bfloat16 3e-2; then device
-   times of kernel and twin at the serve shape (x (8,2,256,24,64) bf16,
-   y f32) and the long one (B = 1, S = 65,536: 256 chunks); no single
-   PyTorch call computes the scan, so there is no library time;
+   chunks (Q = 48, 100), H = 24, P = 64, N = 128 at B = 1 and 8, the
+   reduced P = N = 16, every route's (P, N) mixes of 16, 64 and 128, the
+   Jamba shape (B = 2, nc = 2, Q = 128, H = 8, P = 128, N = 64), and the
+   tensor-core route's tile edges (Q = 1, 63, 64, 65, 100, 255, 256 at
+   nc = 1 and 3), within float32 2e-4 / bfloat16 3e-2, with the launches
+   of each route (tensor_core: bf16 with P, N in {64, 128}; scalar: the
+   rest) printed and both routes required to run; then device times of
+   kernel and twin at the serve shape (x (8,2,256,24,64) bf16, y f32)
+   and the long one (B = 1, S = 65,536: 256 chunks); no single PyTorch
+   call computes the scan, so there is no library time;
 10. serving at full width on the card and the CPU: smollm-360m cut to 2
    layers, B=2, one 128-token prefill and 8 decode steps fed the CPU's
    greedy tokens; in float32 logits within 1e-3 and the card's greedy
@@ -82,8 +88,11 @@ Phases, each fatal on failure:
    every attention launch on the tensor-core route), then a sync-free
    check of a prefill and 2 decode steps;
 13. the same for mamba2-130m at full width and depth (24 SSD layers,
-   bfloat16, seed 0; ssd_scan 24 x 8 = 192, every other kernel 0), and
-   its sync-free check;
+   bfloat16, seed 0; ssd_scan 24 x 8 = 192, all on the tensor-core
+   route, every other kernel 0), and its sync-free check; with
+   --profile, the mamba2 prefill's device time against the 33.10 ms it
+   took with the scalar scan kernel (PERF.md) and ssd_scan's share of
+   it;
 14. a `kernels` JSON line, the card line, and the last line
    `{"ok": true, "device": {...}}`.
 
@@ -929,11 +938,12 @@ def cuobjdump_path():
     return None
 
 
-def check_attention_sass():
+def check_sass():
     """Counts the tensor-core instructions compiled into the two
-    attention libraries (`cuobjdump -sass`): HGMMA (wgmma) in flash,
-    HMMA (mma.sync) and HGMMA in decode.  Fails if the flash library has
-    no HGMMA; says so and checks nothing when cuobjdump is absent."""
+    attention libraries and the SSD library (`cuobjdump -sass`): HGMMA
+    (wgmma) in flash, HMMA (mma.sync) in decode and ssd_scan.  Fails if
+    the flash library has no HGMMA or the ssd_scan library neither HGMMA
+    nor HMMA; says so and checks nothing when cuobjdump is absent."""
     from repro_torch.kernels import build
     tool = cuobjdump_path()
     if tool is None:
@@ -941,7 +951,7 @@ def check_attention_sass():
             "checked")
         return None
     counts = {}
-    for name in ("flash_attention", "decode_attention"):
+    for name in ("flash_attention", "decode_attention", "ssd_scan"):
         sass = subprocess.run([tool, "-sass", str(build.lib_path(name))],
                               capture_output=True, text=True, check=True,
                               timeout=120).stdout
@@ -950,6 +960,9 @@ def check_attention_sass():
     log(f"SASS check (cuobjdump -sass): {json.dumps(counts)}")
     if counts["flash_attention"]["HGMMA"] == 0:
         raise AssertionError("flash_attention: no HGMMA instruction in the "
+                             "built library")
+    if not counts["ssd_scan"]["HGMMA"] + counts["ssd_scan"]["HMMA"]:
+        raise AssertionError("ssd_scan: no HGMMA or HMMA instruction in the "
                              "built library")
     return counts
 
@@ -968,7 +981,7 @@ def run_attention_checks(dev, long_shapes=True):
     from repro_torch.kernels.decode_attention import ref as da_ref
     from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.kernels.flash_attention import ref as fa_ref
-    check_attention_sass()
+    check_sass()
     gen = torch.Generator(device=dev).manual_seed(0)
     bf16, f32 = torch.bfloat16, torch.float32
     res = {"flash_attention": {"max_abs_err": 0.0, "cases": 0},
@@ -1154,36 +1167,54 @@ def ssd_work(x, Bm, out_dtype):
 def run_ssd_checks(dev):
     """ssd_scan == its twin on the card within the stated tolerance over
     the correctness cases; then device times at the serve and the long
-    shape.  Returns {"max_abs_err": x, "cases": n, tag: {ms, plain_ms,
-    library_ms, bytes, flops, dtype}}."""
+    shape.  Returns {"max_abs_err": x, "cases": n, "routes": {route:
+    launches}, tag: {ms, plain_ms, library_ms, bytes, flops, dtype}}."""
     import torch
     from repro_torch import kernels as K_
+    from repro_torch.kernels.decode_attention import kernel as da_k
+    from repro_torch.kernels.ssd_scan import kernel as ss_k
     from repro_torch.kernels.ssd_scan import ops as ss
     from repro_torch.kernels.ssd_scan import ref as ss_ref
     gen = torch.Generator(device=dev).manual_seed(0)
     bf16, f32 = torch.bfloat16, torch.float32
     res = {"max_abs_err": 0.0, "cases": 0}
+    K_.reset_launch_counts()
     # (B, nc, Q, H, P, N): one chunk, the serve shape, ragged chunks, the
-    # reduced model's P = N = 16 and a P = 16, N = 128 mix
-    for dt in (bf16, f32):
+    # reduced model's P = N = 16, (P, N) mixes of 16, 64 and 128 (both
+    # routes in bf16), the Jamba shape; then, bf16 only, the tensor-core
+    # route's tile edges (64-row tiles, 16-row k-steps) at nc = 1 and 3
+    shapes = [(1, 1, 256, 24, 64, 128), (8, 2, 256, 24, 64, 128),
+              (8, 1, 48, 24, 64, 128), (1, 3, 48, 24, 64, 128),
+              (2, 4, 16, 8, 16, 16), (2, 2, 100, 3, 16, 128),
+              (1, 2, 100, 5, 128, 128), (2, 2, 64, 6, 64, 64),
+              (2, 1, 63, 4, 128, 16), (1, 2, 64, 3, 16, 64),
+              (2, 2, 128, 8, 128, 64)]
+    edges = [(2, nc, Q, 4, 64, 128) for nc in (1, 3)
+             for Q in (1, 63, 64, 65, 100, 255, 256)]
+    cases = [(dt, s) for dt in (bf16, f32) for s in shapes]
+    cases += [(bf16, s) for s in edges]
+    for dt, shape in cases:
         for out in (None, f32):
-            for shape in [(1, 1, 256, 24, 64, 128), (8, 2, 256, 24, 64, 128),
-                          (8, 1, 48, 24, 64, 128), (1, 3, 48, 24, 64, 128),
-                          (2, 4, 16, 8, 16, 16), (2, 2, 100, 3, 16, 128)]:
-                args = ssd_inputs(gen, dev, dt, *shape)
-                y, st = ss.ssd_scan(*args, out_dtype=out)
-                torch.cuda.synchronize()
-                yw, sw = ss_ref.ssd_scan_ref(*args, out_dtype=out)
-                if y.dtype != yw.dtype:
-                    raise AssertionError(f"ssd_scan {shape}: y dtype "
-                                         f"{y.dtype}, twin {yw.dtype}")
-                ctx = shape + (dtype_name(dt), dtype_name(out or dt))
-                err = max(att_compare("ssd_scan y", y, yw, dt, ctx),
-                          att_compare("ssd_scan state", st, sw, dt, ctx))
-                res["max_abs_err"] = max(res["max_abs_err"], err)
-                res["cases"] += 1
+            args = ssd_inputs(gen, dev, dt, *shape)
+            y, st = ss.ssd_scan(*args, out_dtype=out)
+            torch.cuda.synchronize()
+            yw, sw = ss_ref.ssd_scan_ref(*args, out_dtype=out)
+            if y.dtype != yw.dtype:
+                raise AssertionError(f"ssd_scan {shape}: y dtype "
+                                     f"{y.dtype}, twin {yw.dtype}")
+            ctx = shape + (dtype_name(dt), dtype_name(out or dt))
+            err = max(att_compare("ssd_scan y", y, yw, dt, ctx),
+                      att_compare("ssd_scan state", st, sw, dt, ctx))
+            res["max_abs_err"] = max(res["max_abs_err"], err)
+            res["cases"] += 1
+    routes = K_.route_counts()["ssd_scan"]
+    res["routes"] = routes
     log(f"kernel ssd_scan: within tolerance of its twin on {res['cases']} "
-        f"cases, max |kernel - twin| {res['max_abs_err']:.3g}")
+        f"cases, max |kernel - twin| {res['max_abs_err']:.3g}; launches by "
+        f"route {json.dumps(routes)}")
+    for rt in routes:
+        if not routes[rt]:
+            raise AssertionError(f"ssd_scan: the {rt} route never ran")
     for tag, shape, reps in (("serve", (8, 2, 256, 24, 64, 128), 50),
                              ("long", (1, 256, 256, 24, 64, 128), 5)):
         make = lambda: ssd_inputs(gen, dev, bf16, *shape)
@@ -1197,13 +1228,16 @@ def run_ssd_checks(dev):
         res[tag] = dict(ms=ms, plain_ms=plain_ms, library_ms=None,
                         bytes=nbytes, flops=flops, dtype=bf16)
         B, nc, Q, H, P, N = shape
+        G = ss_k.head_group(B, nc, Q, H, da_k.sm_count(dev))
         log(f"kernel ssd_scan [{tag}, B={B}, S={nc * Q} ({nc} chunks of "
             f"{Q}), H={H}, P={P}, N={N}, bf16 in, f32 y]: {ms * 1e3:.2f} us "
             f"(twin {plain_ms * 1e3:.2f} us, library none), {nbytes} B, "
             f"{flops} matmul FLOPs, bound "
             f"{att_bound_ms(nbytes, flops, bf16) * 1e3:.2f} us by "
-            f"{att_bound_by(nbytes, flops, bf16)}; {B * H} blocks")
+            f"{att_bound_by(nbytes, flops, bf16)}; route "
+            f"{ss_k.route(bf16, P, N)}, {G} heads per output block")
         del args, nxt
+        ss_k.free_scratch()
         torch.cuda.empty_cache()
     K_.reset_launch_counts()
     return res
@@ -1316,6 +1350,7 @@ def run_serve_path(dev, arch="smollm-360m"):
     from repro_torch.configs.base import RunConfig
     from repro_torch.kernels.flash_attention.kernel import \
         route as attn_route
+    from repro_torch.kernels.ssd_scan.kernel import route as ssd_route
     from repro_torch.launch.serve import serve, summary_line
     from repro_torch.models import lm
     cfg = get_config(arch)
@@ -1354,9 +1389,18 @@ def run_serve_path(dev, arch="smollm-360m"):
         if n != want.get(name, 0):
             raise AssertionError(f"{name} launched {n} times on the serve "
                                  f"path, expected {want.get(name, 0)}")
-    # every attention launch on the route its dtype and head_dim select
-    rt = attn_route(torch.bfloat16, cfg.head_dim)
+    # every launch on the route its dtype and shape select: for the
+    # attention kernels head_dim, for ssd_scan (head_dim, state), which is
+    # the tensor-core route for mamba2-130m
+    bf16 = torch.bfloat16
+    want_rt = {"flash_attention": attn_route(bf16, cfg.head_dim),
+               "decode_attention": attn_route(bf16, cfg.head_dim),
+               "ssd_scan": ssd_route(bf16, cfg.ssm_head_dim, cfg.ssm_state)}
+    if n_ssd and want_rt["ssd_scan"] != "tensor_core":
+        raise AssertionError(f"ssd_scan: {arch} would take the "
+                             f"{want_rt['ssd_scan']} route")
     for name in routes:
+        rt = want_rt[name]
         if routes[name][rt] != counts[name]:
             raise AssertionError(f"{name}: {routes[name]} on the serve "
                                  f"path, expected all {counts[name]} on "
@@ -1456,6 +1500,14 @@ def run_serve_profile(model, dev, steps=4):
         for e in sorted(evs, key=lambda e: -e.self_device_time_total)[:8]:
             log(f"  {e.self_device_time_total / n:9.2f} us/step "
                 f"{e.count / n:6.1f}/step  {e.key[:90]}")
+        ssd_us = sum(e.self_device_time_total for e in evs
+                     if "ssd_" in e.key)
+        if fn is not None and cfg.ssm_state:
+            log(f"{cfg.name} prefill device time {dev_us / 1e3:.3f} ms "
+                f"(33.10 ms with the scalar scan kernel), ssd_scan "
+                f"{ssd_us / 1e3:.3f} ms of it "
+                f"({100 * ssd_us / max(dev_us, 1e-9):.1f}%; the scalar "
+                f"kernel: 18.69 ms)")
 
 
 def main() -> int:
@@ -1575,7 +1627,10 @@ def main() -> int:
         "plain_ms": r["plain_ms"],
         "bound_ms": att_bound_ms(r["bytes"], r["flops"], r["dtype"]),
         "bound_by": att_bound_by(r["bytes"], r["flops"], r["dtype"]),
-        "library_ms": None, "ms_long": g["ms"],
+        "library_ms": None,
+        "launches_tensor_core": mamba_counts["routes"]["ssd_scan"][
+            "tensor_core"],
+        "ms_long": g["ms"],
         "plain_ms_long": g["plain_ms"], "library_ms_long": None,
         "bound_ms_long": att_bound_ms(g["bytes"], g["flops"], g["dtype"])})
     log(f"total {time.perf_counter() - t_start:.1f} s")

@@ -7,13 +7,16 @@ Each family is `kernel.py` (the ctypes launcher of `csrc/<family>.cu`),
 picks by device: a CPU tensor runs the twin, a CUDA tensor launches the
 kernel after its operands are checked, or the op raises; there is no
 fallback.  Each op counts its kernel launches in a plain integer
-attribute, `<op>.launches`, which `launch_counts` reads; the two
-attention ops, which have a tensor-core and a scalar route, also count
-per route in `<op>.route_launches`, which `route_counts` reads.
+attribute, `<op>.launches`, which `launch_counts` reads; the ops with a
+tensor-core and a scalar route (the two attention ops and the SSD scan)
+also count per route in `<op>.route_launches`, which `route_counts`
+reads.  Every launcher launches inside `device_stream(t)`, on the device
+of its own operand and that device's current stream.
 """
 from __future__ import annotations
 
-from typing import Dict, Sequence
+import contextlib
+from typing import Dict, Iterator, Sequence
 
 import torch
 
@@ -46,7 +49,7 @@ def launch_counts() -> Dict[str, int]:
     return {name: fn.launches for name, fn in _ops().items()}
 
 
-ROUTED = ("flash_attention", "decode_attention")
+ROUTED = ("flash_attention", "decode_attention", "ssd_scan")
 
 
 def route_counts() -> Dict[str, Dict[str, int]]:
@@ -61,6 +64,15 @@ def reset_launch_counts() -> None:
         fn.launches = 0
     for name in ROUTED:
         ops[name].route_launches = dict.fromkeys(ops[name].route_launches, 0)
+
+
+@contextlib.contextmanager
+def device_stream(t: torch.Tensor) -> Iterator[int]:
+    """Make `t`'s card the current device for the launch (the CUDA side
+    sets per-device attributes on `cudaGetDevice()`'s device) and yield
+    that card's current stream as an int for the ctypes call."""
+    with torch.cuda.device(t.device):
+        yield torch.cuda.current_stream(t.device).cuda_stream
 
 
 def on_cpu(t: torch.Tensor, op: str) -> bool:

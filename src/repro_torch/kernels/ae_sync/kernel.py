@@ -8,8 +8,7 @@ notes are in the CUDA source.
 """
 from __future__ import annotations
 
-import torch
-
+from repro_torch import kernels as tk
 from repro_torch.kernels import build
 
 _FNS = {}
@@ -32,7 +31,7 @@ def ae_sync(obs_rows, node_rows, site_rtt, tick, interval, outs) -> None:
     S = site_rtt.shape[1]
     ptrs = [t.data_ptr() for t in (*obs_rows, *node_rows, site_rtt, tick,
                                    interval, *outs)]
-    rc = _fn()(*ptrs, B, O, N, S,
-               torch.cuda.current_stream(site_rtt.device).cuda_stream)
+    with tk.device_stream(site_rtt) as stream:
+        rc = _fn()(*ptrs, B, O, N, S, stream)
     if rc != 0:
         raise RuntimeError(f"ae_sync: CUDA launch failed with error {rc}")

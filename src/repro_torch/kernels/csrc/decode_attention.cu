@@ -61,9 +61,9 @@
 #include <math.h>
 #include <stdint.h>
 
-namespace {
+#include "smem_limit.cuh"
 
-constexpr int MAX_DEVICES = 64;
+namespace {
 
 // weight of a partial with running max m under the combined max mx
 __device__ __forceinline__ float rescale(float m, float mx) {
@@ -636,18 +636,8 @@ __global__ void __launch_bounds__(NT)
 
 template <int HD>
 int prepare(bool* done) {
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return (int)e;
-  if (dev < 0 || dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
-  if (!done[dev]) {
-    e = cudaFuncSetAttribute((const void*)decode_tc_kernel<HD>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             Layout<HD>::SMEM);
-    if (e != cudaSuccess) return (int)e;
-    done[dev] = true;
-  }
-  return 0;
+  return smem_limit_once((const void*)decode_tc_kernel<HD>, Layout<HD>::SMEM,
+                         done);
 }
 
 template <int HD>

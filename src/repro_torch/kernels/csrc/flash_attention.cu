@@ -77,25 +77,9 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "smem_limit.cuh"
+
 namespace {
-
-constexpr int MAX_DEVICES = 64;
-
-// Raise `fn`'s dynamic shared-memory limit to `bytes` once per device
-// (`done` is the caller's per-kernel flag array).
-int smem_limit_once(const void* fn, int bytes, bool* done) {
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return (int)e;
-  if (dev < 0 || dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
-  if (!done[dev]) {
-    e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             bytes);
-    if (e != cudaSuccess) return (int)e;
-    done[dev] = true;
-  }
-  return 0;
-}
 
 namespace scalar {
 

@@ -17,6 +17,7 @@ import ctypes
 
 import torch
 
+from repro_torch import kernels as tk
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention.kernel import (DTYPE_CODE, ROUTES,
                                                        route)
@@ -121,7 +122,6 @@ def decode_attention(q, k_cache, v_cache, cache_len, out,
     B, _, H, hd = q.shape
     T, KV = k_cache.shape[1], k_cache.shape[2]
     dev = q.device
-    stream = torch.cuda.current_stream(dev).cuda_stream
     r = route(q.dtype, hd)
     if r == "tensor_core":
         ns = nsplit or n_splits(B, T, KV, sm_count(dev),
@@ -130,19 +130,20 @@ def decode_attention(q, k_cache, v_cache, cache_len, out,
     else:                       # the scalar route: one wave of one block/SM
         ns = nsplit or n_splits(B, T, KV, sm_count(dev), 1)
         rec = group_pad(H // KV)
-    if ns > 1:
-        part, counter = _scratch(dev, stream, B * KV * ns * rec * (hd + 2),
-                                 B * KV)
-        p_part, p_ctr = part.data_ptr(), counter.data_ptr()
-    else:
-        p_part = p_ctr = None
-    args = (q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-            cache_len.data_ptr(), out.data_ptr(), p_part, p_ctr,
-            B, T, H, KV, hd)
-    if r == "tensor_core":
-        rc = _fn(r)(*args, ns, stream)
-    else:
-        rc = _fn(r)(*args, DTYPE_CODE[q.dtype], ns, stream)
+    with tk.device_stream(q) as stream:
+        if ns > 1:
+            part, counter = _scratch(dev, stream,
+                                     B * KV * ns * rec * (hd + 2), B * KV)
+            p_part, p_ctr = part.data_ptr(), counter.data_ptr()
+        else:
+            p_part = p_ctr = None
+        args = (q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+                cache_len.data_ptr(), out.data_ptr(), p_part, p_ctr,
+                B, T, H, KV, hd)
+        if r == "tensor_core":
+            rc = _fn(r)(*args, ns, stream)
+        else:
+            rc = _fn(r)(*args, DTYPE_CODE[q.dtype], ns, stream)
     if rc != 0:
         raise RuntimeError(f"decode_attention ({r} route): CUDA launch "
                            f"failed with error {rc}")

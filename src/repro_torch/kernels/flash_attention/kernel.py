@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import kernels as tk
 from repro_torch.kernels import build
 
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -48,13 +49,13 @@ def flash_attention(q, k, v, out, causal: bool) -> str:
     B, S, H, hd = q.shape
     T, KV = k.shape[1], k.shape[2]
     r = route(q.dtype, hd)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
-    if r == "tensor_core":
-        rc = _fn(r)(*ptrs, B, S, T, H, KV, hd, int(causal), stream)
-    else:
-        rc = _fn(r)(*ptrs, B, S, T, H, KV, hd, DTYPE_CODE[q.dtype],
-                    int(causal), stream)
+    with tk.device_stream(q) as stream:
+        if r == "tensor_core":
+            rc = _fn(r)(*ptrs, B, S, T, H, KV, hd, int(causal), stream)
+        else:
+            rc = _fn(r)(*ptrs, B, S, T, H, KV, hd, DTYPE_CODE[q.dtype],
+                        int(causal), stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention ({r} route): CUDA launch "
                            f"failed with error {rc}")

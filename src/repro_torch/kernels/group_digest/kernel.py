@@ -8,8 +8,7 @@ it.  The design notes are in the CUDA source.
 """
 from __future__ import annotations
 
-import torch
-
+from repro_torch import kernels as tk
 from repro_torch.kernels import build
 
 _FNS = {}
@@ -30,8 +29,8 @@ def group_reduce(gids, int_mat, flt_mat, g_int, g_sum, g_max) -> None:
     G = g_int.shape[0]
     ptrs = [t.data_ptr() for t in (gids, int_mat, flt_mat, g_int, g_sum,
                                    g_max)]
-    rc = _fn()(*ptrs, B, G, Fi, Ff,
-               torch.cuda.current_stream(gids.device).cuda_stream)
+    with tk.device_stream(gids) as stream:
+        rc = _fn()(*ptrs, B, G, Fi, Ff, stream)
     if rc != 0:
         raise RuntimeError(f"group_reduce: CUDA launch failed with "
                            f"error {rc}")

@@ -8,6 +8,7 @@ CUDA source.
 """
 from __future__ import annotations
 
+from repro_torch import kernels as tk
 from repro_torch.kernels import build
 
 _FNS = {}
@@ -21,7 +22,7 @@ def _fn():
 
 
 def leader_fanout(rows, rtt, scalars, outs, *, msg_budget: int,
-                  max_ship: int, entries_per_msg: int, stream: int) -> None:
+                  max_ship: int, entries_per_msg: int) -> None:
     """rows: the ten (B, N) inputs (role, alive, warn_timer, sec_of,
     match_len, app_arrive_t, app_from_len, app_upto, app_term,
     app_commit); rtt (B, N, N); scalars: the six (B,) leader tensors
@@ -29,8 +30,9 @@ def leader_fanout(rows, rtt, scalars, outs, *, msg_budget: int,
     five (B, N) app_* rows and the (B,) work delta."""
     B, N = rows[0].shape
     ptrs = [t.data_ptr() for t in (*rows, rtt, *scalars, *outs)]
-    rc = _fn()(*ptrs, B, N, int(msg_budget), int(max_ship),
-               int(entries_per_msg), stream)
+    with tk.device_stream(rows[0]) as stream:
+        rc = _fn()(*ptrs, B, N, int(msg_budget), int(max_ship),
+                   int(entries_per_msg), stream)
     if rc != 0:
         raise RuntimeError(f"leader_fanout: CUDA launch failed with "
                            f"error {rc}")

@@ -59,8 +59,7 @@ def leader_fanout(role, alive, warn_timer, sec_of, match_len,
               _BOOL if name == "has_leader" else _I32, (B,), dev)
     outs = [torch.empty((B, N), dtype=_I32, device=dev) for _ in range(5)]
     work = torch.empty((B,), dtype=_I32, device=dev)
-    K.leader_fanout(rows, rtt, scalars, [*outs, work],
-                    stream=torch.cuda.current_stream(dev).cuda_stream, **kw)
+    K.leader_fanout(rows, rtt, scalars, [*outs, work], **kw)
     leader_fanout.launches += 1
     return (*outs, work)
 

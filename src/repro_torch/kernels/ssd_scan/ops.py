@@ -8,9 +8,12 @@ this op bar `out_dtype`).
 x (B,nc,Q,H,P) and Bm, Cm (B,nc,Q,N) in bfloat16 or float32 (one dtype),
 dt (B,nc,Q,H) and A (H,) float32.  A CPU tensor runs the twin in
 `ref.py`; a CUDA tensor launches the kernel in `csrc/ssd_scan.cu` after
-the operands are checked (contiguous, one device, Q <= 256, (P, N) one
-of the compiled shapes), else the op raises.  Every launch adds one to
-`ssd_scan.launches`.
+the operands are checked (contiguous, one device, `kernel.accepts(P, N,
+Q)`: P and N in {16, 64, 128}, Q <= 256; x, Bm, Cm 16-byte aligned on
+the tensor-core route), else the op raises.  Every call that launches
+adds one to `ssd_scan.launches` (however many CUDA kernels its route
+issues) and one to `ssd_scan.route_launches[route]` (`kernel.route`:
+bf16 with P, N in {64, 128} on the tensor cores, the rest scalar).
 """
 from __future__ import annotations
 
@@ -38,24 +41,29 @@ def ssd_scan(x, Bm, Cm, dt, A, *, out_dtype=None):
     if x.dtype not in K.DTYPE_CODE:
         raise ValueError(f"ssd_scan: x has dtype {x.dtype}; expected "
                          f"bfloat16 or float32")
-    if (P, N) not in K.SHAPES:
-        raise ValueError(f"ssd_scan: (head_dim, state) = ({P}, {N}) not in "
-                         f"{K.SHAPES}")
-    if Q > K.MAX_CHUNK:
-        raise ValueError(f"ssd_scan: chunk {Q} > {K.MAX_CHUNK}")
+    if not K.accepts(P, N, Q):
+        raise ValueError(f"ssd_scan: (head_dim, state, chunk) = ({P}, {N}, "
+                         f"{Q}) not taken: head_dim and state in {K.DIMS}, "
+                         f"chunk at most {K.MAX_CHUNK}")
     dev = x.device
     check("ssd_scan", "x", x, x.dtype, (B, nc, Q, H, P), dev)
     check("ssd_scan", "Bm", Bm, x.dtype, (B, nc, Q, N), dev)
     check("ssd_scan", "Cm", Cm, x.dtype, (B, nc, Q, N), dev)
     check("ssd_scan", "dt", dt, torch.float32, (B, nc, Q, H), dev)
     check("ssd_scan", "A", A, torch.float32, (H,), dev)
+    if K.route(x.dtype, P, N) == "tensor_core":
+        for name, t in (("x", x), ("Bm", Bm), ("Cm", Cm)):
+            if t.data_ptr() % 16:
+                raise ValueError(f"ssd_scan: {name} must be 16-byte aligned")
     y = torch.empty(x.shape, dtype=out_dtype or x.dtype, device=dev)
     state = torch.empty((B, H, P, N), dtype=torch.float32, device=dev)
     if x.numel() == 0:
         return y, state.zero_()
-    K.ssd_scan(x, Bm, Cm, dt, A, y, state)
+    r = K.ssd_scan(x, Bm, Cm, dt, A, y, state)
     ssd_scan.launches += 1
+    ssd_scan.route_launches[r] += 1
     return y, state
 
 
 ssd_scan.launches = 0
+ssd_scan.route_launches = dict.fromkeys(K.ROUTES, 0)

@@ -13,8 +13,10 @@ B = 3.  The two attention kernels (held to the JAX kernels by
 `test_torch_attention_kernels.py`) and the SSD scan (held to the JAX
 kernel by `test_torch_ssd.py`) match their twins within float32 2e-4 and
 bfloat16 3e-2: the sums run in another order.  The attention kernels'
-tile edges also check which route (tensor cores for bfloat16 at
-head_dim 64/128, scalar for the rest) each launch took."""
+and the SSD scan's tile edges also check which route (tensor cores for
+bfloat16 at head_dim 64/128, and for the scan at P, N in {64, 128};
+scalar for the rest) each launch took, and one test (two cards or
+more) launches on the second card while the first is current."""
 from __future__ import annotations
 
 import numpy as np
@@ -322,7 +324,9 @@ def test_reduced_serve_on_the_card():
 @pytest.mark.gpu
 @pytest.mark.parametrize("B,nc,Q,H,P,N", [
     (2, 2, 256, 24, 64, 128), (1, 1, 48, 24, 64, 128), (3, 4, 16, 8, 16, 16),
-    (1, 2, 100, 3, 16, 128), (2, 1, 7, 5, 64, 16)])
+    (1, 2, 100, 3, 16, 128), (2, 1, 7, 5, 64, 16), (2, 2, 128, 8, 128, 64),
+    (1, 2, 100, 3, 128, 128), (2, 1, 63, 4, 64, 64), (1, 3, 1, 4, 64, 128),
+    (2, 1, 65, 4, 64, 128), (1, 3, 255, 4, 128, 64), (1, 2, 64, 4, 16, 64)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("out_dtype", [None, torch.float32])
 def test_ssd_scan(B, nc, Q, H, P, N, dtype, out_dtype):
@@ -342,6 +346,84 @@ def test_ssd_scan(B, nc, Q, H, P, N, dtype, out_dtype):
     assert y.dtype == yw.dtype and st.dtype == torch.float32
     _close(yw, y, dtype)
     _close(sw, st, dtype)
+
+
+# the tensor-core route's tile edges: 64-row output tiles, 16-row k-steps
+# of the chunk-state product, one and several chunks; each case checks
+# which route's counter moved
+@pytest.mark.gpu
+@pytest.mark.parametrize("Q", [1, 63, 64, 65, 100, 255, 256])
+@pytest.mark.parametrize("nc", [1, 3])
+@pytest.mark.parametrize("P,N", [(64, 128), (128, 64), (16, 64)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_scan_routes(Q, nc, P, N, dtype):
+    _need_cuda()
+    from repro_torch import kernels as K_
+    from repro_torch.kernels.ssd_scan import kernel as sk
+    from repro_torch.kernels.ssd_scan import ops as ss
+    rng = np.random.default_rng(Q * nc + P + N)
+    B, H = 2, 4
+    x, Bm, Cm = (_att(rng, s, dtype) * 0.5 for s in
+                 ((B, nc, Q, H, P), (B, nc, Q, N), (B, nc, Q, N)))
+    dt = torch.nn.functional.softplus(_att(rng, (B, nc, Q, H), torch.float32))
+    A = -torch.exp(_att(rng, (H,), torch.float32) * 0.3)
+    route = sk.route(dtype, P, N)
+    assert route == ("tensor_core" if dtype == torch.bfloat16 and P != 16
+                     else "scalar")
+    n0 = K_.route_counts()["ssd_scan"]
+    y, st = ss.ssd_scan(*[t.cuda() for t in (x, Bm, Cm, dt, A)])
+    torch.cuda.synchronize()
+    n1 = K_.route_counts()["ssd_scan"]
+    assert {r: n1[r] - n0[r] for r in n1} == {
+        r: int(r == route) for r in sk.ROUTES}
+    yw, sw = ss.ssd_scan(x, Bm, Cm, dt, A)
+    _close(yw, y, dtype)
+    _close(sw, st, dtype)
+
+
+@pytest.mark.gpu
+def test_launch_on_second_device():
+    """With device 0 current, one consensus kernel, flash_attention and
+    ssd_scan run on cuda:1 (operands, outputs and launches there) and
+    match their twins; device 0 stays current."""
+    _need_cuda()
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.ssd_scan import ops as ss
+    dev = torch.device("cuda:1")
+    torch.cuda.set_device(0)
+    rng = np.random.default_rng(11)
+    B, N, L = 2, 9, 64
+    match = _t(rng, 0, L, (B, N))
+    alive = torch.as_tensor(rng.random((B, N)) < 0.8)
+    lterm = _t(rng, 1, 4, (B, L))
+    cur, maj = _t(rng, 1, 4, (B,)), torch.full((B,), 5, dtype=torch.int32)
+    want = rt.commit_majority(match, alive, lterm, cur, maj)
+    got = rt.commit_majority(*(t.to(dev) for t in (match, alive, lterm, cur,
+                                                   maj)))
+    assert got.device == dev
+    _equal([want], [got])
+    bf16 = torch.bfloat16
+    q, k, v = (_att(rng, (1, 130, 6, 64), bf16),
+               _att(rng, (1, 130, 2, 64), bf16),
+               _att(rng, (1, 130, 2, 64), bf16))
+    got = fa.flash_attention(q.to(dev), k.to(dev), v.to(dev))
+    assert got.device == dev
+    _close(fa.flash_attention(q, k, v), got, bf16)
+    x, Bm, Cm = (_att(rng, s, bf16) * 0.5 for s in
+                 ((1, 2, 100, 4, 64, 128), (1, 2, 100, 128),
+                  (1, 2, 100, 128)))
+    dt = torch.nn.functional.softplus(_att(rng, (1, 2, 100, 4),
+                                           torch.float32))
+    A = -torch.exp(_att(rng, (4,), torch.float32) * 0.3)
+    y, st = ss.ssd_scan(*(t.to(dev) for t in (x, Bm, Cm, dt, A)))
+    torch.cuda.synchronize(dev)
+    assert y.device == dev and st.device == dev
+    yw, sw = ss.ssd_scan(x, Bm, Cm, dt, A)
+    _close(yw, y, bf16)
+    _close(sw, st, bf16)
+    assert torch.cuda.current_device() == 0
 
 
 @pytest.mark.gpu
