@@ -17,14 +17,22 @@ Phases, each fatal on failure:
 2. each of the six kernels against its plain PyTorch twin on the same
    CUDA inputs, exact equality (floats included): at the solo path's
    shapes (B=1, N=87, L=4096, K=1024, W=256, A=8), at the fleet path's
-   (B=5, O=550, S=4, Fi=355 packed group lanes) and on edge cases; then
-   device times of kernel, twin and (group_reduce) the nearest PyTorch
-   calls, with CUDA events around launches queued behind a sleep
-   kernel, median of many;
+   (B=5, O=550, S=4, Fi=355 packed group lanes), at the sweep's B=32 and
+   on edge cases (for commit_majority N in {1, 32, 33, 87, 1024} by L in
+   {1, 16, 33, 4096}, mixed majorities, no live voter, the majority-th
+   match past L; for apply_last_wins A in {1, 8, 31, 32, 33, 64}, one
+   key per row, no valid entry, keys at -K-1, -1, K, K+1); then the
+   launch floor (a one-cycle sleep kernel) and device times of kernel,
+   twin and (group_reduce) the nearest PyTorch calls, with CUDA events
+   around launches queued behind a sleep kernel, median of many, each
+   kernel's time also printed as its excess over the floor;
 3. the solo path: `BWRaftSim(CONFIG, seed=0)`, managed, 3 epochs, then
    2 more at phi=0.02, with every launch count set to 0 just before and
-   read just after (each per-tick kernel once per tick: 500); then the
-   quickstart's client sequence through `BWKVService`;
+   read just after (each per-tick kernel once per tick: 500), keeping
+   the operands of the commit and apply calls of tick 250; those two
+   kernels against their twins on the kept operands and their device
+   times there, beside phase 2's floor; then the quickstart's client
+   sequence through `BWKVService`;
 4. one solo epoch from the same state and draw bundle on the card
    (kernels) and on the CPU (twins): integer and bool results equal,
    float results within rtol=1e-5 (float32 sums reduce in another order
@@ -102,12 +110,14 @@ checkout of the repository.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import re
 import statistics
 import subprocess
 import sys
 import time
+import types
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -168,6 +178,13 @@ PER_TICK = ("log_match_append", "commit_majority", "apply_last_wins",
             "leader_fanout")
 FLEET_B = 5
 SWEEP_B = 32
+# the ops whose operands phase 3 keeps (the solo path's own data), with
+# their operand names, and the call kept: mid-epoch, epoch 2, tick 50
+MAIN_DATA = {
+    "commit_majority": ("match_len", "voter_alive", "ldr_term",
+                        "ldr_cur_term", "majority"),
+    "apply_last_wins": ("kv", "keys", "vals", "valid")}
+MAIN_DATA_AT = 250
 
 
 def log(*a):
@@ -219,21 +236,33 @@ def lma_case(rng, B, N, L, W, *, due_frac=0.5, empty=False):
         due=rng.random((B, N)) < due_frac)
 
 
-def commit_case(rng, B, N, L, *, dead_frac=0.3, majority=None):
+def commit_case(rng, B, N, L, *, dead_frac=0.3, majority=None, over=0):
+    """Random terms (not monotone); match lengths in [0, L], or with
+    over > 0 in [L, L + over], so the majority-th largest is past L."""
     import numpy as np
     maj = (rng.integers(0, N + 3, B) if majority is None
            else np.full(B, majority))
-    return dict(match_len=rng.integers(0, L + 1, (B, N)),
+    return dict(match_len=rng.integers(L if over else 0, L + 1 + over,
+                                       (B, N)),
                 voter_alive=rng.random((B, N)) >= dead_frac,
                 ldr_term=rng.integers(0, 3, (B, L)),
                 ldr_cur_term=rng.integers(0, 3, B), majority=maj)
 
 
-def apply_case(rng, B, N, K, A):
-    return dict(kv=rng.integers(-4, 4, (B, N, K)),
-                keys=rng.integers(-K - 3, K + 3, (B, N, A)),
+def apply_case(rng, B, N, K, A, *, keys="random", valid_frac=0.7):
+    """keys: "random" in [-K-3, K+3), "one" (one key for every entry of a
+    row) or "edge" (-K-1, -1, K, K+1 and the in-range ends 0, K-1)."""
+    import numpy as np
+    if keys == "one":
+        k = np.repeat(rng.integers(-K - 3, K + 3, (B, N, 1)), A, axis=2)
+    elif keys == "edge":
+        k = rng.choice(np.array([-K - 1, -1, K, K + 1, 0, K - 1]),
+                       (B, N, A))
+    else:
+        k = rng.integers(-K - 3, K + 3, (B, N, A))
+    return dict(kv=rng.integers(-4, 4, (B, N, K)), keys=k,
                 vals=rng.integers(0, 2 ** 20, (B, N, A)),
-                valid=rng.random((B, N, A)) < 0.7)
+                valid=rng.random((B, N, A)) < valid_frac)
 
 
 def fanout_case(rng, B, N, L, *, has_leader=True, alive_frac=0.8,
@@ -367,12 +396,20 @@ def group_library(c, G):
     return g_int[:G], g_sum[:G], g_max[:G]
 
 
+def launch_floor_ms() -> float:
+    """The device time of an empty launch under `device_ms`: a one-cycle
+    sleep kernel."""
+    import torch
+    return device_ms(lambda: torch.cuda._sleep(1), 100, 4_000_000)
+
+
 def run_kernel_checks(dev, cfg, static, fleet_shapes):
     """Every kernel == its twin on the card, at the solo path's shapes
-    (B=1), at the fleet path's (B=5) and on the edge cases; then device
-    times.  Returns {name: {tag: {ms, plain_ms, library_ms, bytes,
-    ops}}} for tag "solo" (the four slice-1 kernels) and "fleet" (all
-    six)."""
+    (B=1), at the fleet path's (B=5), at the sweep's (B=32) and on the
+    edge cases; then device times beside the launch floor.  Returns
+    ({name: {tag: {ms, plain_ms, library_ms, bytes, ops}}} for tag
+    "solo" (the four slice-1 kernels) and "fleet" (all six), the floor
+    in ms)."""
     import numpy as np
     import torch
     from repro_torch import kernels as K_
@@ -405,12 +442,14 @@ def run_kernel_checks(dev, cfg, static, fleet_shapes):
             (None, commit_case(rng, 1, N, L, dead_frac=0.0), {}),
             (None, commit_case(rng, 1, 9, 40, majority=0), {}),
             (None, commit_case(rng, 1, N, L, majority=N + 3), {}),
-            (None, commit_case(rng, 1, 1, 16, majority=1), {})],
+            (None, commit_case(rng, 1, 1, 16, majority=1), {}),
+            (None, commit_case(rng, SWEEP_B, N, L), {})],
         "apply_last_wins": [
             ("solo", apply_case(rng, 1, N, K, A), {}),
             ("fleet", apply_case(rng, B, N, K, A), {}),
             (None, apply_case(rng, 1, 3, 5, A), {}),
-            (None, apply_case(rng, 3, N, K, 1), {})],
+            (None, apply_case(rng, 3, N, K, 1), {}),
+            (None, apply_case(rng, SWEEP_B, N, K, A), {})],
         "leader_fanout": [
             ("solo", fanout_case(rng, 1, N, L), {}),
             ("fleet", fanout_case(rng, B, N, L), {}),
@@ -432,6 +471,25 @@ def run_kernel_checks(dev, cfg, static, fleet_shapes):
             (None, group_case(rng, 6, 3, 5, 2, dropped=1.0), dict(G=3)),
             (None, group_case(rng, 37, 1, 1, 3), dict(G=1))],
     }
+    # the commit's edges: N across one warp's edge and the block limit, L
+    # from one entry to the paper's, each with mixed majorities (0 to
+    # N + 2), no live voter, and the majority-th largest at or past L
+    for n in (1, 32, 33, N, 1024):
+        for ln in (1, 16, 33, L):
+            cases["commit_majority"] += [
+                (None, commit_case(rng, B, n, ln), {}),
+                (None, commit_case(rng, 1, n, ln, dead_frac=1.0,
+                                   majority=n // 2 + 1), {}),
+                (None, commit_case(rng, 1, n, ln, dead_frac=0.0,
+                                   majority=n // 2 + 1, over=3), {})]
+    # the apply's edges: A from one lane to two warps' worth, a row's
+    # entries all on one key, none valid, keys at the wrap's edges
+    for a in (1, 8, 31, 32, 33, 64):
+        cases["apply_last_wins"] += [
+            (None, apply_case(rng, B, N, K, a), {}),
+            (None, apply_case(rng, 1, N, K, a, keys="one"), {}),
+            (None, apply_case(rng, 1, N, K, a, valid_frac=0.0), {}),
+            (None, apply_case(rng, 3, 7, 16, a, keys="edge"), {})]
     # the warned-secretary handoff: every follower wired to an alive
     # SECRETARY, half of them warned
     c = fanout_case(rng, 1, N, L, alive_frac=1.0, warn_frac=0.0)
@@ -457,6 +515,8 @@ def run_kernel_checks(dev, cfg, static, fleet_shapes):
     cases["group_reduce"].append((None, c, dict(G=4)))
 
     fns = kernel_fns()
+    floor = launch_floor_ms()
+    log(f"launch floor (a one-cycle sleep kernel): {floor * 1e3:.2f} us")
     results = {}
     for name, items in cases.items():
         fn = fns[name]
@@ -489,14 +549,86 @@ def run_kernel_checks(dev, cfg, static, fleet_shapes):
                                       library_ms=lib_ms, bytes=nbytes,
                                       ops=ops)
             Bc = np.asarray(next(iter(case.values()))).shape[0]
-            log(f"kernel {name} [{tag}, B={Bc}]: {ms * 1e3:.2f} us "
+            log(f"kernel {name} [{tag}, B={Bc}]: {ms * 1e3:.2f} us, "
+                f"{(ms - floor) * 1e3:.2f} over the floor "
                 f"(twin {plain_ms * 1e3:.2f} us"
                 + (f", library {lib_ms * 1e3:.2f} us" if lib_ms else "")
                 + f"), {nbytes} B, {ops} ops, bound "
                 f"{bound_ms(nbytes, ops) * 1e3:.4f} us")
         log(f"kernel {name}: equal to twin on {len(items)} cases")
     K_.reset_launch_counts()
-    return results
+    return results, floor
+
+
+@contextlib.contextmanager
+def keep_main_path_operands(at):
+    """Yield {op name: operands}: while open, `core/step.py` reaches the
+    commit and apply ops through a stand-in for its `rt_ops` that keeps
+    a copy of the operands of each op's `at`-th call (cloned before the
+    call, which updates kv in place).  The ops module itself is left
+    alone, so its launch counts stay the real ones."""
+    from repro_torch.core import step as step_mod
+    rt = step_mod.rt_ops
+    kept = {}
+
+    def wrap(name):
+        fn, calls = getattr(rt, name), [0]
+
+        def op(*args):
+            if calls[0] == at:
+                kept[name] = [a.clone() for a in args]
+            calls[0] += 1
+            return fn(*args)
+        return op
+
+    step_mod.rt_ops = types.SimpleNamespace(
+        **dict(vars(rt), **{n: wrap(n) for n in MAIN_DATA}))
+    try:
+        yield kept
+    finally:
+        step_mod.rt_ops = rt
+
+
+def time_main_path_data(kept, floor, static):
+    """Rows 2-3 on the operands kept from the solo path's own ticks:
+    equal to the twin, then device times beside phase 2's floor.
+    Returns {name: {ms, plain_ms, bytes, ops}}."""
+    import torch
+    from repro_torch import kernels as K_
+    fns = kernel_fns()
+    out = {}
+    for name, args in kept.items():
+        case = dict(zip(MAIN_DATA[name], args))
+        fn = fns[name]
+        got = fn(clone(case), False, {})
+        torch.cuda.synchronize()
+        check_equal(f"{name} (main path data)", got, fn(clone(case), True,
+                                                        {}))
+        ka, kb = clone(case), clone(case)
+        ms = device_ms(lambda: fn(ka, False, {}), 100, 4_000_000)
+        plain_ms = device_ms(lambda: fn(kb, True, {}), 30, 40_000_000)
+        nbytes, ops = work_of(name, {k: v.cpu().numpy()
+                                     for k, v in case.items()}, static, {})
+        out[name] = dict(ms=ms, plain_ms=plain_ms, bytes=nbytes, ops=ops)
+        log(f"kernel {name} [main path data, tick {MAIN_DATA_AT}]: "
+            f"{ms * 1e3:.2f} us, {(ms - floor) * 1e3:.2f} over the floor "
+            f"of {floor * 1e3:.2f} us; twin "
+            f"{plain_ms * 1e3:.2f} us; {nbytes} B, {ops} ops, bound "
+            f"{bound_ms(nbytes, ops) * 1e3:.4f} us; {main_data_note(case)}")
+    K_.reset_launch_counts()
+    return out
+
+
+def main_data_note(case):
+    """What the kept operands hold: the commit's live voters and
+    majority, the apply's valid entries."""
+    if "majority" in case:
+        alive = int(case["voter_alive"].sum())
+        return (f"{alive} live voters, majority "
+                f"{int(case['majority'][0])}, term row of "
+                f"{case['ldr_term'].shape[1]}")
+    return (f"{int(case['valid'].sum())} of {case['valid'].numel()} "
+            f"entries valid")
 
 
 def work_of(name, c, static, kw):
@@ -577,20 +709,21 @@ def run_main_path(dev, cfg):
     sim = BWRaftSim(cfg, seed=0, device=dev)
     K_.reset_launch_counts()
     ticks, wall = 0, []
-    for e in range(5):
-        if e == 3:
-            sim.set_rates(phi=0.02)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        rep = sim.run_epoch()          # ends in the digest fetch (a sync)
-        wall.append((time.perf_counter() - t0) * 1e3)
-        ticks += cfg.period_ticks
-        d = {k: v for k, v in rep.__dict__.items()
-             if k not in ("decision", "metrics")}
-        log(f"epoch {e}: {wall[-1]:.1f} ms  {json.dumps(d)}")
-        if rep.decision is not None:
-            log(f"  decision {json.dumps(rep.decision.__dict__)}")
-        check_report(rep, f"epoch {e}")
+    with keep_main_path_operands(MAIN_DATA_AT) as kept:
+        for e in range(5):
+            if e == 3:
+                sim.set_rates(phi=0.02)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rep = sim.run_epoch()      # ends in the digest fetch (a sync)
+            wall.append((time.perf_counter() - t0) * 1e3)
+            ticks += cfg.period_ticks
+            d = {k: v for k, v in rep.__dict__.items()
+                 if k not in ("decision", "metrics")}
+            log(f"epoch {e}: {wall[-1]:.1f} ms  {json.dumps(d)}")
+            if rep.decision is not None:
+                log(f"  decision {json.dumps(rep.decision.__dict__)}")
+            check_report(rep, f"epoch {e}")
     counts = K_.launch_counts()
     log(f"launches over {ticks} solo ticks: {json.dumps(counts)}")
     for name, n in counts.items():
@@ -608,7 +741,9 @@ def run_main_path(dev, cfg):
     log(f"solo epoch wall ms: median {statistics.median(steady):.1f} "
         f"(epochs 1-4; epoch 0 {wall[0]:.1f} incl. warm-up); "
         f"ticks/s {cfg.period_ticks * 1e3 / statistics.median(steady):.1f}")
-    return sim, counts, wall
+    if sorted(kept) != sorted(MAIN_DATA):
+        raise AssertionError(f"kept operands of {sorted(kept)} only")
+    return sim, counts, kept
 
 
 def check_tick_sync_free(state, static, cfg_c, bundle, ticks):
@@ -1551,8 +1686,9 @@ def main() -> int:
     static = SM.build_static(CONFIG)
     fleet_shapes = dict(O=50 * rack_voters(CONFIG), S=CONFIG.num_sites,
                         Fi=group_digest_width(CONFIG), G=1)
-    results = run_kernel_checks(dev, CONFIG, static, fleet_shapes)
-    sim, solo_counts, _ = run_main_path(dev, CONFIG)
+    results, floor = run_kernel_checks(dev, CONFIG, static, fleet_shapes)
+    sim, solo_counts, kept = run_main_path(dev, CONFIG)
+    main_data = time_main_path_data(kept, floor, static)
     run_quickstart(dev, CONFIG)
     run_card_vs_cpu("solo", SM.batch1(sim.state), [sim.static],
                     SM.batch1(sim.cfg_c), CONFIG.period_ticks)
@@ -1591,11 +1727,16 @@ def main() -> int:
             "bound_ms": bound_ms(r["bytes"], r["ops"]),
             "bound_by": bound_by(r["bytes"], r["ops"]),
             "library_ms": r["library_ms"],
-            "launches_solo": solo_counts[name]}
+            "launches_solo": solo_counts[name], "floor_ms": floor}
         if "solo" in results[name]:
             s = results[name]["solo"]
             entry.update(ms_solo=s["ms"], plain_ms_solo=s["plain_ms"],
                          bound_ms_solo=bound_ms(s["bytes"], s["ops"]))
+        if name in main_data:
+            m = main_data[name]
+            entry.update(ms_main_data=m["ms"],
+                         plain_ms_main_data=m["plain_ms"],
+                         bound_ms_main_data=bound_ms(m["bytes"], m["ops"]))
         kernels.append(entry)
     for name in ("flash_attention", "decode_attention"):
         a = att[name]

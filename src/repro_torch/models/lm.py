@@ -25,6 +25,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from repro_torch import resolve_device
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import ssd as ssd_mod
 from repro_torch.models.common import (DTYPES, ParamSpec, init_tree,
@@ -181,8 +182,9 @@ class LM(nn.Module):
 
 
 def init_lm(cfg, runcfg, *, seed: int = 0, device=None) -> LM:
-    """Random weights from `seed`, made on `device` by `init_tree`."""
-    device = torch.device(device or "cpu")
+    """Random weights from `seed`, made on `device` by `init_tree`;
+    `device` None means the card (`repro_torch.resolve_device`)."""
+    device = resolve_device(device)
     gen = torch.Generator(device=device).manual_seed(seed)
     specs = build_param_specs(cfg, DTYPES[runcfg.param_dtype])
     return LM(cfg, init_tree(gen, specs))
@@ -194,8 +196,9 @@ def from_numpy(params_np, cfg, runcfg, device=None) -> LM:
     bfloat16 leaves come as their uint16 bits (`a.view(np.uint16)`),
     since `torch.from_numpy` takes no bfloat16.  Every leaf is copied
     (JAX's numpy views are read-only).  The model-side
-    counterpart of `core/state.from_numpy`."""
-    device = torch.device(device or "cpu")
+    counterpart of `core/state.from_numpy`.  `device` None means the
+    card, as for `init_lm`."""
+    device = resolve_device(device)
     specs = build_param_specs(cfg, DTYPES[runcfg.param_dtype])
     tree: Dict[str, Any] = {}
     for path, spec in tree_items(specs):

@@ -8,8 +8,8 @@ imports no JAX, so it runs on a machine that has only the port:
 The same inputs on the CPU run the twins, which `test_torch_kernels.py`
 holds bit-equal to the JAX kernels; here the kernel must equal the twin
 bit for bit, floats included, and each launch must count once.  Every
-consensus op takes a leading member axis B; the cases run at B = 1 and at
-B = 3.  The two attention kernels (held to the JAX kernels by
+consensus op takes a leading member axis B; the cases run at B = 1 to
+B = 32.  The two attention kernels (held to the JAX kernels by
 `test_torch_attention_kernels.py`) and the SSD scan (held to the JAX
 kernel by `test_torch_ssd.py`) match their twins within float32 2e-4 and
 bfloat16 3e-2: the sums run in another order.  The attention kernels'
@@ -64,37 +64,75 @@ def test_log_match_append(B, N, L, W, due):
     _equal(want, got)
 
 
+# the commit kernel's edges: N across a warp's edge up to one block, L
+# from one entry to the paper's 4096 (ragged between), and a B = 32 fleet
+COMMIT_CASES = [(1, 87, 4096, 0.3), (1, 87, 4096, 1.0), (1, 1, 16, 0.0),
+                (1, 1024, 64, 0.5), (5, 87, 4096, 0.2)] + [
+    (1, n, ln, 0.3) for n in (1, 32, 33, 87, 1024)
+    for ln in (1, 16, 33, 4096)] + [(32, 87, 4096, 0.3), (32, 33, 33, 0.5)]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("B,N,L,dead", [(1, 87, 4096, 0.3), (1, 87, 4096, 1.0),
-                                        (1, 1, 16, 0.0), (1, 1024, 64, 0.5),
-                                        (5, 87, 4096, 0.2)])
+@pytest.mark.parametrize("B,N,L,dead", COMMIT_CASES)
 def test_commit_majority(B, N, L, dead):
+    """Random (not monotone) leader terms; majorities 0 to N + 2, one per
+    member in a fleet; no live voter; the majority-th match at or past
+    L."""
     _need_cuda()
     rng = np.random.default_rng(N * L + B)
+
+    def check(args, m):
+        n0 = rt.commit_majority.launches
+        got = rt.commit_majority(*[a.cuda() for a in args], m.cuda())
+        assert rt.commit_majority.launches == n0 + 1
+        _equal([rt.commit_majority(*args, m)], [got])
+
     args = [_t(rng, 0, L + 1, (B, N)),
             torch.as_tensor(rng.random((B, N)) >= dead),
-            _t(rng, 0, 3, (B, L)), torch.ones((B,), dtype=torch.int32)]
-    for majority in (0, 1, N // 2 + 1, N, N + 2):
-        m = torch.full((B,), majority, dtype=torch.int32)
-        _equal([rt.commit_majority(*args, m)],
-               [rt.commit_majority(*[a.cuda() for a in args], m.cuda())])
+            _t(rng, 0, 3, (B, L)), _t(rng, 0, 3, (B,))]
+    for majority in (0, 1, N // 2 + 1, N, N + 1, N + 2):
+        check(args, torch.full((B,), majority, dtype=torch.int32))
     # a fleet mixing cluster sizes: one majority per member
-    m = torch.as_tensor(rng.integers(0, N + 3, B).astype(np.int32))
-    _equal([rt.commit_majority(*args, m)],
-           [rt.commit_majority(*[a.cuda() for a in args], m.cuda())])
+    mixed = torch.as_tensor(rng.integers(0, N + 3, B).astype(np.int32))
+    check(args, mixed)
+    # no live voter
+    check([args[0], torch.zeros((B, N), dtype=torch.bool), *args[2:]],
+          mixed)
+    # every live voter at or past L: the limit is L itself
+    check([_t(rng, L, L + 4, (B, N)), *args[1:]], mixed)
+
+
+# the apply kernel's edges: A from one lane to two warps' worth of lanes
+APPLY_CASES = [(1, 87, 1024, 8), (1, 3, 5, 8), (3, 7, 64, 1),
+               (5, 87, 1024, 8)] + [
+    (b, 87, 1024, a) for a in (1, 8, 31, 32, 33, 64) for b in (1, 5)] + [
+    (32, 87, 1024, 8)]
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("B,N,K,A", [(1, 87, 1024, 8), (1, 3, 5, 8),
-                                     (3, 7, 64, 1), (5, 87, 1024, 8)])
+@pytest.mark.parametrize("B,N,K,A", APPLY_CASES)
 def test_apply_last_wins(B, N, K, A):
+    """Random keys in [-K-3, K+3); every entry of a row on one key; no
+    valid entry; keys at -K-1, -1, K, K+1 (wrapped, written, dropped)."""
     _need_cuda()
     rng = np.random.default_rng(N + K + A + B)
-    args = [_t(rng, -4, 4, (B, N, K)), _t(rng, -K - 3, K + 3, (B, N, A)),
-            _t(rng, 0, 2 ** 20, (B, N, A)),
-            torch.as_tensor(rng.random((B, N, A)) < 0.7)]
-    _equal([rt.apply_last_wins(*[a.clone() for a in args])],
-           [rt.apply_last_wins(*[a.cuda() for a in args])])
+    kv = _t(rng, -4, 4, (B, N, K))
+    vals = _t(rng, 0, 2 ** 20, (B, N, A))
+    valid = torch.as_tensor(rng.random((B, N, A)) < 0.7)
+    one = torch.as_tensor(np.repeat(rng.integers(-K - 3, K + 3, (B, N, 1)),
+                                    A, axis=2).astype(np.int32))
+    edge = torch.as_tensor(rng.choice(
+        np.array([-K - 1, -1, K, K + 1, 0, K - 1], dtype=np.int32),
+        (B, N, A)))
+    for keys, ok in ((_t(rng, -K - 3, K + 3, (B, N, A)), valid),
+                     (one, valid), (one, torch.ones_like(valid)),
+                     (_t(rng, -K - 3, K + 3, (B, N, A)),
+                      torch.zeros_like(valid)), (edge, valid)):
+        args = [kv, keys, vals, ok]
+        n0 = rt.apply_last_wins.launches
+        got = rt.apply_last_wins(*[a.cuda() for a in args])
+        assert rt.apply_last_wins.launches == n0 + 1
+        _equal([rt.apply_last_wins(*[a.clone() for a in args])], [got])
 
 
 @pytest.mark.gpu

@@ -49,10 +49,15 @@ def test_import_builds_nothing():
 
 def test_entry_points_need_a_device():
     from repro_torch import resolve_device
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import RunConfig
     from repro_torch.configs.bwraft_kv import CONFIG
     from repro_torch.core.runtime import BWRaftSim
+    from repro_torch.models import lm
+    cfg = get_config("smollm-360m").reduced()
     if torch.cuda.is_available():
         assert resolve_device(None).type == "cuda"
+        assert lm.init_lm(cfg, RunConfig()).embed.device.type == "cuda"
         return
     from repro_torch.core.fleet import FleetSim, MemberSpec
     from repro_torch.core.multiraft import MultiRaftSim
@@ -62,12 +67,14 @@ def test_entry_points_need_a_device():
         FleetSim([MemberSpec(cfg=CONFIG)])
     with pytest.raises(RuntimeError, match="device='cpu'"):
         MultiRaftSim(CONFIG)
-    from repro_torch.configs import get_config
-    from repro_torch.configs.base import RunConfig
     from repro_torch.launch.serve import serve
     with pytest.raises(RuntimeError, match="device='cpu'"):
-        serve(get_config("smollm-360m").reduced(), RunConfig(), requests=1,
-              batch=1, prompt_len=4, gen_len=1)
+        serve(cfg, RunConfig(), requests=1, batch=1, prompt_len=4,
+              gen_len=1)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        lm.init_lm(cfg, RunConfig())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        lm.from_numpy({}, cfg, RunConfig())
     assert BWRaftSim(CONFIG, device="cpu").state["kv"].device.type == "cpu"
 
 

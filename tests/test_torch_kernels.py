@@ -122,7 +122,8 @@ def commit_case(seed, N, L, *, dead_frac=0.3):
     (0, 7, 100, 4, 0.3), (1, 23, 199, 12, 0.1), (2, 9, 40, 1, 0.5),
     (3, 12, 64, 30, 0.2),                 # majority above N: nothing
     (4, 8, 32, 5, 1.0),                   # no live voter
-    (5, 1, 16, 1, 0.0), (6, 15, 150, 8, 0.0)])
+    (5, 1, 16, 1, 0.0), (6, 15, 150, 8, 0.0),
+    (7, 64, 33, 33, 0.2)])                # more voters than entries
 def test_commit_majority_bit_equal(seed, N, L, majority, dead_frac):
     c = commit_case(seed, N, L, dead_frac=dead_frac)
     j, t = _both(c)
@@ -133,15 +134,25 @@ def test_commit_majority_bit_equal(seed, N, L, majority, dead_frac):
     _assert_same(outs, ("commit",))
 
 
-@pytest.mark.parametrize("seed,N,K,A", [
-    (0, 7, 64, 8), (1, 23, 199, 3), (2, 1, 1, 1), (3, 12, 50, 8),
-    (4, 5, 3, 8)])
-def test_apply_last_wins_bit_equal(seed, N, K, A):
+APPLY_CASES = [(0, 7, 64, 8, False), (1, 23, 199, 3, False),
+               (2, 1, 1, 1, False), (3, 12, 50, 8, False),
+               (4, 5, 3, 8, False),
+               (5, 6, 40, 33, False), (6, 4, 40, 64, False),   # A > 32
+               (7, 9, 20, 8, True), (8, 3, 20, 33, True)]      # one key
+
+
+@pytest.mark.parametrize("seed,N,K,A,one_key", APPLY_CASES,
+                         ids=["-".join(map(str, c[:4]))
+                              + ("-one_key" if c[4] else "")
+                              for c in APPLY_CASES])
+def test_apply_last_wins_bit_equal(seed, N, K, A, one_key):
     """Duplicate keys (last wins), negative keys (wrap once) and keys
-    outside [0, K) (dropped)."""
+    outside [0, K) (dropped); A past one warp of lanes; every entry of a
+    row on one key."""
     rng = np.random.default_rng(seed)
+    keys = _i32(rng, -K - 3, K + 3, (N, 1 if one_key else A))
     c = dict(kv=_i32(rng, -4, 4, (N, K)),
-             keys=_i32(rng, -K - 3, K + 3, (N, A)),
+             keys=np.repeat(keys, A, axis=1) if one_key else keys,
              vals=_i32(rng, 0, 2 ** 20, (N, A)),
              valid=rng.random((N, A)) < 0.7)
     j, t = _both(c)
