@@ -13,7 +13,9 @@ Phases, each fatal on failure:
 
 1. print the card's name and power limit, build the CUDA kernels from
    the seven sources of `src/repro_torch/kernels/csrc/` (one nvcc per
-   source, in parallel);
+   source, in parallel), print each kernel's ptxas register and spill
+   lines under its function name, and fail if ptxas spills in
+   `lma_kernel` or `fanout_kernel`;
 2. each of the six kernels against its plain PyTorch twin on the same
    CUDA inputs, exact equality (floats included): at the solo path's
    shapes (B=1, N=87, L=4096, K=1024, W=256, A=8), at the fleet path's
@@ -21,7 +23,14 @@ Phases, each fatal on failure:
    on edge cases (for commit_majority N in {1, 32, 33, 87, 1024} by L in
    {1, 16, 33, 4096}, mixed majorities, no live voter, the majority-th
    match past L; for apply_last_wins A in {1, 8, 31, 32, 33, 64}, one
-   key per row, no valid entry, keys at -K-1, -1, K, K+1); then the
+   key per row, no valid entry, keys at -K-1, -1, K, K+1; for
+   log_match_append from = 0 with position 0 overwritten, from = L,
+   upto below from, a matching log longer than the window, W = 1, W =
+   512 and 1024 (past the window the threads hold in registers), N =
+   1024 and B = 32;
+   for leader_fanout the budget rank cut on lane 31, on lane 0 of the
+   next warp and past the total at N in {32, 33, 64, 65, 87, 1024} and B
+   up to 32, and batch costs from a constant 1 up to 4097); then the
    launch floor (a one-cycle sleep kernel) and device times of kernel,
    twin and (group_reduce) the nearest PyTorch calls, with CUDA events
    around launches queued behind a sleep kernel, median of many, each
@@ -29,10 +38,11 @@ Phases, each fatal on failure:
 3. the solo path: `BWRaftSim(CONFIG, seed=0)`, managed, 3 epochs, then
    2 more at phi=0.02, with every launch count set to 0 just before and
    read just after (each per-tick kernel once per tick: 500), keeping
-   the operands of the commit and apply calls of tick 250; those two
-   kernels against their twins on the kept operands and their device
-   times there, beside phase 2's floor; then the quickstart's client
-   sequence through `BWKVService`;
+   the operands of the four per-tick kernels' calls of tick 250 (with
+   the ops' keyword arguments); those kernels against their twins on the
+   kept operands and their device times there, beside phase 2's floor,
+   with the rows due and the nodes idle at that tick; then the
+   quickstart's client sequence through `BWKVService`;
 4. one solo epoch from the same state and draw bundle on the card
    (kernels) and on the CPU (twins): integer and bool results equal,
    float results within rtol=1e-5 (float32 sums reduce in another order
@@ -94,10 +104,12 @@ Phases, each fatal on failure:
    0.1, with every launch count set to 0 just before and read just
    after (flash 32 x 8 = 256, decode 32 x 8 x 32 = 8,192, ssd_scan 0,
    every attention launch on the tensor-core route), then a sync-free
-   check of a prefill and 2 decode steps;
+   check of a prefill and 2 decode steps: a host synchronization fails
+   the run;
 13. the same for mamba2-130m at full width and depth (24 SSD layers,
    bfloat16, seed 0; ssd_scan 24 x 8 = 192, all on the tensor-core
-   route, every other kernel 0), and its sync-free check; with
+   route, every other kernel 0), and its sync-free check, fatal as in
+   phase 12; with
    --profile, the mamba2 prefill's device time against the 33.10 ms it
    took with the scalar scan kernel (PERF.md) and ssd_scan's share of
    it;
@@ -178,13 +190,25 @@ PER_TICK = ("log_match_append", "commit_majority", "apply_last_wins",
             "leader_fanout")
 FLEET_B = 5
 SWEEP_B = 32
-# the ops whose operands phase 3 keeps (the solo path's own data), with
-# their operand names, and the call kept: mid-epoch, epoch 2, tick 50
+# the ops whose operands phase 3 keeps (the solo path's own data), by the
+# module `core/step.py` reaches them through, with their operand names,
+# and the call kept: mid-epoch, epoch 2, tick 50
 MAIN_DATA = {
-    "commit_majority": ("match_len", "voter_alive", "ldr_term",
-                        "ldr_cur_term", "majority"),
-    "apply_last_wins": ("kv", "keys", "vals", "valid")}
+    "log_match_append": ("rt_ops", (
+        "log_term", "log_key", "log_val", "ldr_term", "ldr_key", "ldr_val",
+        "log_len", "app_from_len", "app_upto", "due")),
+    "commit_majority": ("rt_ops", (
+        "match_len", "voter_alive", "ldr_term", "ldr_cur_term",
+        "majority")),
+    "apply_last_wins": ("rt_ops", ("kv", "keys", "vals", "valid")),
+    "leader_fanout": ("lf_ops", (
+        "role", "alive", "warn_timer", "sec_of", "match_len",
+        "app_arrive_t", "app_from_len", "app_upto", "app_term",
+        "app_commit", "rtt", "lid_c", "has_leader", "tick", "ldr_len",
+        "ldr_term", "ldr_commit"))}
 MAIN_DATA_AT = 250
+# the redesigned kernels ptxas must not spill for (phase 1)
+NO_SPILL = ("lma_kernel", "fanout_kernel")
 
 
 def log(*a):
@@ -197,6 +221,46 @@ def card_line() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+# --------------------------------------------------------------------- #
+# phase 1: the ptxas report
+# --------------------------------------------------------------------- #
+def kernel_name(mangled: str) -> str:
+    """`_Z10lma_kernelPi...` -> `lma_kernel`, `_Z13commit_kernelILi256EE...`
+    -> `commit_kernel<256>`: the name and integer template arguments of a
+    mangled kernel, or the mangled name where it does not parse."""
+    m = re.match(r"_Z(\d+)", mangled)
+    if not m:
+        return mangled
+    n, rest = int(m.group(1)), mangled[m.end():]
+    name, rest = rest[:n], rest[n:]
+    if rest.startswith("I"):
+        args = []
+        rest = rest[1:]
+        while True:
+            a = re.match(r"L[a-z]+(n?\d+)E", rest)
+            if not a:
+                break
+            args.append(a.group(1).replace("n", "-"))
+            rest = rest[a.end():]
+        if args and rest.startswith("E"):
+            name += "<" + ", ".join(args) + ">"
+    return name
+
+
+def ptxas_report(text: str):
+    """[(kernel name, line)] for each register or spill line of an
+    `nvcc -Xptxas -v` log, each under the function it describes."""
+    out, fn = [], "?"
+    for ln in text.splitlines():
+        m = re.search(r"(?:Compiling entry function '|Function properties "
+                      r"for )([\w$]+)", ln)
+        if m:
+            fn = kernel_name(m.group(1))
+        elif "registers" in ln or "spill" in ln:
+            out.append((fn, ln.strip().replace("ptxas info    : ", "")))
+    return out
 
 
 # --------------------------------------------------------------------- #
@@ -234,6 +298,58 @@ def lma_case(rng, B, N, L, W, *, due_frac=0.5, empty=False):
         log_len=rng.integers(0, hi, (B, N)), app_from_len=frm,
         app_upto=np.minimum(frm + rng.integers(-8, W + 40, (B, N)), L),
         due=rng.random((B, N)) < due_frac)
+
+
+def lma_edge_case(rng, kind, B, N, L, W):
+    """A window edge, every row due: "from0" (prev < 0 reads position 0,
+    which the window overwrites with another term), "fromL", "upto"
+    (upto below from), "longer" (a matching log longer than the window)
+    or "wide" (a window of W, past what the threads hold in registers
+    when W > 256)."""
+    import numpy as np
+    c = lma_case(rng, B, N, L, W, due_frac=1.0)
+    if kind == "from0":
+        c["app_from_len"][:] = 0
+        c["app_upto"] = rng.integers(1, W + 1, (B, N))
+        c["log_term"][:, :, 0] = c["ldr_term"][:, None, 0] + 1
+    elif kind == "fromL":
+        c["app_from_len"][:] = L
+        c["app_upto"][:] = L
+        c["log_term"][:, ::2, L - 1] = c["ldr_term"][:, None, L - 1]
+    elif kind == "upto":
+        c["app_from_len"] = rng.integers(4, L + 1, (B, N))
+        c["app_upto"] = c["app_from_len"] - rng.integers(1, 4, (B, N))
+    elif kind == "longer":
+        c["log_term"][:] = c["ldr_term"][:, None, :]
+        c["log_len"][:] = L
+        c["app_from_len"] = rng.integers(1, L - W, (B, N))
+        c["app_upto"] = c["app_from_len"] + W // 2
+    elif kind == "wide":
+        c["app_upto"] = np.minimum(c["app_from_len"] + W + 40, L)
+    return c
+
+
+def fanout_cut_case(rng, B, N, L, cut, kw):
+    """Every node a live follower of leader 0 with nothing in flight,
+    nodes 1-2 secretaries, node 3 relayed (n_sec = 2), the rest direct;
+    returns (case, msg_budget) with member 0's rank cut on lane 31
+    ("lane31"), lane 0 of the next warp ("lane32") or past the total
+    ("past")."""
+    import numpy as np
+    c = fanout_case(rng, B, N, L, alive_frac=1.0)
+    c["role"][:] = 0
+    c["role"][:, 1:3] = 3
+    c["warn_timer"][:] = -1
+    c["sec_of"][:] = -1
+    c["sec_of"][:, 3] = 1
+    c["app_arrive_t"][:] = -1
+    c["lid_c"][:] = 0
+    pending = np.maximum(c["ldr_len"][0] - c["match_len"][0], 0)
+    cost = 1 + np.minimum(pending, kw["max_ship"]) // kw["entries_per_msg"]
+    rank = np.cumsum(np.where(np.arange(N) > 3, cost, 0))
+    at = {"lane31": rank[31], "lane32": rank[min(32, N - 1)],
+          "past": rank[-1] + 1}[cut]
+    return c, int(at) + 2
 
 
 def commit_case(rng, B, N, L, *, dead_frac=0.3, majority=None, over=0):
@@ -490,6 +606,34 @@ def run_kernel_checks(dev, cfg, static, fleet_shapes):
             (None, apply_case(rng, 1, N, K, a, keys="one"), {}),
             (None, apply_case(rng, 1, N, K, a, valid_frac=0.0), {}),
             (None, apply_case(rng, 3, 7, 16, a, keys="edge"), {})]
+    # the append's window edges at the solo and fleet shapes; then W = 1,
+    # windows past what the threads hold in registers (W = 512, 1024),
+    # N = 1024 and the sweep's B = 32
+    for kind in ("from0", "fromL", "upto", "longer", "wide"):
+        for b in (1, B):
+            cases["log_match_append"].append(
+                (None, lma_edge_case(rng, kind, b, N, L, W), {}))
+    for b, n, ln, w in ((1, N, L, 1), (3, 33, 64, 1), (1, N, L, 512),
+                        (B, N, L, 512), (2, 9, 1500, 1024),
+                        (1, 1024, 512, W), (SWEEP_B, N, L, W)):
+        cases["log_match_append"].append(
+            (None, lma_edge_case(rng, "wide" if w > W else "random", b, n,
+                                 ln, w), dict(max_ship=w)))
+    # the fan-out's rank cut across a warp's edge: on lane 31, on lane 0
+    # of the next warp, past the total; N up to one block, B up to 32
+    for b, n in ((1, 32), (1, 33), (1, 64), (1, 65), (1, N), (B, N),
+                 (1, 1024), (SWEEP_B, N)):
+        for cut in ("lane31", "lane32", "past"):
+            c, budget = fanout_cut_case(rng, b, n, L, cut, kw)
+            cases["leader_fanout"].append((None, c,
+                                           dict(msg_budget=budget)))
+    # the fan-out's batch costs from a constant 1 up to 4097
+    for ms, epm in ((254, 1), (255, 1), (4096, 1), (0, 7)):
+        for b, n in ((B, N), (1, 1024)):
+            cases["leader_fanout"].append(
+                (None, fanout_case(rng, b, n, L),
+                 dict(max_ship=ms, entries_per_msg=epm,
+                      msg_budget=n * (1 + ms // epm) // 3)))
     # the warned-secretary handoff: every follower wired to an alive
     # SECRETARY, half of them warned
     c = fanout_case(rng, 1, N, L, alive_frac=1.0, warn_frac=0.0)
@@ -562,73 +706,95 @@ def run_kernel_checks(dev, cfg, static, fleet_shapes):
 
 @contextlib.contextmanager
 def keep_main_path_operands(at):
-    """Yield {op name: operands}: while open, `core/step.py` reaches the
-    commit and apply ops through a stand-in for its `rt_ops` that keeps
-    a copy of the operands of each op's `at`-th call (cloned before the
-    call, which updates kv in place).  The ops module itself is left
-    alone, so its launch counts stay the real ones."""
+    """Yield ({op name: (operands, keyword arguments)}, [due rows]):
+    while open, `core/step.py` reaches the four per-tick ops through
+    stand-ins for its `rt_ops` and `lf_ops` that keep a copy of the
+    operands of each op's `at`-th call (cloned before the call, since
+    log_match_append and apply_last_wins update their first operands in
+    place) and a device copy of every call's `due` mask.  The ops
+    modules themselves are left alone, so their launch counts stay the
+    real ones."""
     from repro_torch.core import step as step_mod
-    rt = step_mod.rt_ops
-    kept = {}
+    kept, dues = {}, []
 
-    def wrap(name):
-        fn, calls = getattr(rt, name), [0]
+    def wrap(mod, name):
+        fn, calls = getattr(mod, name), [0]
 
-        def op(*args):
+        def op(*args, **kw):
             if calls[0] == at:
-                kept[name] = [a.clone() for a in args]
+                kept[name] = ([a.clone() for a in args], dict(kw))
+            if name == "log_match_append":
+                dues.append(args[9].clone())
             calls[0] += 1
-            return fn(*args)
+            return fn(*args, **kw)
         return op
 
-    step_mod.rt_ops = types.SimpleNamespace(
-        **dict(vars(rt), **{n: wrap(n) for n in MAIN_DATA}))
+    saved = {m: getattr(step_mod, m) for m in ("rt_ops", "lf_ops")}
+    for m, mod in saved.items():
+        names = [n for n, (where, _) in MAIN_DATA.items() if where == m]
+        setattr(step_mod, m, types.SimpleNamespace(
+            **dict(vars(mod), **{n: wrap(mod, n) for n in names})))
     try:
-        yield kept
+        yield kept, dues
     finally:
-        step_mod.rt_ops = rt
+        for m, mod in saved.items():
+            setattr(step_mod, m, mod)
 
 
 def time_main_path_data(kept, floor, static):
-    """Rows 2-3 on the operands kept from the solo path's own ticks:
-    equal to the twin, then device times beside phase 2's floor.
-    Returns {name: {ms, plain_ms, bytes, ops}}."""
+    """The four per-tick kernels on the operands kept from the solo
+    path's own ticks: equal to the twin, then device times beside phase
+    2's floor.  Returns {name: {ms, plain_ms, bytes, ops}}."""
     import torch
     from repro_torch import kernels as K_
     fns = kernel_fns()
     out = {}
-    for name, args in kept.items():
-        case = dict(zip(MAIN_DATA[name], args))
+    for name in MAIN_DATA:
+        args, opkw = kept[name]
+        case = dict(zip(MAIN_DATA[name][1], args))
+        k = dict(opkw)
+        if "w" in k:                    # log_match_append's window
+            k["max_ship"] = k.pop("w")
         fn = fns[name]
-        got = fn(clone(case), False, {})
+        got = fn(clone(case), False, k)
         torch.cuda.synchronize()
-        check_equal(f"{name} (main path data)", got, fn(clone(case), True,
-                                                        {}))
+        check_equal(f"{name} (main path data)", got,
+                    fn(clone(case), True, k))
         ka, kb = clone(case), clone(case)
-        ms = device_ms(lambda: fn(ka, False, {}), 100, 4_000_000)
-        plain_ms = device_ms(lambda: fn(kb, True, {}), 30, 40_000_000)
-        nbytes, ops = work_of(name, {k: v.cpu().numpy()
-                                     for k, v in case.items()}, static, {})
+        ms = device_ms(lambda: fn(ka, False, k), 100, 4_000_000)
+        plain_ms = device_ms(lambda: fn(kb, True, k), 30, 40_000_000)
+        nbytes, ops = work_of(name, {n: v.cpu().numpy()
+                                     for n, v in case.items()}, static, k)
         out[name] = dict(ms=ms, plain_ms=plain_ms, bytes=nbytes, ops=ops)
         log(f"kernel {name} [main path data, tick {MAIN_DATA_AT}]: "
             f"{ms * 1e3:.2f} us, {(ms - floor) * 1e3:.2f} over the floor "
             f"of {floor * 1e3:.2f} us; twin "
             f"{plain_ms * 1e3:.2f} us; {nbytes} B, {ops} ops, bound "
-            f"{bound_ms(nbytes, ops) * 1e3:.4f} us; {main_data_note(case)}")
+            f"{bound_ms(nbytes, ops) * 1e3:.4f} us; "
+            f"{main_data_note(name, case)}")
     K_.reset_launch_counts()
     return out
 
 
-def main_data_note(case):
-    """What the kept operands hold: the commit's live voters and
-    majority, the apply's valid entries."""
-    if "majority" in case:
+def main_data_note(name, case):
+    """What the kept operands hold: the append's due rows, the commit's
+    live voters and majority, the apply's valid entries, the fan-out's
+    nodes with nothing in flight."""
+    if name == "log_match_append":
+        return (f"{int(case['due'].sum())} of {case['due'].numel()} rows "
+                f"due")
+    if name == "commit_majority":
         alive = int(case["voter_alive"].sum())
         return (f"{alive} live voters, majority "
                 f"{int(case['majority'][0])}, term row of "
                 f"{case['ldr_term'].shape[1]}")
-    return (f"{int(case['valid'].sum())} of {case['valid'].numel()} "
-            f"entries valid")
+    if name == "apply_last_wins":
+        return (f"{int(case['valid'].sum())} of {case['valid'].numel()} "
+                f"entries valid")
+    idle = case["alive"] & (case["app_arrive_t"] < 0)
+    return (f"{int(idle.sum())} of {idle.numel()} nodes alive with "
+            f"nothing in flight, leader {int(case['lid_c'][0])} "
+            f"({'up' if bool(case['has_leader'][0]) else 'none'})")
 
 
 def work_of(name, c, static, kw):
@@ -644,7 +810,7 @@ def work_of(name, c, static, kw):
         same = np.take_along_axis(a("log_term"), pc[..., None], 2)[..., 0] \
             == np.take_along_axis(a("ldr_term"), pc, 1)
         acc = a("due") & ((prev < 0) | same)
-        win = np.clip(np.minimum(np.minimum(up, frm + static["max_ship"]), L)
+        win = np.clip(np.minimum(np.minimum(up, frm + kw["max_ship"]), L)
                       - np.maximum(frm, 0), 0, None)
         moved = int((win * acc).sum())
         nbytes = B * N * (3 * 4 + 1 + 2 * 4) + B * N * (4 + 1) + moved * 24
@@ -709,7 +875,7 @@ def run_main_path(dev, cfg):
     sim = BWRaftSim(cfg, seed=0, device=dev)
     K_.reset_launch_counts()
     ticks, wall = 0, []
-    with keep_main_path_operands(MAIN_DATA_AT) as kept:
+    with keep_main_path_operands(MAIN_DATA_AT) as (kept, dues):
         for e in range(5):
             if e == 3:
                 sim.set_rates(phi=0.02)
@@ -726,6 +892,10 @@ def run_main_path(dev, cfg):
             check_report(rep, f"epoch {e}")
     counts = K_.launch_counts()
     log(f"launches over {ticks} solo ticks: {json.dumps(counts)}")
+    due = torch.stack(dues).sum((1, 2)).cpu()
+    log(f"log_match_append rows due over {ticks} solo ticks: {int(due.sum())}"
+        f" in all, on {int((due > 0).sum())} ticks, at most {int(due.max())}"
+        f" in one; {int(due[MAIN_DATA_AT])} at tick {MAIN_DATA_AT}")
     for name, n in counts.items():
         want = ticks if name in PER_TICK else 0
         if n != want:
@@ -1559,10 +1729,10 @@ def run_serve_path(dev, arch="smollm-360m"):
 
 
 def check_serve_sync_free(model, dev):
-    """Reports whether a prefill and two decode steps of the serve path
-    run without the host waiting for the card (any synchronizing call
-    raises under the sync debug mode).  A report, not a gate: a wait
-    costs time, not correctness."""
+    """A prefill and two decode steps of the serve path never wait for
+    the card: any synchronizing call (a host read, a pageable
+    host-to-device copy) raises under the sync debug mode and fails the
+    run, as in `check_tick_sync_free`."""
     import torch
     from repro_torch.configs.base import RunConfig
     from repro_torch.launch import steps as S_
@@ -1579,16 +1749,11 @@ def check_serve_sync_free(model, dev):
         tok, caches = prefill(model, {"tokens": toks}, layers)
         for _ in range(2):
             tok, caches = decode(model, caches, tok[:, None])
-        verdict = "ran with no host synchronization"
-    except RuntimeError as e:          # only the sync debug mode's own error
-        if "synchroniz" not in str(e):
-            raise
-        verdict = f"synchronizes the host: {str(e).splitlines()[0][:160]}"
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
     log(f"serve sync check ({cfg.name}): a prefill and 2 decode steps "
-        f"{verdict}")
+        f"ran with no host synchronization")
 
 
 def run_serve_profile(model, dev, steps=4):
@@ -1676,12 +1841,21 @@ def main() -> int:
     t0 = time.perf_counter()
     libs = build.build()
     log(f"built {sorted(libs)} in {time.perf_counter() - t0:.1f} s")
+    spills = {}
     for name, path in libs.items():
         info = path.with_suffix(".log")
         if info.exists():
-            for ln in info.read_text().splitlines():
-                if "registers" in ln or "spill" in ln:
-                    log(f"  ptxas {name}: {ln.strip()}")
+            for fn, ln in ptxas_report(info.read_text()):
+                log(f"  ptxas {name} {fn}: {ln}")
+                m = re.search(r"(\d+) bytes spill stores", ln)
+                if m:
+                    spills[fn] = spills.get(fn, 0) + int(m.group(1))
+    for fn in NO_SPILL:
+        if fn not in spills:
+            raise AssertionError(f"ptxas reported nothing for {fn}")
+        if spills[fn]:
+            raise AssertionError(f"ptxas spilled {spills[fn]} bytes in "
+                                 f"{fn}")
     dev = torch.device("cuda")
     static = SM.build_static(CONFIG)
     fleet_shapes = dict(O=50 * rack_voters(CONFIG), S=CONFIG.num_sites,

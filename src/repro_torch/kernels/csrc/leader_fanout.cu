@@ -3,21 +3,43 @@
 //
 // Replaces the Pallas kernel src/repro/kernels/leader_fanout/kernel.py
 // (leader_fanout_kernel).  One block per batch member, one thread per
-// node (N <= 1024), computing in registers and shared memory:
+// node (N <= 1024), computing in registers and warp votes:
 //   * the secretary / warned handoff mask and the relay vs direct split,
 //   * the payload-scaled batch cost 1 + min(pending, max_ship) / epm,
-//   * the exact int32 inclusive block scan of the direct costs (the rank)
-//     cut at msg_budget - n_sec,
+//   * the exact int32 inclusive scan of the direct costs (the rank) cut
+//     at msg_budget - n_sec,
 //   * the delivery latency rtt[lid, relay] * (relay != lid) + rtt[relay, i],
 //   * the five app_* rows and the leader-work delta.
 // The leader's scalars (lid, has_leader, tick, log length, term, commit)
 // are read from device memory, so the host never waits on the tick.
 //
-// What bounds it on the H100: ten (N,) rows, two rtt rows and five
-// output rows, about 8 KB at N = 87 — a few nanoseconds of memory time,
-// so the launch bounds it.  The TPU kernel read the whole (N, N) rtt
-// matrix for one-hot gathers; here each thread loads its two rtt entries
-// directly, and the block-wide any/count use __syncthreads_or/_count.
+// What bounds it on the H100: ten (N,) rows, three rtt entries and three
+// gathered entries a node, six scalars and five output rows, about 7 KB
+// at N = 87 — a few nanoseconds of memory time.  What it costs beyond
+// the launch is its chain of dependent round trips, barriers and
+// instructions, so the design keeps all three short, with one thread per
+// node, so each thread's chain is short too (one warp holding three
+// nodes a lane measured slower than the kernel this one replaced):
+//   * Two round trips, both before the block's only barrier.  At entry
+//     every thread loads its node's ten row entries and the six scalars.
+//     As soon as sec_of and lid are in, it gathers its secretary's
+//     (alive, role, warn) and loads every rtt entry its latency can
+//     need, whichever way the relay goes: rtt[lid, secc] + rtt[secc, i]
+//     if node i relays, rtt[lid, i] if not, so the rtt loads do not wait
+//     for the relay to be known.
+//   * The rank is an inclusive warp scan by __shfl_up_sync.  Each warp
+//     writes its total, its qualified secretaries (a ballot), its count
+//     of direct nodes and whether any node relayed; after the one barrier
+//     a warp's offset, the direct nodes before it, n_q and the relayed
+//     flag are each one __reduce_*_sync over the <= 32 warps' slots.
+//     (Sharing the qualified bits through shared memory instead of
+//     gathering them measured no faster and took a second barrier.)
+//   * Warps run in node order and a direct cost is at least 1, so the
+//     direct nodes that ship are a prefix: the warp where the prefix
+//     total first passes the budget (else the last warp) adds the direct
+//     nodes before it to its own shipped count and writes the leader-work
+//     delta, with no second barrier.
+// Lanes past N count nothing, so every N up to 1024 works.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -25,7 +47,9 @@
 #define CANDIDATE 1
 #define SECRETARY 3
 
-__global__ void fanout_kernel(
+constexpr unsigned FULL = 0xffffffffu;
+
+__global__ void __launch_bounds__(1024) fanout_kernel(
     const int32_t* __restrict__ role, const uint8_t* __restrict__ alive,
     const int32_t* __restrict__ warn, const int32_t* __restrict__ sec_of,
     const int32_t* __restrict__ match, const int32_t* __restrict__ arrive,
@@ -39,72 +63,116 @@ __global__ void fanout_kernel(
     int32_t* __restrict__ o_upto, int32_t* __restrict__ o_term,
     int32_t* __restrict__ o_commit, int32_t* __restrict__ o_work,
     int N, int msg_budget, int max_ship, int epm) {
-  __shared__ int s_scan[1024];
+  __shared__ unsigned s_q[32];  // per warp: its qualified secretaries
+  __shared__ int s_cost[32];    // per warp: the sum of its direct costs
+  __shared__ int s_flag[32];    // per warp: n_direct | (any relayed) << 16
   const int b = blockIdx.x;
   const int i = threadIdx.x;
-  const long long base = (long long)b * N;
-  const int32_t* rt = rtt + (long long)b * N * N;
-  const int lid = lid_c[b];
-  const bool has = has_leader[b] != 0;
+  const int lane = i & 31, warp = i >> 5, n_warps = blockDim.x >> 5;
   const bool in = i < N;
+  const long long base = (long long)b * N;
+  const long long e = base + i;
+  const int32_t* rt = rtt + base * N;
+
+  // round trip 1: the node's row entries and the leader's scalars
+  const int lid = __ldg(lid_c + b);
+  const bool has = __ldg(has_leader + b) != 0;
+  const int now = __ldg(tick + b);
+  const int l_len = __ldg(ldr_len + b);
+  const int l_term = __ldg(ldr_term + b);
+  const int l_commit = __ldg(ldr_commit + b);
+  int r = -1, wt = 0, sec = -1, m = 0, arr = 0, fr = 0, up = 0, tm = 0;
+  int cm = 0;
+  bool al = false;
+  if (in) {
+    r = __ldg(role + e);
+    al = __ldg(alive + e) != 0;
+    wt = __ldg(warn + e);
+    sec = __ldg(sec_of + e);
+    m = __ldg(match + e);
+    arr = __ldg(arrive + e);
+    fr = __ldg(from + e);
+    up = __ldg(upto + e);
+    tm = __ldg(term + e);
+    cm = __ldg(commit + e);
+  }
+  // round trip 2: the secretary's state, and every rtt entry the latency
+  // can need, whichever way the relay goes
+  const int secc = min(max(sec, 0), N - 1);      // clamped, as a gather is
+  bool s_al = false;
+  int s_r = -1, s_wt = 0, rt_ls = 0, rt_si = 0, rt_li = 0;
+  if (in) {
+    s_al = __ldg(alive + base + secc) != 0;
+    s_r = __ldg(role + base + secc);
+    s_wt = __ldg(warn + base + secc);
+    rt_ls = __ldg(rt + (long long)lid * N + secc);
+    rt_si = __ldg(rt + (long long)secc * N + i);
+    rt_li = __ldg(rt + (long long)lid * N + i);
+  }
+  const int cost = 1 + min(max(l_len - m, 0), max_ship) / epm;
 
   // node i qualifies as a relay iff alive, a SECRETARY and unwarned
-  const bool q = in && alive[base + i] && role[base + i] == SECRETARY &&
-                 warn[base + i] < 0;
-  bool to_sec = false, direct = false, relayed = false;
-  int relay = lid, dcost = 0;
-  if (in) {
-    const int sec = sec_of[base + i];
-    const int secc = min(max(sec, 0), N - 1);    // clamped, as a gather is
-    const bool sec_alive = sec >= 0 && alive[base + secc] &&
-                           role[base + secc] == SECRETARY &&
-                           warn[base + secc] < 0;
-    relay = sec_alive ? secc : lid;
-    to_sec = relay != lid;
-    const int r = role[base + i];
-    const bool target = (r == FOLLOWER || r == CANDIDATE) &&
-                        alive[base + i] && i != lid;
-    const bool want = has && target && arrive[base + i] < 0;
-    direct = want && !to_sec;
-    relayed = want && to_sec;
-    const int pending = max(ldr_len[b] - match[base + i], 0);
-    dcost = direct ? 1 + min(pending, max_ship) / epm : 0;
+  const unsigned q_mask =
+      __ballot_sync(FULL, al && r == SECRETARY && wt < 0);
+  const bool sec_alive =
+      sec >= 0 && s_al && s_r == SECRETARY && s_wt < 0;
+  const bool to_sec = (sec_alive ? secc : lid) != lid;
+  const bool target = (r == FOLLOWER || r == CANDIDATE) && al && i != lid;
+  const bool want = has && target && arr < 0;
+  const bool direct = want && !to_sec;
+  const bool relayed = want && to_sec;
+  const int dcost = direct ? cost : 0;
+
+  // the rank: an inclusive warp scan, then the warps before this one
+  int rank = dcost;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const int add = __shfl_up_sync(FULL, rank, off);
+    if (lane >= off) rank += add;
   }
-  const bool any_rel = __syncthreads_or(relayed);
-  const int n_q = __syncthreads_count(q);
+  const int w_tot = __shfl_sync(FULL, rank, 31);
+  const unsigned dir_mask = __ballot_sync(FULL, direct);
+  const unsigned rel_mask = __ballot_sync(FULL, relayed);
+  if (lane == 0) {
+    s_q[warp] = q_mask;
+    s_cost[warp] = w_tot;
+    s_flag[warp] = __popc(dir_mask) | (rel_mask ? 1 << 16 : 0);
+  }
+  __syncthreads();
+  const bool slot = lane < n_warps;
+  const int flag = slot ? s_flag[lane] : 0;
+  const int before =
+      __reduce_add_sync(FULL, lane < warp ? s_cost[lane] : 0);
+  const int d_before =
+      __reduce_add_sync(FULL, lane < warp ? flag & 0xffff : 0);
+  const int n_q = __reduce_add_sync(FULL, slot ? __popc(s_q[lane]) : 0);
+  const bool any_rel = __reduce_or_sync(FULL, (unsigned)flag >> 16) != 0;
+  rank += before;
   const int n_sec = any_rel ? n_q : 0;
   const int budget = max(msg_budget - n_sec, 0);
-
-  // inclusive scan of the direct costs (Hillis-Steele, exact int32)
-  s_scan[i] = dcost;
-  __syncthreads();
-  for (int off = 1; off < blockDim.x; off <<= 1) {
-    const int add = i >= off ? s_scan[i - off] : 0;
-    __syncthreads();
-    s_scan[i] += add;
-    __syncthreads();
-  }
-  const int rank = s_scan[i];
   const bool ship = relayed || (direct && rank <= budget);
-  const int n_direct = __syncthreads_count(ship && direct);
-  if (i == 0) o_work[b] = n_direct + n_sec;
-  if (!in) return;
 
-  const long long e = base + i;
-  if (ship) {
-    const int lat = rt[(long long)lid * N + relay] * (to_sec ? 1 : 0) +
-                    rt[(long long)relay * N + i];
-    o_arrive[e] = tick[b] + lat;
-    o_from[e] = match[e];
-    o_upto[e] = min(ldr_len[b], match[e] + max_ship);
-    o_term[e] = ldr_term[b];
-    o_commit[e] = ldr_commit[b];
-  } else {
-    o_arrive[e] = arrive[e];
-    o_from[e] = from[e];
-    o_upto[e] = upto[e];
-    o_term[e] = term[e];
-    o_commit[e] = commit[e];
+  if (in) {
+    if (ship) {
+      o_arrive[e] = now + (to_sec ? rt_ls + rt_si : rt_li);
+      o_from[e] = m;
+      o_upto[e] = min(l_len, m + max_ship);
+      o_term[e] = l_term;
+      o_commit[e] = l_commit;
+    } else {
+      o_arrive[e] = arr;
+      o_from[e] = fr;
+      o_upto[e] = up;
+      o_term[e] = tm;
+      o_commit[e] = cm;
+    }
+  }
+  // the leader-work delta, from the warp where the shipped prefix ends
+  const bool ends_here = before <= budget &&
+                         (before + w_tot > budget || warp == n_warps - 1);
+  if (ends_here) {                               // warp-uniform
+    const unsigned cut = __ballot_sync(FULL, direct && rank <= budget);
+    if (lane == 0) o_work[b] = d_before + __popc(cut) + n_sec;
   }
 }
 
@@ -115,7 +183,7 @@ extern "C" int leader_fanout(
     void* ldr_commit, void* o_arrive, void* o_from, void* o_upto,
     void* o_term, void* o_commit, void* o_work, int B, int N, int msg_budget,
     int max_ship, int epm, void* stream) {
-  const int threads = ((N + 31) / 32) * 32;
+  const int threads = ((N + 31) / 32) * 32;      // whole warps: all vote
   fanout_kernel<<<B, threads, 0, (cudaStream_t)stream>>>(
       (const int32_t*)role, (const uint8_t*)alive, (const int32_t*)warn,
       (const int32_t*)sec_of, (const int32_t*)match, (const int32_t*)arrive,

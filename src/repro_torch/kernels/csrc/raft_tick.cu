@@ -16,9 +16,10 @@
 // K = 1024, W = 256, A = 8) each moves well under 1 MB, which is under a
 // microsecond at 3.35 TB/s, so each is bound by its launch and by the
 // chain of dependent memory round trips inside it.  The design therefore
-// touches only what changes and keeps the chains short: the append copies
-// just the shipped window in place (the TPU kernel streams all N x L); the
-// commit runs one block per member and fetches the leader's term row into
+// touches only what changes and keeps the chains short: the append loads
+// the shipped window into registers beside the prev-term check and copies
+// just that window in place (the TPU kernel streams all N x L), with no
+// barrier; the commit runs one block per member and fetches the leader's term row into
 // registers before it counts the votes, so the row's latency hides behind
 // the count; the apply gives every entry a lane, so a row's A entries load
 // in one round trip and last-wins is settled among the lanes before one
@@ -27,58 +28,100 @@
 #include <stdint.h>
 
 // ---------------------------------------------------------------------
-// 1. log_match_append: one block per (row, batch).  Thread 0 reads the
-// follower's and the leader's terms at prev = from - 1 before any write
-// (the new-length rule reads them even when prev < 0, where position 0
-// may be overwritten), then the block copies the accepted window
-// [from, min(upto, from + W)) from the leader's rows.  The leader rows are
-// separate copies, so a block writing row `lid` races no reader.
+// 1. log_match_append: LMA_THREADS threads per (batch, row), no shared
+// memory and no barrier.  A row that is not due makes one round trip
+// (from, upto, due and log_len, the same address across the block) and
+// writes new_len = log_len, accept = 0.  A due row makes one more: every
+// thread loads the follower's and the leader's terms at prev = from - 1
+// itself (the same address again) while it loads its LMA_PF entries of
+// the leader window [from, min(upto, from + W)), strided so the loads
+// coalesce, from the three leader rows into registers.  Those are
+// separate copies (the op refuses views of the logs), so they can be read
+// before the accept is known.  A window wider than LMA_THREADS * LMA_PF
+// copies the rest after the accept.
+//
+// The write-after-read order needs no barrier.  The follower's term at
+// prev_c lies in the window only when from <= 0 (prev_c = 0 = the
+// window's start); then position 0 is thread 0's first entry, and thread
+// 0 is the one that writes new_len, which reads `same`, so it reads the
+// term before it stores there.  Every other thread uses its read only
+// for the accept, which is `due` whatever the term when prev < 0.
+//
+// A row takes four warps, two entries a thread at W = 256: one warp per
+// row with eight entries a lane measured slower on the H100 than the
+// kernel this one replaced (each lane's 24 loads and stores run in turn).
 // ---------------------------------------------------------------------
-__global__ void lma_kernel(int32_t* __restrict__ term,
-                           int32_t* __restrict__ key,
-                           int32_t* __restrict__ val,
-                           const int32_t* __restrict__ lterm,
-                           const int32_t* __restrict__ lkey,
-                           const int32_t* __restrict__ lval,
-                           const int32_t* __restrict__ log_len,
-                           const int32_t* __restrict__ from,
-                           const int32_t* __restrict__ upto,
-                           const uint8_t* __restrict__ due,
-                           int32_t* __restrict__ new_len,
-                           uint8_t* __restrict__ accept,
-                           int N, int L, int W) {
-  const int row = blockIdx.x;
-  const int b = blockIdx.y;
-  const long long r = (long long)b * N + row;
-  __shared__ int s_accept;
-  const int fr = from[r];
-  const int hi = min(upto[r], fr + W);
-  if (threadIdx.x == 0) {
+constexpr int LMA_THREADS = 128;  // threads per row
+constexpr int LMA_PF = 2;         // window entries a thread holds (W = 256)
+
+__global__ void __launch_bounds__(LMA_THREADS)
+lma_kernel(int32_t* __restrict__ term, int32_t* __restrict__ key,
+           int32_t* __restrict__ val, const int32_t* __restrict__ lterm,
+           const int32_t* __restrict__ lkey,
+           const int32_t* __restrict__ lval,
+           const int32_t* __restrict__ log_len,
+           const int32_t* __restrict__ from,
+           const int32_t* __restrict__ upto,
+           const uint8_t* __restrict__ due, int32_t* __restrict__ new_len,
+           uint8_t* __restrict__ accept, int N, int L, int W) {
+  const int g = threadIdx.x;
+  const long long b = blockIdx.y;
+  const long long r = b * N + blockIdx.x;
+  const int fr = __ldg(from + r);
+  const int up = __ldg(upto + r);
+  const bool is_due = __ldg(due + r) != 0;
+  const int ln = __ldg(log_len + r);
+  bool acc = false;
+  int nl = ln;
+  if (is_due) {                                   // block-uniform
+    const int32_t* lt = lterm + b * L;
+    const int32_t* lk = lkey + b * L;
+    const int32_t* lv = lval + b * L;
+    int32_t* dt = term + r * L;
     const int prev = fr - 1;
     const int prev_c = min(max(prev, 0), L - 1);
-    const int my = term[r * L + prev_c];
-    const int ld = lterm[(long long)b * L + prev_c];
+    const int hi = min(up, fr + W);
+    const int lo = max(fr, 0);
+    const int end = min(hi, L);
+    const int my = dt[prev_c];       // a plain load: this row is written
+    const int ld = __ldg(lt + prev_c);
+    int t[LMA_PF], k[LMA_PF], v[LMA_PF];
+#pragma unroll
+    for (int j = 0; j < LMA_PF; ++j) {
+      const int p = lo + g + LMA_THREADS * j;
+      const bool on = p < end;
+      t[j] = on ? __ldg(lt + p) : 0;
+      k[j] = on ? __ldg(lk + p) : 0;
+      v[j] = on ? __ldg(lv + p) : 0;
+    }
     const bool same = my == ld;
-    const bool acc = due[r] != 0 && (prev < 0 || same);
-    const int ln = log_len[r];
-    int nl = acc ? hi : ln;
+    acc = prev < 0 || same;
+    nl = acc ? hi : ln;
     // a matching follower whose log already runs past the window keeps it
     if (acc && ln > nl && same) nl = ln;
+    if (acc) {
+      int32_t* dk = key + r * L;
+      int32_t* dv = val + r * L;
+#pragma unroll
+      for (int j = 0; j < LMA_PF; ++j) {
+        const int p = lo + g + LMA_THREADS * j;
+        if (p < end) {
+          dt[p] = t[j];
+          dk[p] = k[j];
+          dv[p] = v[j];
+        }
+      }
+      for (int p = lo + LMA_THREADS * LMA_PF + g; p < end;
+           p += LMA_THREADS) {
+        dt[p] = __ldg(lt + p);
+        dk[p] = __ldg(lk + p);
+        dv[p] = __ldg(lv + p);
+      }
+    }
+  }
+  if (g == 0) {
     new_len[r] = nl;
     accept[r] = acc ? 1 : 0;
-    s_accept = acc ? 1 : 0;
-  }
-  __syncthreads();
-  if (!s_accept) return;
-  const int lo = max(fr, 0);
-  const int end = min(hi, L);
-  const int32_t* lt = lterm + (long long)b * L;
-  const int32_t* lk = lkey + (long long)b * L;
-  const int32_t* lv = lval + (long long)b * L;
-  for (int p = lo + threadIdx.x; p < end; p += blockDim.x) {
-    term[r * L + p] = lt[p];
-    key[r * L + p] = lk[p];
-    val[r * L + p] = lv[p];
   }
 }
 
@@ -266,8 +309,8 @@ int raft_log_match_append(void* term, void* key, void* val, void* lterm,
                           void* lkey, void* lval, void* log_len, void* from,
                           void* upto, void* due, void* new_len, void* accept,
                           int B, int N, int L, int W, void* stream) {
-  dim3 grid(N, B);
-  lma_kernel<<<grid, 256, 0, (cudaStream_t)stream>>>(
+  dim3 grid(N, B);                                // a block per row
+  lma_kernel<<<grid, LMA_THREADS, 0, (cudaStream_t)stream>>>(
       (int32_t*)term, (int32_t*)key, (int32_t*)val, (const int32_t*)lterm,
       (const int32_t*)lkey, (const int32_t*)lval, (const int32_t*)log_len,
       (const int32_t*)from, (const int32_t*)upto, (const uint8_t*)due,

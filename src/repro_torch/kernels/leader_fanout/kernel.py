@@ -2,9 +2,12 @@
 (`csrc/leader_fanout.cu`), which replaces the Pallas kernel
 `repro.kernels.leader_fanout.kernel.leader_fanout_kernel`.
 
-One block per batch member, one thread per node; about 8 KB moved at the
-paper's config, so the launch bounds it.  The design notes are in the
-CUDA source.
+One block per batch member, one thread per node.  About 7 KB moves at
+the paper's config, so the launch and the chain inside the kernel bound
+it: every load is issued in two round trips before the block's one
+barrier, the budget rank is a warp scan by shuffles, and each warp
+learns its offset and the block's counts by one warp reduction each
+after the barrier.  The design notes are in the CUDA source.
 """
 from __future__ import annotations
 

@@ -5,9 +5,10 @@ The operands of `repro.kernels.leader_fanout.ops` with a leading member
 axis B written out (one call serves the whole fleet; B = 1 for one
 cluster).  A CPU tensor runs the twin in `ref.py`; a CUDA tensor
 launches the kernel in `csrc/leader_fanout.cu` once for all B members
-after the operands are checked, else the op raises.  The leaders'
-scalars stay (B,) device tensors, so nothing is read on the host.  Every
-launch adds one to `leader_fanout.launches`.
+(a block each, a thread per node, so N <= 1024) after the operands are
+checked, else the op raises.  The leaders' scalars stay (B,) device
+tensors, so nothing is read on the host.  Every launch adds one to
+`leader_fanout.launches`.
 """
 from __future__ import annotations
 

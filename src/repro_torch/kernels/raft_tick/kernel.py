@@ -4,9 +4,14 @@ They replace the Pallas kernels of `repro.kernels.raft_tick.kernel`
 (`log_match_append_kernel`, `commit_majority_kernel`,
 `apply_last_wins_kernel`).  Each takes batched, contiguous CUDA tensors
 that `ops.py` has checked, launches on its operands' device and that
-device's current stream, and raises if the launch was refused.  At the paper's config all three move well under
-1 MB, so each is bound by its launch, not by memory or arithmetic; the
-design notes are in the CUDA source.
+device's current stream, and raises if the launch was refused.  At the
+paper's config all three move well under 1 MB, so each is bound by its
+launch and the chain of round trips inside it, not by memory or
+arithmetic.  `log_match_append` gives each (member, row) a block of 128
+threads with no shared memory and no barrier: a row that is not due
+makes one round trip, a due row one more, which loads the prev terms and
+the leader window into registers together.  The design notes are in the
+CUDA source.
 """
 from __future__ import annotations
 

@@ -64,6 +64,61 @@ def test_log_match_append(B, N, L, W, due):
     _equal(want, got)
 
 
+def _lma_edge(rng, kind, B, N, L, W):
+    """A window edge, every row due: from = 0 (the prev read at position
+    0, which the window overwrites with another term), from = L, upto
+    below from, a matching log longer than the window, a window past
+    what the threads hold in registers (W > 256).  Returns the op's
+    operands."""
+    frm = _t(rng, 0, L + 1, (B, N))
+    up = torch.clamp(frm + _t(rng, -8, W + 40, (B, N)), max=L)
+    lterm = _t(rng, 0, 4, (B, L))
+    term = _t(rng, 0, 4, (B, N, L))
+    log_len = _t(rng, 0, L + 1, (B, N))
+    if kind == "from0":
+        frm[:] = 0
+        up = _t(rng, 1, W + 1, (B, N))
+        term[:, :, 0] = lterm[:, None, 0] + 1
+    elif kind == "fromL":
+        frm[:] = L
+        up[:] = L
+        term[:, ::2, L - 1] = lterm[:, None, L - 1]
+    elif kind == "upto_below_from":
+        frm = _t(rng, 4, L + 1, (B, N))
+        up = frm - _t(rng, 1, 4, (B, N))
+    elif kind == "longer":
+        term[:] = lterm[:, None, :]
+        log_len[:] = L
+        frm = _t(rng, 1, L - W, (B, N))
+        up = frm + W // 2
+    elif kind == "wide":
+        up = torch.clamp(frm + W + 40, max=L)
+    return [term, _t(rng, 0, 8, (B, N, L)), _t(rng, 0, 64, (B, N, L)),
+            lterm, _t(rng, 0, 8, (B, L)), _t(rng, 0, 64, (B, L)), log_len,
+            frm, up, torch.ones((B, N), dtype=torch.bool)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind,B,N,L,W", [
+    ("from0", 1, 87, 4096, 256), ("fromL", 1, 87, 4096, 256),
+    ("upto_below_from", 1, 87, 4096, 256), ("longer", 1, 87, 4096, 256),
+    ("random", 1, 87, 4096, 1), ("random", 3, 33, 64, 1),
+    ("wide", 1, 87, 4096, 512), ("wide", 2, 9, 1500, 1024),
+    ("random", 1, 1024, 512, 256), ("random", 32, 87, 4096, 256),
+    ("from0", 32, 87, 4096, 512), ("longer", 5, 87, 4096, 512)])
+def test_log_match_append_edges(kind, B, N, L, W):
+    _need_cuda()
+    rng = np.random.default_rng(N + L + W + B)
+    args = _lma_edge(rng, kind, B, N, L, W)
+    want = rt.log_match_append(*[a.clone() for a in args], w=W)
+    n0 = rt.log_match_append.launches
+    got = rt.log_match_append(*[a.cuda() for a in args], w=W)
+    assert rt.log_match_append.launches == n0 + 1
+    _equal(want, got)
+    if kind in ("from0", "longer"):
+        assert bool(got[4].all())
+
+
 # the commit kernel's edges: N across a warp's edge up to one block, L
 # from one entry to the paper's 4096 (ragged between), and a B = 32 fleet
 COMMIT_CASES = [(1, 87, 4096, 0.3), (1, 87, 4096, 1.0), (1, 1, 16, 0.0),
@@ -157,8 +212,81 @@ def test_leader_fanout(B, N, budget, has_leader, alive):
             torch.full((B,), has_leader), s(0, 100), s(0, 4097), s(0, 4),
             s(0, 4097)]
     kw = dict(msg_budget=budget, max_ship=256, entries_per_msg=32)
-    _equal(lf.leader_fanout(*args, **kw),
-           lf.leader_fanout(*[a.cuda() for a in args], **kw))
+    n0 = lf.leader_fanout.launches
+    got = lf.leader_fanout(*[a.cuda() for a in args], **kw)
+    assert lf.leader_fanout.launches == n0 + 1
+    _equal(lf.leader_fanout(*args, **kw), got)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,N", [(5, 87), (1, 1024)])
+@pytest.mark.parametrize("max_ship,epm", [(256, 32), (254, 1), (255, 1),
+                                          (4096, 1), (0, 7)])
+def test_leader_fanout_cost_width(B, N, max_ship, epm):
+    """Batch costs from a constant 1 up to 4097 (max_ship 4096 over one
+    entry a message), so the rank's scan sums wide values, with budgets
+    that cut inside the direct nodes."""
+    _need_cuda()
+    rng = np.random.default_rng(N + max_ship + epm)
+    args = [torch.zeros((B, N), dtype=torch.int32),
+            torch.as_tensor(rng.random((B, N)) < 0.9),
+            torch.full((B, N), -1, dtype=torch.int32),
+            _t(rng, -1, N, (B, N)), _t(rng, 0, 4097, (B, N)),
+            torch.full((B, N), -1, dtype=torch.int32),
+            _t(rng, 0, 4097, (B, N)), _t(rng, 0, 4097, (B, N)),
+            _t(rng, 0, 4, (B, N)), _t(rng, 0, 4097, (B, N)),
+            _t(rng, 1, 20, (B, N, N)), _t(rng, 0, N, (B,)),
+            torch.ones((B,), dtype=torch.bool), _t(rng, 0, 100, (B,)),
+            _t(rng, 0, 4097, (B,)), _t(rng, 0, 4, (B,)),
+            _t(rng, 0, 4097, (B,))]
+    args[0][:, ::9] = 3                         # some secretaries
+    for budget in (N // 2, N * (1 + max_ship // epm) // 3):
+        kw = dict(msg_budget=budget, max_ship=max_ship, entries_per_msg=epm)
+        n0 = lf.leader_fanout.launches
+        got = lf.leader_fanout(*[a.cuda() for a in args], **kw)
+        assert lf.leader_fanout.launches == n0 + 1
+        _equal(lf.leader_fanout(*args, **kw), got)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,N", [(1, 32), (1, 33), (1, 64), (1, 65),
+                                 (1, 87), (5, 87), (1, 1024), (32, 87)])
+@pytest.mark.parametrize("cut", ["lane31", "lane32", "past"])
+def test_leader_fanout_rank_cut(B, N, cut):
+    """Every node a live follower of leader 0, nodes 1-2 secretaries,
+    node 3 relayed (n_sec = 2), the rest direct; member 0's budget puts
+    its rank cut on lane 31, on lane 0 of the next warp (lane 31 again
+    at N = 32) or past the total, the other members' at random."""
+    _need_cuda()
+    rng = np.random.default_rng(N + B)
+    role = torch.zeros((B, N), dtype=torch.int32)
+    role[:, 1:3] = 3
+    sec_of = torch.full((B, N), -1, dtype=torch.int32)
+    sec_of[:, 3] = 1
+    match = _t(rng, 0, 4097, (B, N))
+    ldr_len = _t(rng, 0, 4097, (B,))
+    max_ship, epm = 256, 32
+    cost = 1 + torch.clamp(ldr_len[:, None] - match, 0, max_ship) // epm
+    rank = torch.cumsum(torch.where(torch.arange(N) > 3, cost, 0), 1)[0]
+    budget = {"lane31": rank[31], "lane32": rank[min(32, N - 1)],
+              "past": rank[-1] + 1}[cut]
+    args = [role, torch.ones((B, N), dtype=torch.bool),
+            torch.full((B, N), -1, dtype=torch.int32), sec_of, match,
+            torch.full((B, N), -1, dtype=torch.int32),
+            _t(rng, 0, 4097, (B, N)), _t(rng, 0, 4097, (B, N)),
+            _t(rng, 0, 4, (B, N)), _t(rng, 0, 4097, (B, N)),
+            _t(rng, 1, 20, (B, N, N)), torch.zeros((B,), dtype=torch.int32),
+            torch.ones((B,), dtype=torch.bool), _t(rng, 0, 100, (B,)),
+            ldr_len, _t(rng, 0, 4, (B,)), _t(rng, 0, 4097, (B,))]
+    kw = dict(msg_budget=int(budget) + 2, max_ship=max_ship,
+              entries_per_msg=epm)
+    n0 = lf.leader_fanout.launches
+    got = lf.leader_fanout(*[a.cuda() for a in args], **kw)
+    assert lf.leader_fanout.launches == n0 + 1
+    want = lf.leader_fanout(*args, **kw)
+    _equal(want, got)
+    last = {"lane31": 31, "lane32": min(32, N - 1), "past": N - 1}[cut]
+    assert int(want[5][0]) == last - 3 + 2
 
 
 @pytest.mark.gpu

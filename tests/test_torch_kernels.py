@@ -110,6 +110,50 @@ def test_log_match_append_bit_equal(case):
                   t_rt.log_match_append(*t, w=W)], names)
 
 
+def lma_edge_case(kind, seed, N=6, L=24, W=8):
+    """The window's edges, every row due: from = 0 (prev < 0 reads
+    position 0, which the window overwrites with another term), from =
+    L, upto below from, a matching log longer than the window, W = 1.
+    Returns (case, W)."""
+    c = lma_case(seed, N, L, W, due_frac=1.0)
+    rng = np.random.default_rng(seed + 1000)
+    frm, up = c["app_from_len"], c["app_upto"]
+    if kind == "from0":
+        frm[:] = 0
+        up[:] = rng.integers(1, W + 1, N)
+        c["log_term"][:, 0] = c["ldr_term"][0] + 1
+    elif kind == "fromL":
+        frm[:] = L
+        up[:] = L
+        c["log_term"][::2, L - 1] = c["ldr_term"][L - 1]
+    elif kind == "upto_below_from":
+        frm[:] = rng.integers(4, L + 1, N)
+        up[:] = frm - rng.integers(1, 4, N)
+    elif kind == "longer":
+        c["log_term"][:] = c["ldr_term"]
+        c["log_len"][:] = L
+        frm[:] = rng.integers(1, L - W, N)
+        up[:] = frm + W // 2
+    elif kind == "w1":
+        W = 1
+    return c, W
+
+
+LMA_EDGES = ["from0", "fromL", "upto_below_from", "longer", "w1"]
+
+
+@pytest.mark.parametrize("kind", LMA_EDGES)
+def test_log_match_append_window_edges(kind):
+    c, W = lma_edge_case(kind, 100 + LMA_EDGES.index(kind))
+    j, t = _both(c)
+    names = ("log_term", "log_key", "log_val", "new_len", "accept")
+    ref = list(j_rt_ref.log_match_append_ref(*j, w=W))
+    ref[4] = ref[4] != 0
+    got = t_rt.log_match_append(*t, w=W)
+    _assert_same([j_rt.log_match_append(*j, w=W), ref, got], names)
+    assert bool(got[4].all()) == (kind in ("from0", "longer"))
+
+
 def commit_case(seed, N, L, *, dead_frac=0.3):
     rng = np.random.default_rng(seed)
     return dict(match_len=_i32(rng, 0, L + 1, (N,)),
@@ -219,6 +263,53 @@ def test_leader_fanout_bit_equal(case, budget, max_ship, epm):
     _assert_same([j_lf.leader_fanout(*j, **kw),
                   j_lf_ref.leader_fanout_ref(*j, **kw),
                   t_lf.leader_fanout(*t, **kw)], names)
+
+
+def fanout_cut_case(seed, N, cut, L=64, max_ship=32, epm=8):
+    """Every node a live follower of leader 0 with nothing in flight;
+    nodes 1 and 2 alive, unwarned secretaries, node 3 relayed through
+    node 1, so n_sec = 2 and every node past 3 is direct.  The budget
+    puts the rank cut on lane 31 ("lane31"), on lane 0 of the next warp
+    ("lane32") or past the total ("past").  Returns (case, budget)."""
+    c = fanout_case(seed, N, L, alive_frac=1.0)
+    c["role"][:] = 0
+    c["role"][1:3] = 3
+    c["warn_timer"][:] = -1
+    c["sec_of"][:] = -1
+    c["sec_of"][3] = 1
+    c["app_arrive_t"][:] = -1
+    c["lid_c"] = np.int32(0)
+    c["has_leader"] = np.asarray(True)
+    direct = np.arange(N) > 3
+    pending = np.maximum(c["ldr_len"] - c["match_len"], 0)
+    rank = np.cumsum(np.where(direct, 1 + np.minimum(pending, max_ship)
+                              // epm, 0))
+    at = {"lane31": rank[31], "lane32": rank[min(32, N - 1)],
+          "past": rank[-1] + 1}[cut]
+    return c, int(at) + 2
+
+
+FANOUT_CUTS = [(n, cut) for n in (32, 33, 64, 65, 87)
+               for cut in ("lane31", "lane32", "past")
+               if not (n == 32 and cut == "lane32")]
+
+
+@pytest.mark.parametrize("N,cut", FANOUT_CUTS)
+def test_leader_fanout_rank_cut_at_warp_edges(N, cut):
+    """The budget rank crosses a warp's edge: the last node shipped is
+    lane 31, lane 0 of the next warp, or every direct node ships."""
+    c, budget = fanout_cut_case(200 + N, N, cut)
+    kw = dict(msg_budget=budget, max_ship=32, entries_per_msg=8)
+    j, t = _both(c)
+    names = ("app_arrive_t", "app_from_len", "app_upto", "app_term",
+             "app_commit", "work")
+    got = t_lf.leader_fanout(*t, **kw)
+    _assert_same([j_lf.leader_fanout(*j, **kw),
+                  j_lf_ref.leader_fanout_ref(*j, **kw), got], names)
+    shipped = (got[0][0] != t[5][0]).numpy()
+    last = {"lane31": 31, "lane32": 32, "past": N - 1}[cut]
+    assert shipped[last] and not shipped[last + 1:].any()
+    assert int(got[5][0]) == last - 3 + 2
 
 
 def test_cpu_ops_launch_nothing():
