@@ -15,13 +15,25 @@ Phases, each fatal on failure:
    the seven sources of `src/repro_torch/kernels/csrc/` (one nvcc per
    source, in parallel), print each kernel's ptxas register and spill
    lines under its function name, and fail if ptxas spills in
-   `lma_kernel` or `fanout_kernel`;
+   `lma_kernel`, `fanout_kernel`, either `ae_sync_kernel` instance (N <=
+   128, S*S <= 32, and the general one) or `group_reduce_kernel`, or if
+   an `ae_sync_kernel` has a block barrier or shared memory (ptxas) or
+   its library a BAR or ATOMS instruction (its SASS, where cuobjdump
+   exists);
 2. each of the six kernels against its plain PyTorch twin on the same
-   CUDA inputs, exact equality (floats included): at the solo path's
+   CUDA inputs, exact equality (floats bit for bit, +0 and -0 apart, a
+   NaN matching a NaN): at the solo path's
    shapes (B=1, N=87, L=4096, K=1024, W=256, A=8), at the fleet path's
    (B=5, O=550, S=4, Fi=355 packed group lanes), at the sweep's B=32 and
-   on edge cases (for commit_majority N in {1, 32, 33, 87, 1024} by L in
-   {1, 16, 33, 4096}, mixed majorities, no live voter, the majority-th
+   on edge cases (for ae_sync N in {1, 31, 32, 33, 64, 65, 87, 128,
+   129, 1024, 1100, 2000} with the first alive voter in the last 32-node
+   word, S in {1, 4, 5, 6}, O in {1, 31, 32, 33, 129}, wired followers
+   at -1 and >= N, tick + phase below 0, intervals 0 and -3; for
+   group_reduce B in {1, 8, 9, 15, 16, 17, 32, 33, 100}, up to 8 groups
+   with an empty one, NaN, +-inf, +0 and -0 in the float lanes, int sums
+   that wrap, and outputs allocated over a freed sentinel fill; for
+   commit_majority N in {1, 32, 33, 87, 1024} by L in {1, 16, 33,
+   4096}, mixed majorities, no live voter, the majority-th
    match past L; for apply_last_wins A in {1, 8, 31, 32, 33, 64}, one
    key per row, no valid entry, keys at -K-1, -1, K, K+1; for
    log_match_append from = 0 with position 0 overwritten, from = L,
@@ -51,7 +63,11 @@ Phases, each fatal on failure:
    Raft, two grouped Multi-Raft shards at chi=0.1, and BW-Raft with the
    550-slot digest-observer rack — for 3 epochs, counts set to 0 just
    before and read just after (each per-tick kernel and ae_sync 300
-   launches, once per tick for the whole fleet; group_reduce 3), then a
+   launches, once per tick for the whole fleet; group_reduce 3), keeping
+   the operands of ae_sync's call of tick 250 and of group_reduce's of
+   epoch 1; both kernels against their twins on the kept operands and
+   their device times there beside phase 2's floor, ae_sync also on the
+   members with no slot due, with the slots due at that tick; then a
    sync-free check over 3 batched ticks;
 6. the fixed-role sweep: `FleetSim.from_sweep(CONFIG, ...)` at B=32,
    unmanaged, `run(1)`, `lease_fixed(2, 8)`, `run(2)` on the
@@ -207,8 +223,25 @@ MAIN_DATA = {
         "app_commit", "rtt", "lid_c", "has_leader", "tick", "ldr_len",
         "ldr_term", "ldr_commit"))}
 MAIN_DATA_AT = 250
-# the redesigned kernels ptxas must not spill for (phase 1)
-NO_SPILL = ("lma_kernel", "fanout_kernel")
+# the ops whose operands phase 5 keeps (the fleet path's own data): the
+# digest tier's round at tick 250 of 300 through `core/step.py`, and the
+# group digest of epoch 1 of 3 through `core/fleet.py`
+FLEET_DATA = {
+    "ae_sync": ("ae_ops", (
+        "dobs_alive", "dobs_fol", "dobs_applied", "dobs_term", "dobs_digest",
+        "dobs_synced_t", "ae_phase", "dobs_site", "alive", "is_voter",
+        "applied_len", "term", "applied_digest", "site", "site_rtt", "tick",
+        "ae_interval")),
+    "group_reduce": ("gd_ops", ("gids", "int_mat", "flt_mat"))}
+FLEET_DATA_AT = {"ae_sync": 250, "group_reduce": 1}
+# the redesigned kernels ptxas must not spill for (phase 1) ...
+AE_KERNELS = ("ae_sync_kernel<1>", "ae_sync_kernel<0>")  # N <= 128; any
+NO_SPILL = ("lma_kernel", "fanout_kernel", *AE_KERNELS,
+            "group_reduce_kernel")
+# ... and, by library, those with no block barrier and no shared memory,
+# hence no shared-memory atomic (ptxas and, where cuobjdump exists, the
+# library's SASS)
+NO_BARRIER = {"ae_sync": AE_KERNELS}
 
 
 def log(*a):
@@ -261,6 +294,34 @@ def ptxas_report(text: str):
         elif "registers" in ln or "spill" in ln:
             out.append((fn, ln.strip().replace("ptxas info    : ", "")))
     return out
+
+
+def check_barrier_free(libs):
+    """Each NO_BARRIER kernel: ptxas reports 0 barriers and no shared
+    memory, and its library's SASS (cuobjdump, where present) holds no
+    BAR and no ATOMS instruction."""
+    tool = cuobjdump_path()
+    for lib, fns in NO_BARRIER.items():
+        report = ptxas_report(libs[lib].with_suffix(".log").read_text())
+        for fn in fns:
+            used = [ln for f, ln in report if f == fn and "registers" in ln]
+            if not used or "used 0 barriers" not in used[0] or \
+                    "smem" in used[0]:
+                raise AssertionError(f"{fn}: ptxas reports a barrier or "
+                                     f"shared memory: {used}")
+            log(f"  {fn}: no block barrier, no shared memory (ptxas: "
+                f"{used[0]})")
+        if tool is None:
+            log(f"  {lib}: SASS not checked (no cuobjdump)")
+            continue
+        sass = subprocess.run([tool, "-sass", str(libs[lib])],
+                              capture_output=True, text=True, check=True,
+                              timeout=120).stdout
+        n = {op: len(re.findall(rf"\b{op}\b", sass))
+             for op in ("BAR", "ATOMS")}
+        if any(n.values()):
+            raise AssertionError(f"{lib}: SASS holds {n}")
+        log(f"  {lib}: SASS holds BAR {n['BAR']}, ATOMS {n['ATOMS']}")
 
 
 # --------------------------------------------------------------------- #
@@ -424,6 +485,64 @@ def ae_case(rng, B, O, N, S, *, voter_frac=0.1, interval=4):
         tick=rng.integers(0, 500, B), ae_interval=np.full(B, interval))
 
 
+def ae_edge_case(rng, kind, B, O, N, S, interval):
+    """An `ae_case` at an edge of the kernel: "last_word" (the alive
+    voters all in the last 32-node word), "fol_out" (wired followers at
+    -1, -5, N, N + 3 and in range), "neg_tick" (tick + phase below 0) or
+    "random"."""
+    import numpy as np
+    c = ae_case(rng, B, O, N, S, voter_frac=0.6, interval=interval)
+    if kind == "last_word":
+        lo = (N - 1) // 32 * 32
+        c["alive"][:, :lo] &= ~c["is_voter"][:, :lo]
+        c["alive"][:, N - 1] = c["is_voter"][:, N - 1] = True
+        c["dobs_fol"][:, ::3] = N - 1
+    elif kind == "fol_out":
+        c["dobs_fol"] = rng.choice(np.array([-1, -5, N, N + 3, 0, N - 1]),
+                                   (B, O))
+    elif kind == "neg_tick":
+        c["tick"][:] = -13
+        c["ae_phase"] = rng.integers(-9, 4, (B, O))
+    return c
+
+
+def ae_due(c):
+    """The anti-entropy due rule and source of a case, in numpy: (due
+    (B, O), src (B, O))."""
+    import numpy as np
+    a = lambda k: np.asarray(c[k])
+    fol = a("dobs_fol").astype(np.int64)
+    av = a("alive").astype(bool) & a("is_voter").astype(bool)
+    fc = np.clip(fol, 0, av.shape[1] - 1)
+    fol_ok = (fol >= 0) & np.take_along_axis(av, fc, 1)
+    src = np.where(fol_ok, fc, np.argmax(av, 1)[:, None])
+    interval = np.maximum(a("ae_interval").astype(np.int64), 1)[:, None]
+    due = a("dobs_alive").astype(bool) & (fol_ok | av.any(1)[:, None]) & (
+        (a("tick").astype(np.int64)[:, None] + a("ae_phase")) % interval
+        == 0)
+    return due, src
+
+
+def group_edge_case(rng, B, G, *, empty=None, Fi=20):
+    """Ids over [0, G] (G drops), group `empty` left empty; int lanes
+    over all of int32 (the sums wrap); six float lanes: general values,
+    only +0 / -0, -0 / -inf / -1.5, values with NaN, -inf / +inf / 1,
+    values with +-0."""
+    import numpy as np
+    gids = rng.integers(0, G + 1, B)
+    if empty is not None:
+        gids[gids == empty] = (empty + 1) % G
+    pick = lambda vals: rng.choice(np.array(vals, np.float32), B)
+    normal = (rng.standard_normal(B) * 100.0).astype(np.float32)
+    flt = np.stack([
+        normal, pick([0.0, -0.0]), pick([-0.0, -np.inf, -1.5]),
+        np.where(rng.random(B) < 0.1, np.float32(np.nan), normal[::-1]),
+        pick([-np.inf, np.inf, 1.0]),
+        np.where(rng.random(B) < 0.5, pick([0.0, -0.0]), normal)], 1)
+    return dict(gids=gids, int_mat=rng.integers(-2 ** 31, 2 ** 31, (B, Fi)),
+                flt_mat=flt.astype(np.float32))
+
+
 def group_case(rng, B, G, Fi, Ff, *, dropped=0.0):
     import numpy as np
     gids = np.where(rng.random(B) < dropped, G, rng.integers(0, G, B))
@@ -449,9 +568,17 @@ def clone(case):
 
 
 def check_equal(name, got, want):
+    """Equal bit for bit (+0 and -0 apart); a float NaN matches a NaN
+    whatever its payload (the card's adder returns its canonical NaN)."""
     import torch
     for i, (g, w) in enumerate(zip(got, want)):
-        if g.dtype != w.dtype or g.shape != w.shape or not torch.equal(g, w):
+        same = g.dtype == w.dtype and g.shape == w.shape
+        if same and g.dtype.is_floating_point:
+            nan = torch.isnan(w)
+            same = torch.equal(torch.isnan(g), nan)
+            g = g.masked_fill(nan, 0).view(torch.int32)
+            w = w.masked_fill(nan, 0).view(torch.int32)
+        if not (same and torch.equal(g, w)):
             raise AssertionError(f"{name}: output {i} differs from the twin")
 
 
@@ -657,6 +784,33 @@ def run_kernel_checks(dev, cfg, static, fleet_shapes):
     c = group_case(rng, 9, 4, 20, 3)
     c["gids"] = np.where(c["gids"] == 2, 0, c["gids"])
     cases["group_reduce"].append((None, c, dict(G=4)))
+    # the redesigned ae_sync's edges: N across its 32-node words (the first
+    # alive voter in the last), across the 128 of its one-trip instance
+    # and past the 1024 its lane masks cover, S * S across the 32 entries
+    # its lanes preload, O across its warps, wired followers out of
+    # range, tick + phase below 0, an interval <= 0
+    for n in (1, 31, 32, 33, 64, 65, N, 128, 129, 1024, 1100, 2000):
+        cases["ae_sync"].append(
+            (None, ae_edge_case(rng, "last_word", 2, 40, n, 3, 4), {}))
+    for s_ in (1, 4, 5, 6):
+        cases["ae_sync"].append(
+            (None, ae_edge_case(rng, "random", B, O, N, s_, 1), {}))
+    for o in (1, 31, 32, 33, 129):
+        cases["ae_sync"].append(
+            (None, ae_edge_case(rng, "random", 2, o, 9, 2, 1), {}))
+    for kind, iv in (("fol_out", 1), ("neg_tick", 4), ("neg_tick", 3),
+                     ("random", 0), ("random", -3)):
+        cases["ae_sync"].append(
+            (None, ae_edge_case(rng, kind, B, O, N, S, iv), {}))
+    # the redesigned group_reduce's edges: B across its 8-member chunks
+    # and its two chunk buffers, up to 8 groups with an empty one, NaN /
+    # +-inf / +-0, int sums that wrap
+    for b, g, empty in ((1, 1, None), (8, 2, None), (9, 3, None),
+                        (15, 3, None), (16, 3, 1),
+                        (17, 3, None), (32, 2, None), (33, 5, 4),
+                        (100, 3, 0), (40, 8, 5), (SWEEP_B, 8, None)):
+        cases["group_reduce"].append(
+            (None, group_edge_case(rng, b, g, empty=empty), dict(G=g)))
 
     fns = kernel_fns()
     floor = launch_floor_ms()
@@ -700,28 +854,63 @@ def run_kernel_checks(dev, cfg, static, fleet_shapes):
                 + f"), {nbytes} B, {ops} ops, bound "
                 f"{bound_ms(nbytes, ops) * 1e3:.4f} us")
         log(f"kernel {name}: equal to twin on {len(items)} cases")
+    check_group_unfilled(dev, fns["group_reduce"], Fi, G)
     K_.reset_launch_counts()
     return results, floor
 
 
+def check_group_unfilled(dev, fn, Fi, G):
+    """group_reduce allocates its outputs with `torch.empty`: after
+    tensors of the outputs' sizes were filled with a sentinel and freed,
+    so the allocator likely hands that memory back, the kernel must
+    still equal the twin in every cell, at the fleet's widths with an
+    empty group, and with every member dropped."""
+    import numpy as np
+    import torch
+    G = max(G, 3)
+    rng = np.random.default_rng(1)
+    for gids in ([0, 2, 0, 2, 2], [G] * FLEET_B):
+        c = group_case(rng, FLEET_B, G, Fi, 3)
+        c["gids"] = np.array(gids)
+        t = to_dev(c, dev)
+        junk = [torch.full((G, Fi), 0x5A5A5A5A, dtype=torch.int32,
+                           device=dev),
+                torch.full((G, 3), 1234.5, device=dev),
+                torch.full((G, 3), 1234.5, device=dev)]
+        torch.cuda.synchronize()
+        del junk
+        got = fn(clone(t), False, dict(G=G))
+        want = fn(clone(t), True, dict(G=G))
+        check_equal("group_reduce (outputs after a sentinel fill)", got, want)
+        if got[0][1].any() or not (got[2][1] == -torch.inf).all():
+            raise AssertionError("group_reduce: an empty group is not 0 "
+                                 "sums and a -inf max")
+    log("kernel group_reduce: equal to twin on outputs allocated over a "
+        "freed sentinel fill (an empty group; every member dropped)")
+
+
 @contextlib.contextmanager
-def keep_main_path_operands(at):
+def keep_main_path_operands(at, data=MAIN_DATA):
     """Yield ({op name: (operands, keyword arguments)}, [due rows]):
-    while open, `core/step.py` reaches the four per-tick ops through
-    stand-ins for its `rt_ops` and `lf_ops` that keep a copy of the
-    operands of each op's `at`-th call (cloned before the call, since
-    log_match_append and apply_last_wins update their first operands in
-    place) and a device copy of every call's `due` mask.  The ops
-    modules themselves are left alone, so their launch counts stay the
-    real ones."""
+    while open, the path reaches each op of `data` through a stand-in
+    for the ops module `data` names (`rt_ops`, `lf_ops` and `ae_ops` of
+    `core/step.py`, `gd_ops` of `core/fleet.py`) that keeps a copy of
+    the operands of the op's `at[name]`-th call (cloned before the call,
+    since log_match_append and apply_last_wins update their first
+    operands in place) and a device copy of every call's `due` mask of
+    log_match_append.  The ops modules themselves are left alone, so
+    their launch counts stay the real ones."""
+    from repro_torch.core import fleet as fleet_mod
     from repro_torch.core import step as step_mod
+    owner = {"rt_ops": step_mod, "lf_ops": step_mod, "ae_ops": step_mod,
+             "gd_ops": fleet_mod}
     kept, dues = {}, []
 
     def wrap(mod, name):
         fn, calls = getattr(mod, name), [0]
 
         def op(*args, **kw):
-            if calls[0] == at:
+            if calls[0] == at[name]:
                 kept[name] = ([a.clone() for a in args], dict(kw))
             if name == "log_match_append":
                 dues.append(args[9].clone())
@@ -729,57 +918,97 @@ def keep_main_path_operands(at):
             return fn(*args, **kw)
         return op
 
-    saved = {m: getattr(step_mod, m) for m in ("rt_ops", "lf_ops")}
+    saved = {m: getattr(owner[m], m) for m in {w for w, _ in data.values()}}
     for m, mod in saved.items():
-        names = [n for n, (where, _) in MAIN_DATA.items() if where == m]
-        setattr(step_mod, m, types.SimpleNamespace(
+        names = [n for n, (where, _) in data.items() if where == m]
+        setattr(owner[m], m, types.SimpleNamespace(
             **dict(vars(mod), **{n: wrap(mod, n) for n in names})))
     try:
         yield kept, dues
     finally:
         for m, mod in saved.items():
-            setattr(step_mod, m, mod)
+            setattr(owner[m], m, mod)
 
 
-def time_main_path_data(kept, floor, static):
-    """The four per-tick kernels on the operands kept from the solo
-    path's own ticks: equal to the twin, then device times beside phase
-    2's floor.  Returns {name: {ms, plain_ms, bytes, ops}}."""
+def time_main_path_data(kept, floor, static, data=MAIN_DATA, where=None):
+    """The kernels of `data` on the operands kept from the path's own
+    calls (`where[name]` says which call): equal to the twin, then
+    device times beside phase 2's floor; ae_sync also on the members
+    with no slot due.  Returns {name: {ms, plain_ms, bytes, ops}}."""
     import torch
     from repro_torch import kernels as K_
+    where = where or {n: f"tick {MAIN_DATA_AT}" for n in data}
     fns = kernel_fns()
     out = {}
-    for name in MAIN_DATA:
+    for name in data:
         args, opkw = kept[name]
-        case = dict(zip(MAIN_DATA[name][1], args))
+        case = dict(zip(data[name][1], args))
         k = dict(opkw)
         if "w" in k:                    # log_match_append's window
             k["max_ship"] = k.pop("w")
+        if "n_groups" in k:             # group_reduce's group count
+            k["G"] = k.pop("n_groups")
         fn = fns[name]
         got = fn(clone(case), False, k)
         torch.cuda.synchronize()
         check_equal(f"{name} (main path data)", got,
                     fn(clone(case), True, k))
-        ka, kb = clone(case), clone(case)
-        ms = device_ms(lambda: fn(ka, False, k), 100, 4_000_000)
-        plain_ms = device_ms(lambda: fn(kb, True, k), 30, 40_000_000)
-        nbytes, ops = work_of(name, {n: v.cpu().numpy()
-                                     for n, v in case.items()}, static, k)
-        out[name] = dict(ms=ms, plain_ms=plain_ms, bytes=nbytes, ops=ops)
-        log(f"kernel {name} [main path data, tick {MAIN_DATA_AT}]: "
-            f"{ms * 1e3:.2f} us, {(ms - floor) * 1e3:.2f} over the floor "
-            f"of {floor * 1e3:.2f} us; twin "
-            f"{plain_ms * 1e3:.2f} us; {nbytes} B, {ops} ops, bound "
-            f"{bound_ms(nbytes, ops) * 1e3:.4f} us; "
-            f"{main_data_note(name, case)}")
+        tag = f"main path data, {where[name]}"
+        out[name] = time_case(name, case, k, floor, static, tag,
+                              main_data_note(name, case))
+        if name == "ae_sync":
+            quiet = ae_due(to_np(case))[0].sum(1) == 0
+            if quiet.any() and not quiet.all():
+                sub = {n: v[torch.as_tensor(quiet, device=v.device)]
+                       for n, v in case.items()}
+                check_equal(f"{name} (main path data, no slot due)",
+                            fn(clone(sub), False, k),
+                            fn(clone(sub), True, k))
+                r = time_case(name, sub, k, floor, static,
+                              f"{tag}, the {int(quiet.sum())} members "
+                              f"with no slot due")
+                out[name].update(ms_no_due=r["ms"],
+                                 members_no_due=int(quiet.sum()))
     K_.reset_launch_counts()
     return out
+
+
+def to_np(case):
+    return {n: v.cpu().numpy() for n, v in case.items()}
+
+
+def time_case(name, case, k, floor, static, tag, note=""):
+    """Device times of kernel and twin on one case of device tensors,
+    printed beside the floor and `note`.  Returns {ms, plain_ms, bytes,
+    ops}."""
+    fn = kernel_fns()[name]
+    ka, kb = clone(case), clone(case)
+    ms = device_ms(lambda: fn(ka, False, k), 100, 4_000_000)
+    plain_ms = device_ms(lambda: fn(kb, True, k), 30, 40_000_000)
+    nbytes, ops = work_of(name, to_np(case), static, k)
+    log(f"kernel {name} [{tag}]: {ms * 1e3:.2f} us, "
+        f"{(ms - floor) * 1e3:.2f} over the floor of {floor * 1e3:.2f} us; "
+        f"twin {plain_ms * 1e3:.2f} us; {nbytes} B, {ops} ops, bound "
+        f"{bound_ms(nbytes, ops) * 1e3:.4f} us" + (f"; {note}" if note
+                                                   else ""))
+    return dict(ms=ms, plain_ms=plain_ms, bytes=nbytes, ops=ops)
 
 
 def main_data_note(name, case):
     """What the kept operands hold: the append's due rows, the commit's
     live voters and majority, the apply's valid entries, the fan-out's
-    nodes with nothing in flight."""
+    nodes with nothing in flight, ae_sync's due slots by member,
+    group_reduce's grouped members."""
+    if name == "ae_sync":
+        due = ae_due(to_np(case))[0]
+        alive = case["dobs_alive"].sum(1).tolist()
+        return (f"{int(due.sum())} of {due.size} slots due (by member "
+                f"{due.sum(1).tolist()}; alive slots {alive})")
+    if name == "group_reduce":
+        gids = case["gids"].cpu().numpy()
+        return (f"members' group ids {gids.tolist()}, "
+                f"{case['int_mat'].shape[1]} int and "
+                f"{case['flt_mat'].shape[1]} float lanes")
     if name == "log_match_append":
         return (f"{int(case['due'].sum())} of {case['due'].numel()} rows "
                 f"due")
@@ -831,17 +1060,23 @@ def work_of(name, c, static, kw):
         return B * (N * (9 * 4 + 1) + 2 * N * 4 + 6 * 4 + 5 * N * 4 + 4), \
             B * N * 40
     if name == "ae_sync":
+        # the slot rows, the alive and voter bytes and the site-pair
+        # matrix of every member, the four source values once per
+        # distinct (member, source) a due slot reads, the four rows out
         B, O = a("dobs_fol").shape
         N = a("alive").shape[1]
         S = a("site_rtt").shape[1]
-        return B * (O * (1 + 7 * 4) + N * (2 + 4 * 4) + S * S * 4 + 8 +
-                    O * 4 * 4), B * O * 20
-    # group_reduce
+        due, src = ae_due(c)
+        n_src = len(set(zip(np.nonzero(due)[0].tolist(),
+                            src[due].tolist())))
+        return B * (O * (1 + 7 * 4) + N * 2 + S * S * 4 + 8 +
+                    O * 4 * 4) + n_src * 4 * 4, B * O * 20
+    # group_reduce: the ids, the rows of the grouped members, the outputs
     B, Fi = a("int_mat").shape
     Ff = a("flt_mat").shape[1]
     G = kw["G"]
     n_in = int(((a("gids") >= 0) & (a("gids") < G)).sum())
-    return (B * 4 + B * (Fi + Ff) * 4 + G * (Fi + 2 * Ff) * 4,
+    return (B * 4 + n_in * (Fi + Ff) * 4 + G * (Fi + 2 * Ff) * 4,
             n_in * (Fi + 2 * Ff) + B * G * (Fi + Ff))
 
 
@@ -875,7 +1110,8 @@ def run_main_path(dev, cfg):
     sim = BWRaftSim(cfg, seed=0, device=dev)
     K_.reset_launch_counts()
     ticks, wall = 0, []
-    with keep_main_path_operands(MAIN_DATA_AT) as (kept, dues):
+    at = {n: MAIN_DATA_AT for n in MAIN_DATA}
+    with keep_main_path_operands(at) as (kept, dues):
         for e in range(5):
             if e == 3:
                 sim.set_rates(phi=0.02)
@@ -1049,19 +1285,22 @@ def run_fleet_path(dev, cfg):
     torch.cuda.reset_peak_memory_stats()
     K_.reset_launch_counts()
     wall = []
-    for e in range(3):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        reps = fleet.run_epoch()       # ends in the digest fetch (a sync)
-        wall.append((time.perf_counter() - t0) * 1e3)
-        for i, rep in enumerate(reps):
-            check_report(rep, f"fleet epoch {e} member {i}")
-        g = fleet.group_reports[0][-1]
-        gd = {k: v for k, v in g.__dict__.items() if k != "metrics"}
-        log(f"fleet epoch {e}: {wall[-1]:.1f} ms; writes committed "
-            f"{[r.writes_committed for r in reps]}; multiraft group "
-            f"{json.dumps(gd)}")
+    with keep_main_path_operands(FLEET_DATA_AT, FLEET_DATA) as (kept, _):
+        for e in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            reps = fleet.run_epoch()   # ends in the digest fetch (a sync)
+            wall.append((time.perf_counter() - t0) * 1e3)
+            for i, rep in enumerate(reps):
+                check_report(rep, f"fleet epoch {e} member {i}")
+            g = fleet.group_reports[0][-1]
+            gd = {k: v for k, v in g.__dict__.items() if k != "metrics"}
+            log(f"fleet epoch {e}: {wall[-1]:.1f} ms; writes committed "
+                f"{[r.writes_committed for r in reps]}; multiraft group "
+                f"{json.dumps(gd)}")
     counts = K_.launch_counts()
+    if sorted(kept) != sorted(FLEET_DATA):
+        raise AssertionError(f"kept fleet operands of {sorted(kept)} only")
     ticks = 3 * T
     log(f"launches over {ticks} fleet ticks of B={B}: {json.dumps(counts)}")
     for name, n in counts.items():
@@ -1088,7 +1327,7 @@ def run_fleet_path(dev, cfg):
     bundle = fleet_epoch(fleet.draws, 3, fleet.state, fleet._cfg_c)
     check_tick_sync_free(fleet.state, fleet._bstatic, fleet._cfg_c, bundle,
                          3)
-    return fleet, counts, wall
+    return fleet, counts, kept
 
 
 def run_sweep(dev, cfg):
@@ -1856,6 +2095,7 @@ def main() -> int:
         if spills[fn]:
             raise AssertionError(f"ptxas spilled {spills[fn]} bytes in "
                                  f"{fn}")
+    check_barrier_free(libs)
     dev = torch.device("cuda")
     static = SM.build_static(CONFIG)
     fleet_shapes = dict(O=50 * rack_voters(CONFIG), S=CONFIG.num_sites,
@@ -1866,7 +2106,11 @@ def main() -> int:
     run_quickstart(dev, CONFIG)
     run_card_vs_cpu("solo", SM.batch1(sim.state), [sim.static],
                     SM.batch1(sim.cfg_c), CONFIG.period_ticks)
-    fleet, fleet_counts, _ = run_fleet_path(dev, CONFIG)
+    fleet, fleet_counts, fleet_kept = run_fleet_path(dev, CONFIG)
+    main_data.update(time_main_path_data(
+        fleet_kept, floor, static, FLEET_DATA,
+        {"ae_sync": f"fleet tick {FLEET_DATA_AT['ae_sync']}",
+         "group_reduce": f"fleet epoch {FLEET_DATA_AT['group_reduce']}"}))
     run_sweep(dev, CONFIG)
     run_card_vs_cpu("fleet", fleet.state, [m.static for m in fleet.members],
                     fleet._cfg_c, CONFIG.period_ticks, fleet._gids,
@@ -1911,6 +2155,8 @@ def main() -> int:
             entry.update(ms_main_data=m["ms"],
                          plain_ms_main_data=m["plain_ms"],
                          bound_ms_main_data=bound_ms(m["bytes"], m["ops"]))
+            if "ms_no_due" in m:
+                entry.update(ms_main_data_no_due=m["ms_no_due"])
         kernels.append(entry)
     for name in ("flash_attention", "decode_attention"):
         a = att[name]

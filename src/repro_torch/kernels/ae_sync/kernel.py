@@ -2,9 +2,15 @@
 which replaces the Pallas kernel
 `repro.kernels.ae_sync.kernel.ae_sync_kernel`.
 
-One thread per observer slot, one grid row per member; about 28 KB per
-member at the 50X rack (O = 550), so the launch bounds it.  The design
-notes are in the CUDA source.
+One thread per observer slot, one grid row per member, no block
+barrier, shared memory or atomics: each warp loads the member's alive
+and voter bytes with its slots and finds the first alive voter by one
+warp min-reduction, a slot that is not due makes one memory round trip
+and a due slot two (its source's values; the hop is a shuffle of the
+site-pair matrix the warp preloads).  The library picks its instance:
+one for N <= 128 and S*S <= 32 (the fleet's), one for any N and S.
+About 28 KB per member at the 50X rack (O = 550), so the launch bounds
+it.  The design notes are in the CUDA source.
 """
 from __future__ import annotations
 

@@ -2,9 +2,13 @@
 (`csrc/group_digest.cu`), which replaces the Pallas kernel
 `repro.kernels.group_digest.kernel.group_reduce_kernel`.
 
-One thread per (group, packed feature), members walked in ascending
-order; a few KB per launch at the slice's fleet, so the launch bounds
-it.  The design notes are in the CUDA source.
+One thread per (group, packed feature) loads its column of a chunk of
+8 members, ids included, in one round trip (the next chunk's loads
+issued before the current one is added) and adds them in ascending
+member order; the float cells start on a warp of their own.  It writes
+every output cell, so the outputs come unfilled.  A few KB per launch
+at the slice's fleet, so the launch bounds it.  The design notes are in
+the CUDA source.
 """
 from __future__ import annotations
 
@@ -23,7 +27,8 @@ def _fn():
 
 def group_reduce(gids, int_mat, flt_mat, g_int, g_sum, g_max) -> None:
     """gids (B,) int32; int_mat (B, Fi) int32; flt_mat (B, Ff) float32;
-    outputs g_int (G, Fi) int32, g_sum and g_max (G, Ff) float32."""
+    outputs g_int (G, Fi) int32, g_sum and g_max (G, Ff) float32, which
+    the kernel overwrites whole (they may hold anything)."""
     B, Fi = int_mat.shape
     Ff = flt_mat.shape[1]
     G = g_int.shape[0]

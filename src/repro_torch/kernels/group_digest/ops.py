@@ -32,9 +32,11 @@ def group_reduce(gids, int_mat, flt_mat, *, n_groups: int):
     check("group_reduce", "int_mat", int_mat, torch.int32, (B, Fi), dev)
     check("group_reduce", "flt_mat", flt_mat, torch.float32, (B, Ff), dev)
     G = int(n_groups)
-    g_int = torch.zeros((G, Fi), dtype=torch.int32, device=dev)
-    g_sum = torch.zeros((G, Ff), dtype=torch.float32, device=dev)
-    g_max = torch.full((G, Ff), -torch.inf, dtype=torch.float32, device=dev)
+    # the kernel writes every cell (0 sums and a -inf max for an empty
+    # group); with no group or no lane the outputs have no element
+    g_int = torch.empty((G, Fi), dtype=torch.int32, device=dev)
+    g_sum = torch.empty((G, Ff), dtype=torch.float32, device=dev)
+    g_max = torch.empty((G, Ff), dtype=torch.float32, device=dev)
     if G and Fi + Ff:
         K.group_reduce(gids, int_mat, flt_mat, g_int, g_sum, g_max)
         group_reduce.launches += 1

@@ -3,7 +3,8 @@
 written as a loop over members in ascending order with masked adds, so
 the float32 sums accumulate in the order `segment_sum` and the CUDA
 kernel use and all three agree bit for bit (`index_add_` on the card
-uses atomics, whose order changes from run to run).
+uses atomics, whose order changes from run to run); the max orders +0
+above -0, as XLA's does.
 """
 from __future__ import annotations
 
@@ -25,7 +26,15 @@ def group_reduce_ref(gids, int_mat, flt_mat, *, n_groups: int):
     rows = torch.arange(n_groups, device=dev)[:, None]
     for b in range(B):
         hit = rows == gids[b]
+        v = flt_mat[b]
         g_int = g_int + torch.where(hit, int_mat[b], 0)
-        g_sum = g_sum + torch.where(hit, flt_mat[b], 0.0)
-        g_max = torch.where(hit, torch.maximum(g_max, flt_mat[b]), g_max)
+        g_sum = g_sum + torch.where(hit, v, 0.0)
+        g_max = torch.where(hit, _max(g_max, v), g_max)
     return g_int.to(torch.int32), g_sum, g_max
+
+
+def _max(m, v):
+    """`segment_max`'s max: NaN if either side is NaN, and +0 over -0
+    where the two compare equal (`torch.maximum` alone may keep -0)."""
+    tie = (m.view(torch.int32) & v.view(torch.int32)).view(torch.float32)
+    return torch.where(m == v, tie, torch.maximum(m, v))

@@ -39,8 +39,17 @@ def _t(rng, lo, hi, shape):
 
 
 def _equal(want, got):
+    """Equal bit for bit (+0 and -0 apart); a float NaN matches a NaN
+    whatever its payload (the card's adder returns its canonical NaN)."""
     for a, b in zip(want, got):
-        assert a.dtype == b.dtype and torch.equal(a, b.cpu())
+        b = b.cpu()
+        assert a.dtype == b.dtype and a.shape == b.shape
+        if a.dtype.is_floating_point:
+            nan = torch.isnan(a)
+            assert torch.equal(nan, torch.isnan(b))
+            a, b = a.masked_fill(nan, 0), b.masked_fill(nan, 0)
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        assert torch.equal(a, b.cpu())
 
 
 @pytest.mark.gpu
@@ -310,6 +319,128 @@ def test_ae_sync(B, O, N, S, voters, interval):
     got = ae.ae_sync(*[a.cuda() for a in args])
     assert ae.ae_sync.launches == n0 + 1
     _equal(ae.ae_sync(*args), got)
+
+
+def _ae_edge_args(kind, B, O, N, S, interval, seed):
+    """The op's operands at an edge of the kernel: "last_word" (every
+    alive voter in the last 32-node word), "fol_out" (wired followers at
+    -1, -5, N, N + 3 and in range), "neg_tick" (tick + phase below 0) or
+    "random"."""
+    rng = np.random.default_rng(seed)
+    alive = rng.random((B, N)) < 0.8
+    voter = rng.random((B, N)) < 0.6
+    fol = rng.integers(-1, N + 2, (B, O))
+    tick = rng.integers(0, 100, B)
+    phase = rng.integers(0, 9, (B, O))
+    if kind == "last_word":
+        lo = (N - 1) // 32 * 32
+        alive[:, :lo] &= ~voter[:, :lo]
+        alive[:, N - 1] = voter[:, N - 1] = True
+        fol[:, ::3] = N - 1
+    elif kind == "fol_out":
+        fol = rng.choice(np.array([-1, -5, N, N + 3, 0, N - 1]), (B, O))
+    elif kind == "neg_tick":
+        tick[:] = -13
+        phase = rng.integers(-9, 4, (B, O))
+    i32 = lambda a: torch.as_tensor(np.asarray(a).astype(np.int32))
+    return [torch.as_tensor(rng.random((B, O)) < 0.8), i32(fol),
+            _t(rng, 0, 64, (B, O)), _t(rng, 0, 4, (B, O)),
+            _t(rng, -2 ** 31, 2 ** 31 - 1, (B, O)), _t(rng, -1, 40, (B, O)),
+            i32(phase), _t(rng, 0, S, (B, O)), torch.as_tensor(alive),
+            torch.as_tensor(voter), _t(rng, 0, 65, (B, N)),
+            _t(rng, 0, 4, (B, N)), _t(rng, -2 ** 31, 2 ** 31 - 1, (B, N)),
+            _t(rng, 0, S, (B, N)), _t(rng, 1, 20, (B, S, S)), i32(tick),
+            torch.full((B,), interval, dtype=torch.int32)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind,B,O,N,S,interval", [
+    *[("last_word", 2, 40, n, 3, 4) for n in (1, 31, 32, 33, 64, 65, 128,
+                                               129, 1024, 1100)],
+    *[("random", 2, 50, 20, s, 1) for s in (1, 4, 5, 6)],
+    *[("random", 2, o, 9, 2, 1) for o in (1, 31, 32, 33, 129)],
+    ("fol_out", 3, 60, 17, 3, 1), ("neg_tick", 3, 60, 17, 3, 4),
+    ("neg_tick", 3, 60, 17, 3, 3), ("random", 3, 60, 17, 3, 0),
+    ("random", 3, 60, 17, 3, -3), ("last_word", 5, 550, 87, 4, 1),
+    ("random", 5, 550, 87, 6, 1), ("random", 5, 550, 2000, 4, 1)])
+def test_ae_sync_edges(kind, B, O, N, S, interval):
+    """The kernel's edges: N across its 32-node words, across the 128 of
+    its one-trip instance and past the 1024 its lane masks cover, S * S
+    across the 32 entries its lanes preload, O
+    across its warps, wired followers out of range, a negative tick +
+    phase, an interval <= 0."""
+    _need_cuda()
+    args = _ae_edge_args(kind, B, O, N, S, interval, O * 31 + N + S)
+    n0 = ae.ae_sync.launches
+    got = ae.ae_sync(*[a.cuda() for a in args])
+    assert ae.ae_sync.launches == n0 + 1
+    _equal(ae.ae_sync(*args), got)
+
+
+def _group_edge_args(B, G, empty, seed, Fi=20):
+    """Ids over [0, G] (G drops), group `empty` left empty, int lanes
+    over all of int32 (the sums wrap), float lanes with NaN, +-inf, +0
+    and -0 (see `test_torch_kernels.group_edge_case`)."""
+    rng = np.random.default_rng(seed)
+    gids = rng.integers(0, G + 1, B)
+    if empty is not None:
+        gids[gids == empty] = (empty + 1) % G
+    pick = lambda vals: rng.choice(np.array(vals, np.float32), B)
+    normal = (rng.standard_normal(B) * 100.0).astype(np.float32)
+    flt = np.stack([
+        normal, pick([0.0, -0.0]), pick([-0.0, -np.inf, -1.5]),
+        np.where(rng.random(B) < 0.1, np.float32(np.nan), normal[::-1]),
+        pick([-np.inf, np.inf, 1.0]),
+        np.where(rng.random(B) < 0.5, pick([0.0, -0.0]), normal)], 1)
+    return [torch.as_tensor(gids.astype(np.int32)),
+            _t(rng, -2 ** 31, 2 ** 31, (B, Fi)),
+            torch.as_tensor(flt.astype(np.float32))]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,G,empty", [
+    (1, 1, None), (8, 2, None), (9, 3, None), (15, 3, None), (16, 3, 1),
+    (17, 3, None), (32, 2, None), (33, 5, 4), (100, 3, 0), (40, 8, 5),
+    (64, 8, None)])
+def test_group_reduce_edges(B, G, empty):
+    """B across the kernel's 8-member chunks and its two chunk buffers,
+    up to 8 groups, an empty one, NaN / +-inf / +-0 floats, wrapping int
+    sums."""
+    _need_cuda()
+    args = _group_edge_args(B, G, empty, B * 7 + G)
+    n0 = gd.group_reduce.launches
+    got = gd.group_reduce(*[a.cuda() for a in args], n_groups=G)
+    assert gd.group_reduce.launches == n0 + 1
+    _equal(gd.group_reduce(*args, n_groups=G), got)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("gids", [[0, 2, 0, 2, 2], [3, 3, 3, 3, 3]],
+                         ids=["empty_group", "all_dropped"])
+def test_group_reduce_outputs_unfilled(gids):
+    """The op allocates its outputs with `torch.empty`: after tensors of
+    the outputs' sizes were filled with a sentinel and freed, so the
+    allocator likely hands that memory back, every cell still equals
+    the twin (an empty group: 0 sums and a -inf max)."""
+    _need_cuda()
+    G, Fi, Ff = 3, 355, 3
+    rng = np.random.default_rng(7)
+    args = [torch.tensor(gids, dtype=torch.int32),
+            _t(rng, -50, 2 ** 20, (5, Fi)),
+            torch.as_tensor((rng.standard_normal((5, Ff)) * 1e3)
+                            .astype(np.float32))]
+    dev = [a.cuda() for a in args]
+    for _ in range(3):
+        junk = [torch.full((G, Fi), 0x5A5A5A5A, dtype=torch.int32,
+                           device="cuda"),
+                torch.full((G, Ff), 1234.5, device="cuda"),
+                torch.full((G, Ff), 1234.5, device="cuda")]
+        torch.cuda.synchronize()
+        del junk
+        got = gd.group_reduce(*dev, n_groups=G)
+        want = gd.group_reduce(*args, n_groups=G)
+        _equal(want, got)
+        assert not want[0][1].any() and (want[2][1] == -torch.inf).all()
 
 
 @pytest.mark.gpu

@@ -379,6 +379,16 @@ def group_case(seed, B, G, Fi, Ff, *, dropped_frac=0.2):
             (rng.standard_normal((B, Ff)) * 100.0).astype(np.float32))
 
 
+def _same_bits(a, b):
+    """Equal bit for bit (+0 and -0 apart), NaN where the other is NaN
+    (whatever its payload)."""
+    if a.dtype.kind != "f":
+        return np.array_equal(a, b)
+    nan = np.isnan(a)
+    return np.array_equal(nan, np.isnan(b)) and np.array_equal(
+        a.view(np.int32)[~nan], b.view(np.int32)[~nan])
+
+
 def _check_group(gids, int_mat, flt_mat, G):
     j = [jnp.asarray(a) for a in (gids, int_mat, flt_mat)]
     t = [torch.as_tensor(a) for a in (gids, int_mat, flt_mat)]
@@ -391,7 +401,7 @@ def _check_group(gids, int_mat, flt_mat, G):
                               other):
             b = b.numpy() if isinstance(b, torch.Tensor) else np.asarray(b)
             assert a.dtype == b.dtype and a.shape == b.shape, name
-            assert np.array_equal(a, b), (name, G)
+            assert _same_bits(a, b), (name, G)
     return outs[2]
 
 
@@ -402,6 +412,40 @@ def _check_group(gids, int_mat, flt_mat, G):
     (3, 9, 4, 150, 1, 0.0)])
 def test_group_reduce_bit_equal(seed, B, G, Fi, Ff, dropped):
     _check_group(*group_case(seed, B, G, Fi, Ff, dropped_frac=dropped), G)
+
+
+def group_edge_case(seed, B, G, *, Fi=20, empty=None):
+    """Ids over [0, G] (G drops), group `empty` left empty; int lanes
+    over all of int32, so the sums wrap; six float lanes: general
+    values, only +0 and -0 (the max settles ties of zeros), -0 / -inf /
+    -1.5, values with NaN, -inf / +inf / 1 (inf - inf is NaN), and
+    values with +0 and -0."""
+    rng = np.random.default_rng(seed)
+    gids = rng.integers(0, G + 1, B).astype(np.int32)
+    if empty is not None:
+        gids[gids == empty] = (empty + 1) % G
+    pick = lambda vals: rng.choice(np.array(vals, np.float32), B)
+    normal = (rng.standard_normal(B) * 100.0).astype(np.float32)
+    flt = np.stack([
+        normal, pick([0.0, -0.0]), pick([-0.0, -np.inf, -1.5]),
+        np.where(rng.random(B) < 0.1, np.float32(np.nan), normal[::-1]),
+        pick([-np.inf, np.inf, 1.0]),
+        np.where(rng.random(B) < 0.5, pick([0.0, -0.0]), normal)], 1)
+    return (gids, rng.integers(-2 ** 31, 2 ** 31, (B, Fi)).astype(np.int32),
+            flt.astype(np.float32))
+
+
+@pytest.mark.parametrize("B,G,empty", [
+    (1, 1, None), (15, 3, None), (16, 3, 1), (17, 3, None), (32, 2, None),
+    (33, 5, 4), (100, 3, 0), (40, 8, 5), (64, 8, None)])
+def test_group_reduce_edges(B, G, empty):
+    """B across the CUDA kernel's 8-member chunks; up to 8 groups, some
+    empty; NaN, +-inf, +0 and -0 in the float lanes; int sums that wrap:
+    the twin equals the JAX op and ref bit for bit."""
+    gids, im, fm = group_edge_case(B * 7 + G, B, G, empty=empty)
+    g_int, _, g_max = _check_group(gids, im, fm, G)
+    if empty is not None:
+        assert not g_int[empty].any() and (g_max[empty] == -np.inf).all()
 
 
 def test_group_reduce_empty_and_all_dropped():
@@ -518,6 +562,49 @@ def _check_ae(case):
 def test_ae_sync_bit_equal(seed, O, N, S, voter_frac, interval):
     _check_ae(ae_case(seed, O, N, S, voter_frac=voter_frac,
                       interval=interval))
+
+
+def ae_edge_case(kind, seed, O, N, S, interval):
+    """An `ae_case` at an edge of the CUDA kernel: "last_word" (the
+    alive voters all in the last 32-node word, so the first one is
+    there), "fol_out" (wired followers at -1, -5, N, N + 3 and in
+    range), "neg_tick" (tick + ae_phase below 0) or "random"."""
+    case = ae_case(seed, O, N, S, interval=interval)
+    rng = np.random.default_rng(seed + 1)
+    if kind == "last_word":
+        lo = (N - 1) // 32 * 32
+        case["alive"][:lo] &= ~case["is_voter"][:lo]    # dead voters only
+        case["alive"][N - 1] = case["is_voter"][N - 1] = True
+        case["dobs_fol"][::3] = N - 1
+    elif kind == "fol_out":
+        case["dobs_fol"] = rng.choice(np.array([-1, -5, N, N + 3, 0, N - 1],
+                                               np.int32), O)
+    elif kind == "neg_tick":
+        case["tick"] = np.int32(-13)
+        case["ae_phase"] = rng.integers(-9, 4, O).astype(np.int32)
+    return case
+
+
+AE_EDGES = ([("last_word", 40, n, 3, 4) for n in (1, 31, 32, 33, 64, 65,
+                                                  128, 129, 1024, 1100)] +
+            [("random", 50, 20, s, 1) for s in (1, 4, 5, 6)] +
+            [("random", o, 9, 2, 1) for o in (1, 31, 32, 33, 129)] +
+            [("fol_out", 60, 17, 3, 1), ("neg_tick", 60, 17, 3, 4),
+             ("neg_tick", 60, 17, 3, 3), ("random", 60, 17, 3, 0),
+             ("random", 60, 17, 3, -3)])
+
+
+@pytest.mark.parametrize("kind,O,N,S,interval", AE_EDGES,
+                         ids=lambda v: str(v))
+def test_ae_sync_edges(kind, O, N, S, interval):
+    """The CUDA kernel's edges: N across its 32-node words (the first
+    alive voter in the last one), across the 128 of its one-trip
+    instance and past the 1024 its lane masks cover, S * S across the 32
+    entries its lanes preload, O across its warps,
+    wired followers out of range, a negative tick + phase (floor mod)
+    and an interval <= 0 (read as 1): the twin equals the JAX op and ref
+    bit for bit."""
+    _check_ae(ae_edge_case(kind, O * 31 + N + S, O, N, S, interval))
 
 
 def test_ae_sync_no_voter_and_dead_observers():
