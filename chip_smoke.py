@@ -8,6 +8,8 @@
                                      # serve path, smollm-360m and
                                      # mamba2-130m (device busy share,
                                      # kernels by name)
+    python3 chip_smoke.py --phase10 N  # phases 1, 8, 9, then phase 10's
+                                     # float32 smollm check N times
 
 Phases, each fatal on failure:
 
@@ -109,7 +111,11 @@ Phases, each fatal on failure:
    tokens within the tolerance band of the CPU's best; in bfloat16 at
    most a share SERVE_BF16_SHARE of the logits outside 3e-2 and none
    beyond SERVE_BF16_MAX (random weights make attention too peaked for a
-   bf16 rounding not to flip some rows);
+   bf16 rounding not to flip some rows); every `decode_attention` ticket
+   reads 0 before the first decode launch and after each one; a float32
+   failure first prints the rows outside the tolerance (count, largest
+   difference, the CPU's top-2 margin) and two reruns of the card side,
+   each compared bit for bit with the failing run and with the CPU;
 11. the same for mamba2-130m cut to 2 layers: B=2, a 300-token prefill
    (one full chunk of 256 and a ragged one) and 8 decode steps; float32
    within SSM_F32_TOL (2e-4), bfloat16 gated by SSM_BF16_SHARE /
@@ -129,7 +135,25 @@ Phases, each fatal on failure:
    --profile, the mamba2 prefill's device time against the 33.10 ms it
    took with the scalar scan kernel (PERF.md) and ssd_scan's share of
    it;
-14. a `kernels` JSON line, the card line, and the last line
+14. the host services over the sim at the paper's cluster size, each
+   run's launches of the six consensus kernels counted from 0 (per-tick
+   kernels once a tick, ae_sync once a tick with the rack, group_reduce
+   once an epoch with the group) and each run held against the CPU from
+   the same state and draws (ints exact, floats rtol 1e-5): the
+   trace-market fleet of `perf_faults.py` (both bundled traces x W in
+   {0, 25} x no policy / a hazard-aware bid policy with bid_on_trace, 8
+   managed members, 2 epochs, bids printed per epoch); the open-loop
+   system fleet of `perf_serving.py` (`system_specs` under a diurnal +
+   flash-crowd plan with Zipfian keys: BW-Raft with the 550-slot rack,
+   the AWS trace and a bid policy, Raft, 2 Multi-Raft shards; 2 epochs;
+   then the tick's sync-free check); a managed `BWRaftSim` on the AWS
+   trace with the predictor calibrated on the Google evictions (3
+   epochs); the three chaos drills of `perf_faults.py` (120 ticks,
+   spot_bid 10, recorder on), whose card `ChaosReport` must equal the
+   CPU's, pass `invariants.check_all`, replay the probe's leader
+   timeline from the trace, and write a Perfetto file; epoch walls and
+   (member-)ticks/s printed;
+15. a `kernels` JSON line, the card line, and the last line
    `{"ok": true, "device": {...}}`.
 
 Exits non-zero, printing no result, without a CUDA device or outside a
@@ -1831,7 +1855,8 @@ def run_serve_card_vs_cpu(dev, dtype, arch="smollm-360m", layers=2, B=2,
     c_cpu = lm.alloc_caches(cfg, B, S + steps, dtype, cpu)
     c_gpu = lm.alloc_caches(cfg, B, S + steps, dtype, dev)
     max_err, n_out, n_all, n_cmp, n_tok = 0.0, 0, 0, 0, 0
-    with torch.no_grad():
+    fed = []                          # the CPU's greedy tokens, fed back
+    with torch.no_grad(), decode_ticket_check(dev) as tickets:
         l_cpu, _ = lm.forward(m_cpu, toks, mode="prefill", caches=c_cpu)
         l_gpu, _ = lm.forward(m_gpu, toks.to(dev), mode="prefill",
                               caches=c_gpu)
@@ -1846,6 +1871,8 @@ def run_serve_card_vs_cpu(dev, dtype, arch="smollm-360m", layers=2, B=2,
             n_all += b.numel()
             max_err = max(max_err, (a - b).abs().max().item())
             if name == "float32" and n_out:
+                serve_f32_diagnosis(where, m_gpu, cfg, dtype, dev, toks,
+                                    fed, step, a, b, tol, steps)
                 raise AssertionError(f"{where}: {n_out} logits outside {tol}")
             if name == "bfloat16" and max_err > bf16_max:
                 raise AssertionError(f"{where}: max |card - CPU| {max_err:.4g}"
@@ -1864,6 +1891,7 @@ def run_serve_card_vs_cpu(dev, dtype, arch="smollm-360m", layers=2, B=2,
             if step == steps:
                 break
             nxt = g_cpu.to(torch.int32)[:, None]
+            fed.append(nxt)
             l_cpu, _ = lm.forward(m_cpu, nxt, mode="decode", caches=c_cpu,
                                   cache_len=pos)
             l_gpu, _ = lm.forward(m_gpu, nxt.to(dev), mode="decode",
@@ -1875,11 +1903,102 @@ def run_serve_card_vs_cpu(dev, dtype, arch="smollm-360m", layers=2, B=2,
         f"logits within {tol} (share outside {share:.3g}), max |card - CPU| "
         f"{max_err:.3g}; greedy tokens equal on {n_tok}/{B * (steps + 1)} "
         f"positions, {n_cmp} of them with a top-2 margin over {2 * tol} "
-        f"(1 + |top|)")
+        f"(1 + |top|); decode tickets {json.dumps(tickets)}")
     if name == "bfloat16" and share > bf16_share:
         raise AssertionError(f"serve card-vs-CPU {arch} bfloat16: {n_out} "
                              f"of {n_all} logits outside {tol}, a share of "
                              f"{share:.3g} > {bf16_share}")
+
+
+@contextlib.contextmanager
+def decode_ticket_check(dev):
+    """Phase 10's check of `decode_attention`'s split scratch (ROADMAP.md
+    §3 F4): every per-(batch row, KV head) ticket of every scratch on
+    `dev` must read 0 before the first decode launch (what phases 8-9
+    left) and after each launch, which this wraps (the kernel's path is
+    unchanged).  Yields counts: launches checked, launches that used the
+    split scratch."""
+    import torch
+    from repro_torch.kernels.decode_attention import kernel as DK
+
+    def dirty():
+        torch.cuda.synchronize(dev)
+        return {str(k): int((ctr != 0).sum())
+                for k, (_, ctr) in DK._SCRATCH.items()
+                if ctr is not None and ctr.device == dev and
+                bool((ctr != 0).any())}
+
+    stats = {"launches": 0, "split": 0}
+    left = dirty()
+    if left:
+        raise AssertionError(f"decode_attention tickets non-zero before "
+                             f"phase 10's first decode launch: {left}")
+    orig = DK.decode_attention
+
+    def checked(q, k_cache, v_cache, cache_len, out, nsplit=None):
+        r = orig(q, k_cache, v_cache, cache_len, out, nsplit)
+        stats["launches"] += 1
+        T, KV = k_cache.shape[1], k_cache.shape[2]
+        B, hd = q.shape[0], q.shape[3]
+        blocks = DK.tc_blocks_per_sm(q.device, hd) if r == "tensor_core" \
+            else 1
+        if (nsplit or DK.n_splits(B, T, KV, DK.sm_count(q.device),
+                                  blocks)) > 1:
+            stats["split"] += 1
+        bad = dirty()
+        if bad:
+            raise AssertionError(f"decode_attention launch "
+                                 f"{stats['launches']} left tickets "
+                                 f"non-zero: {bad}")
+        return r
+
+    DK.decode_attention = checked
+    try:
+        yield stats
+    finally:
+        DK.decode_attention = orig
+
+
+def serve_f32_diagnosis(where, m_gpu, cfg, dtype, dev, toks, fed, step,
+                        a, b, tol, steps):
+    """On a float32 card-vs-CPU failure (ROADMAP.md §3 F4), before the
+    phase raises: the (step, batch row, position) rows outside the
+    tolerance, with each row's count, largest difference and the CPU's
+    top-2 logit margin; then the card side run twice more from the same
+    weights and tokens, each compared bit for bit with the failing run
+    and against the CPU."""
+    import torch
+    from repro_torch.models import lm
+    bad = (a - b).abs() > tol + tol * b.abs()            # (B, P, V)
+    rows = bad.any(-1).nonzero().tolist()
+    log(f"F4 diagnosis, {where}: {int(bad.sum())} logits outside {tol} on "
+        f"{len(rows)} of {bad.shape[0] * bad.shape[1]} rows")
+    for bi, p in rows[:32]:
+        top2 = b[bi, p].topk(2).values
+        log(f"  step {step} row {bi} position {p}: "
+            f"{int(bad[bi, p].sum())} logits out, largest |card - CPU| "
+            f"{(a[bi, p] - b[bi, p]).abs().max().item():.6g}, CPU top-2 "
+            f"margin {(top2[0] - top2[1]).item():.6g}, card argmax "
+            f"{int(a[bi, p].argmax())} vs CPU {int(b[bi, p].argmax())}")
+    B, S = toks.shape
+    for rerun in range(2):
+        c = lm.alloc_caches(cfg, B, S + steps, dtype, dev)
+        with torch.no_grad():
+            l, _ = lm.forward(m_gpu, toks.to(dev), mode="prefill",
+                              caches=c)
+            pos = torch.full((B,), S, dtype=torch.int32, device=dev)
+            for nxt in fed[:step]:
+                l, _ = lm.forward(m_gpu, nxt.to(dev), mode="decode",
+                                  caches=c, cache_len=pos)
+                pos = pos + 1
+        r = l.float().cpu()
+        n_diff = int((r != a).sum())
+        n_cpu = int(((r - b).abs() > tol + tol * b.abs()).sum())
+        same = "equal to" if n_diff == 0 else "differs from"
+        log(f"  card rerun {rerun + 1}: {same} the failing run bit for bit "
+            f"({n_diff} logits differ), "
+            f"{n_cpu} logits outside {tol} of the CPU, largest "
+            f"{(r - b).abs().max().item():.6g}")
 
 
 def run_serve_path(dev, arch="smollm-360m"):
@@ -2049,12 +2168,283 @@ def run_serve_profile(model, dev, steps=4):
                 f"kernel: 18.69 ms)")
 
 
+# --------------------------------------------------------------------- #
+# phase 14: the host services over the sim, at the paper's cluster size
+# --------------------------------------------------------------------- #
+SERVICES_EPOCHS = 2
+CHAOS_TICKS = 120
+
+
+def services_launches(tag, counts, want):
+    """Print one run's launches of rows 1-6 and hold them to `want`."""
+    got = {k: counts[k] for k in RAFT}
+    log(f"{tag} launches: {json.dumps(got)}")
+    for name, n in got.items():
+        if n != want.get(name, 0):
+            raise AssertionError(f"{tag}: {name} launched {n} times, "
+                                 f"expected {want.get(name, 0)}")
+    return got
+
+
+def run_services_fleet(tag, dev, specs, want, bids=False):
+    """`SERVICES_EPOCHS` epochs of a fleet on the card, counts set to 0
+    just before and read just after, then one epoch card against CPU."""
+    import torch
+    from repro_torch import kernels as K_
+    from repro_torch.core.fleet import FleetSim
+    fleet = FleetSim(specs, device=dev)
+    B, T = fleet.shapes.B, fleet.shapes.T
+    log(f"{tag}: {fleet.shapes}, widths trace {fleet.trace_ticks} arrival "
+        f"{fleet.arrival_ticks} fault {fleet.fault_ticks}")
+    wall = []
+    K_.reset_launch_counts()
+    for e in range(SERVICES_EPOCHS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        reps = fleet.run_epoch()      # ends in the digest fetch (a sync)
+        wall.append((time.perf_counter() - t0) * 1e3)
+        for i, rep in enumerate(reps):
+            check_report(rep, f"{tag} epoch {e} member {i}")
+        log(f"{tag} epoch {e}: {wall[-1]:.1f} ms; writes committed "
+            f"{[r.writes_committed for r in reps]}; killed "
+            f"{[r.killed for r in reps]}; warned "
+            f"{[r.n_warned for r in reps]}")
+        if bids:
+            b = fleet._cfg_c["spot_bid"].cpu().numpy()
+            log(f"{tag} bids after epoch {e}: "
+                f"{[[round(float(x), 6) for x in row] for row in b]}")
+    counts = services_launches(tag, K_.launch_counts(), want)
+    med = statistics.median(wall)
+    log(f"{tag} epoch wall ms: {[round(w, 1) for w in wall]}, median "
+        f"{med:.1f}; member-ticks/s {B * T * 1e3 / med:.1f}")
+    run_card_vs_cpu(tag, fleet.state, [m.static for m in fleet.members],
+                    fleet._cfg_c, T, fleet._gids, fleet.n_groups)
+    return fleet, counts, wall
+
+
+def chaos_drills(cfg):
+    """`perf_faults.py`'s three canonical drills: (schedule, W, node
+    that must survive or None)."""
+    from repro_torch.market import kill_nodes, mass_kill, \
+        warning_then_reprieve
+    N, T = cfg.max_nodes, CHAOS_TICKS
+    return {
+        "leader_kill": (kill_nodes([0], 20, n_nodes=N, ticks=T), 0, None),
+        "mass_kill_warned": (mass_kill(30, n_nodes=N, ticks=T,
+                                       spare=(0, 1, 2), warning_ticks=3),
+                             3, None),
+        "warning_then_reprieve": (warning_then_reprieve(
+            [4], 20, n_nodes=N, ticks=T, warning_ticks=8), 8, 4),
+    }
+
+
+def compare_chaos(tag, a, b):
+    """Card and CPU ChaosReports: every field, snapshot and event."""
+    import dataclasses
+    import numpy as np
+    da, db = dataclasses.asdict(a), dataclasses.asdict(b)
+    for k in ("trace", "events", "perfetto_path"):
+        da.pop(k), db.pop(k)
+    if da != db:
+        raise AssertionError(f"{tag}: card report {da} != CPU report {db}")
+    if len(a.trace) != len(b.trace):
+        raise AssertionError(f"{tag}: {len(a.trace)} != {len(b.trace)} "
+                             f"snapshots")
+    for i, (x, y) in enumerate(zip(a.trace, b.trace)):
+        for k in x:
+            if not np.array_equal(x[k], y[k]):
+                raise AssertionError(f"{tag}: snapshot {i} differs at {k}")
+    if [dataclasses.astuple(e) for e in a.events] != \
+            [dataclasses.astuple(e) for e in b.events]:
+        raise AssertionError(f"{tag}: card and CPU events differ")
+
+
+def run_host_services(dev, cfg):
+    """The host services over the sim at the paper's cluster size, each
+    run's launches of rows 1-6 counted from 0 and held to the ticks it
+    ran, each run also held against the CPU (ints exact, floats rtol
+    1e-5):
+
+    - the trace-market fleet of `perf_faults.py`: both bundled traces x
+      W in {0, 25} x (no policy, a hazard-aware bid policy with
+      `bid_on_trace`), 8 managed members, 2 epochs;
+    - the open-loop system fleet of `perf_serving.py`: `system_specs`
+      under a diurnal + flash-crowd plan with Zipfian keys, BW-Raft with
+      the 550-slot digest rack, the AWS trace and a bid policy, Raft and
+      2 Multi-Raft shards, 2 epochs, then the tick's sync-free check;
+    - a managed `BWRaftSim` on the AWS trace with the predictor
+      calibrated on the Google evictions, 3 epochs;
+    - the three chaos drills of `perf_faults.py` through `run_chaos`
+      (120 ticks, market silenced, recorder on): card report = CPU
+      report, safety checks, trace-replayed leader timeline, a Perfetto
+      file."""
+    import tempfile
+    import torch
+    from repro_torch import kernels as K_
+    from repro_torch.core import state as SM
+    from repro_torch.core.draws import CpuDraws, fleet_epoch
+    from repro_torch.core.fleet import MemberSpec, system_specs
+    from repro_torch.core.runtime import BWRaftSim
+    from repro_torch.market import (HazardAwareBid, calibrate_predictor,
+                                    load, run_chaos)
+    from repro_torch.workload import (DiurnalRate, FlashCrowd, OpenLoop,
+                                      ZipfianKeys)
+    T = cfg.period_ticks
+    E = SERVICES_EPOCHS
+    ticks = E * T
+    per_tick = lambda n, **kw: dict({k: n for k in PER_TICK}, **kw)
+    out, walls = {}, {}
+
+    specs = []
+    for tname in ("aws-us-east", "google-evict"):
+        trace = load(tname, ticks=ticks)
+        mean = trace.fit_to(cfg.num_sites, ticks).price.mean(axis=1)
+        for w in (0, 25):
+            for policy in (None, HazardAwareBid(mean_price=mean,
+                                                window_ticks=T)):
+                specs.append(MemberSpec(
+                    cfg=cfg, write_rate=8.0, read_rate=32.0,
+                    seed=len(specs), market="trace", trace=trace,
+                    warning_ticks=w, bid_policy=policy,
+                    bid_on_trace=policy is not None))
+    _, out["trace_fleet"], walls["trace_fleet"] = run_services_fleet(
+        "services trace fleet", dev, specs, per_tick(ticks), bids=True)
+
+    aws = load("aws-us-east", ticks=ticks)
+    plan = OpenLoop(write=DiurnalRate(8.0, amplitude=0.5),
+                    read=FlashCrowd(DiurnalRate(32.0, amplitude=0.5),
+                                    mult=4.0, every_ticks=50,
+                                    burst_ticks=5),
+                    ticks=2 * T)
+    specs = system_specs(
+        cfg, write_rate=8.0, read_rate=32.0, seed=0, shards=2, group_id=0,
+        market="trace", trace=aws, arrivals=plan, keypop=ZipfianKeys(1.1),
+        bid_policy=HazardAwareBid(
+            mean_price=aws.fit_to(cfg.num_sites, ticks).price.mean(axis=1),
+            window_ticks=T),
+        n_observers=550, staleness_bound=12, ae_interval=4)
+    fleet, out["open_loop_fleet"], walls["open_loop_fleet"] = \
+        run_services_fleet("services open-loop fleet", dev, specs,
+                           per_tick(ticks, ae_sync=ticks, group_reduce=E),
+                           bids=True)
+    g = fleet.group_reports[0][-1]
+    obs = fleet.members[0].reports[-1]
+    log(f"services open-loop fleet: multiraft group writes committed "
+        f"{g.writes_committed}, 2PC prepares {g.two_pc_prepares}; digest "
+        f"rack obs_reads_served {obs.obs_reads_served}, obs_stale_p99 "
+        f"{obs.obs_stale_p99}")
+    if g.writes_committed <= 0 or obs.obs_reads_served <= 0:
+        raise AssertionError("the open-loop fleet's group or rack did "
+                             "nothing")
+    check_tick_sync_free(fleet.state, fleet._bstatic, fleet._cfg_c,
+                         fleet_epoch(fleet.draws, 3, fleet.state,
+                                     fleet._cfg_c), 3)
+
+    predictor, crep = calibrate_predictor(load("google-evict", ticks=1200),
+                                          T)
+    log(f"services solo: predictor alpha {crep.alpha}, mae {crep.mae:.4g}, "
+        f"rates {[round(float(r), 5) for r in predictor.predict()]}")
+    sim = BWRaftSim(cfg, seed=0, market="trace",
+                    trace=load("aws-us-east", ticks=3 * T),
+                    predictor=predictor, device=dev)
+    wall = []
+    K_.reset_launch_counts()
+    for e in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rep = sim.run_epoch()
+        wall.append((time.perf_counter() - t0) * 1e3)
+        check_report(rep, f"services solo epoch {e}")
+        log(f"services solo epoch {e}: {wall[-1]:.1f} ms; writes committed "
+            f"{rep.writes_committed}, killed {rep.killed}, secretaries "
+            f"{rep.n_secretaries}, observers {rep.n_observers}")
+    out["solo"] = services_launches("services solo", K_.launch_counts(),
+                                    per_tick(3 * T))
+    walls["solo"] = wall
+    med = statistics.median(wall)
+    log(f"services solo epoch wall ms: {[round(w, 1) for w in wall]}, "
+        f"median {med:.1f}; ticks/s {T * 1e3 / med:.1f}")
+    run_card_vs_cpu("services solo", SM.batch1(sim.state), [sim.static],
+                    SM.batch1(sim.cfg_c), T)
+
+    cpu = torch.device("cpu")
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, (faults, w, survivor) in chaos_drills(cfg).items():
+            kw = dict(warning_ticks=w, ticks=CHAOS_TICKS, seed=0,
+                      spot_bid=10.0, trace_on=True, check=False)
+            K_.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            card = run_chaos(cfg, faults, device=dev,
+                             draws=CpuDraws(0, dev),
+                             trace_out=f"{tmp}/{name}.json", **kw)
+            wall = (time.perf_counter() - t0) * 1e3
+            out[name] = services_launches(f"services chaos {name}",
+                                          K_.launch_counts(),
+                                          per_tick(CHAOS_TICKS))
+            walls[name] = [wall]
+            t0 = time.perf_counter()
+            host = run_chaos(cfg, faults, device=cpu, **kw)
+            cpu_ms = (time.perf_counter() - t0) * 1e3
+            compare_chaos(f"services chaos {name}", card, host)
+            if card.safety_error is not None:
+                raise AssertionError(f"chaos {name}: {card.safety_error}")
+            if not card.trace_leader_match:
+                raise AssertionError(f"chaos {name}: the trace-replayed "
+                                     f"leader timeline misses the probe")
+            if survivor is not None and not all(
+                    s["alive"][survivor] for s in card.trace):
+                raise AssertionError(f"chaos {name}: node {survivor} died")
+            size = Path(card.perfetto_path).stat().st_size
+            log(f"services chaos {name}: W={w}, first kill tick "
+                f"{card.first_kill_tick}, killed {card.killed_total}, "
+                f"recovery {card.recovery_ticks} ticks, max leaderless "
+                f"span {card.max_leaderless_span}, leader uptime "
+                f"{card.leader_uptime:.4f}, alive at end {card.alive_end}, "
+                f"{len(card.events)} events (dropped "
+                f"{json.dumps(card.events_dropped)}), Perfetto {size} "
+                f"bytes; equal to the CPU's report; card {wall:.0f} ms "
+                f"({CHAOS_TICKS * 1e3 / wall:.1f} ticks/s with the "
+                f"per-tick probe, snapshot and drain), CPU {cpu_ms:.0f} ms")
+            del card, host
+    total = {k: sum(c[k] for c in out.values()) for k in RAFT}
+    log(f"services launches over the phase: {json.dumps(total)}")
+    for k, n in total.items():
+        if n <= 0:
+            raise AssertionError(f"{k} never launched in the services "
+                                 f"phase")
+    return out, walls
+
+
+def repeat_phase10(dev, n) -> int:
+    """Phases 8-9 once, then phase 10's float32 smollm check `n` times in
+    this process (ROADMAP.md §3 F4): each failure prints its diagnosis;
+    the summary line counts them.  Exits 1 if any run failed."""
+    import torch
+    run_attention_checks(dev, long_shapes=False)
+    run_ssd_checks(dev)
+    failed = []
+    for i in range(n):
+        try:
+            run_serve_card_vs_cpu(dev, torch.float32)
+        except AssertionError as exc:
+            failed.append(i)
+            log(f"phase 10 run {i}: FAILED: {exc}")
+    log(f"phase 10 float32 repeats: {n} runs, {len(failed)} failed "
+        f"{failed}; {card_line()}")
+    return 1 if failed else 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
                     help="also profile 10 ticks of the solo and fleet "
                     "paths and a prefill and 4 decode steps of each "
                     "serve path")
+    ap.add_argument("--phase10", type=int, default=0, metavar="N",
+                    help="build the kernels, run phases 8-9, then phase "
+                    "10's float32 smollm check N times in this process "
+                    "(ROADMAP.md F4), print how many failed and exit")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -2097,6 +2487,8 @@ def main() -> int:
                                  f"{fn}")
     check_barrier_free(libs)
     dev = torch.device("cuda")
+    if args.phase10:
+        return repeat_phase10(dev, args.phase10)
     static = SM.build_static(CONFIG)
     fleet_shapes = dict(O=50 * rack_voters(CONFIG), S=CONFIG.num_sites,
                         Fi=group_digest_width(CONFIG), G=1)
@@ -2125,6 +2517,9 @@ def main() -> int:
     check_serve_sync_free(model, dev)
     mamba, mamba_counts, _ = run_serve_path(dev, "mamba2-130m")
     check_serve_sync_free(mamba, dev)
+    t0 = time.perf_counter()
+    services, _ = run_host_services(dev, CONFIG)
+    log(f"services phase {time.perf_counter() - t0:.1f} s")
     if args.profile:
         b = sim.draws.epoch(10, sim.state, sim.cfg_c)
         run_profile("solo", SM.batch1(sim.state), sim.static_t,
@@ -2145,7 +2540,9 @@ def main() -> int:
             "bound_ms": bound_ms(r["bytes"], r["ops"]),
             "bound_by": bound_by(r["bytes"], r["ops"]),
             "library_ms": r["library_ms"],
-            "launches_solo": solo_counts[name], "floor_ms": floor}
+            "launches_solo": solo_counts[name], "floor_ms": floor,
+            "launches_services": {run: c[name]
+                                  for run, c in services.items()}}
         if "solo" in results[name]:
             s = results[name]["solo"]
             entry.update(ms_solo=s["ms"], plain_ms_solo=s["plain_ms"],

@@ -25,9 +25,11 @@ source per member into `(T, B, ...)`, so each member follows the key
 schedule a solo simulator with its seed would follow, and `row(bundle,
 t)` gives tick t's `(B, ...)` draws.
 `TorchDraws` makes bundles with a seeded `torch.Generator` on the
-state's device; the tests pass a source that replays the JAX key
-schedule instead.  The price path is chained from the state's current
-price through `market.synthetic.epoch_walk_prices`.
+state's device; `CpuDraws` makes them on the CPU and moves them to the
+card, so a card run and a CPU run of one seed see the same draws; the
+tests pass a source that replays the JAX key schedule instead.  The
+price path is chained from the state's current price through
+`market.synthetic.epoch_walk_prices`.
 """
 from __future__ import annotations
 
@@ -110,3 +112,29 @@ class TorchDraws:
 
     def tick(self, state, cfg_c) -> Dict[str, torch.Tensor]:
         return self.epoch(1, state, cfg_c)
+
+
+class CpuDraws:
+    """A `TorchDraws(seed)` on the CPU for a state on another device: the
+    bundle is made from CPU copies of the few leaves the draws read and
+    moved to `device`, so a card run and a CPU run from one seed see the
+    same draws (a card-vs-CPU comparison's source)."""
+
+    KEYS = ("role", "kv", "spot_price", "dobs_alive", "tick")
+
+    def __init__(self, seed: int, device):
+        self.src = TorchDraws(seed, torch.device("cpu"))
+        self.device = torch.device(device)
+
+    def _moved(self, bundle: Dict[str, torch.Tensor]):
+        return {k: v.to(self.device) for k, v in bundle.items()}
+
+    def _cpu(self, state, cfg_c):
+        return ({k: state[k].cpu() for k in self.KEYS},
+                {k: v.cpu() for k, v in cfg_c.items()})
+
+    def epoch(self, T: int, state, cfg_c) -> Dict[str, torch.Tensor]:
+        return self._moved(self.src.epoch(T, *self._cpu(state, cfg_c)))
+
+    def tick(self, state, cfg_c) -> Dict[str, torch.Tensor]:
+        return self._moved(self.src.tick(*self._cpu(state, cfg_c)))

@@ -30,13 +30,18 @@ of ONE Multi-Raft system.  After each epoch their digests reduce to one
 digest per group on the device through the `group_digest` kernel
 (`_group_digest`), and `group_reports` serves them as `MultiRaftReport`s.
 
+Host services (DESIGN.md §10-§12): a member's market trace, open-loop
+plan, Zipfian keys and fault schedule ride in its `cfg_c` rows; the
+trace, arrival and fault arrays share fleet-wide widths (the longest
+member's), shorter ones wrapping at their own length, so members of
+different widths stack.  A member's `bid_policy` rewrites its
+`spot_bid` row after every epoch.
+
 Differences from the JAX fleet: the `pipeline="host"` reference path
-(the frozen PR-1 marshalling, ROADMAP.md item 11) and the `MemberSpec`
-fields whose objects the port's `BWRaftSim` does not take yet (a trace
-market, open-loop arrivals, Zipfian keys, fault schedules, bid policies:
-ROADMAP.md item 8) raise `NotImplementedError`.  PyTorch compiles
-nothing, so `compile_count` and `total_compile_count`, which count the
-JAX fleet's jit caches, have no counterpart here.
+(the frozen PR-1 marshalling, ROADMAP.md item 11) raises
+`NotImplementedError`.  PyTorch compiles nothing, so `compile_count`
+and `total_compile_count`, which count the JAX fleet's jit caches, have
+no counterpart here.
 """
 from __future__ import annotations
 
@@ -67,8 +72,6 @@ _SWEEP_AXES = ("mode", "write_rate", "read_rate", "phi", "seed",
                "n_observers", "staleness_bound", "ae_interval",
                "trace_on")
 
-_ITEM8 = ("is not ported yet: ROADMAP.md, 'Modules to port', item 8 "
-          "(host services over the sim)")
 _ITEM11 = ("FleetSim(pipeline='host'), the frozen PR-1 reference path, is "
            "not ported: ROADMAP.md, 'Modules to port', item 11")
 
@@ -85,8 +88,9 @@ class MemberSpec:
     fraction χ, `two_pc_ticks` the 2PC round trip (None: derived from the
     topology by `multiraft.two_pc_penalty`).  `n_observers` attaches a
     digest-tier rack (DESIGN.md §13); members pad to the fleet's largest
-    O.  `market="trace"`/`trace`, `arrivals`, `keypop`, `faults` and
-    `bid_policy` raise `NotImplementedError` (ROADMAP.md item 8)."""
+    O.  `market="trace"`/`trace` (DESIGN.md §10), `arrivals`/`keypop`
+    (§11), `faults`, `warning_ticks`, `bid_on_trace` and `bid_policy`
+    (§12) are the host services, as in the JAX fleet."""
     cfg: ClusterConfig
     mode: str = "bwraft"
     write_rate: float = 8.0
@@ -194,22 +198,18 @@ def _nbytes(tree: Dict) -> int:
                for v in tree.values())
 
 
-def _check_ported(spec: MemberSpec) -> None:
-    if spec.market != "process" or spec.trace is not None:
-        raise NotImplementedError(f"MemberSpec market='trace' {_ITEM8}")
-    for name in ("arrivals", "keypop", "faults", "bid_policy"):
-        if getattr(spec, name) is not None:
-            raise NotImplementedError(f"MemberSpec {name}= {_ITEM8}")
-
-
 class _Member:
     """Host-side bookkeeping for one fleet slot: its padded static
-    tables, initial state, `cfg_c`, controller and reports."""
+    tables, initial state, `cfg_c`, controller and reports.
+    `trace_ticks`, `arrival_ticks` and `fault_ticks` are the fleet-wide
+    widths of the market-trace, arrival-curve and fault-schedule
+    arrays (DESIGN.md §10-§12)."""
 
-    def __init__(self, spec: MemberSpec, shapes: FleetShapes, device):
+    def __init__(self, spec: MemberSpec, shapes: FleetShapes, device,
+                 trace_ticks: int = 1, arrival_ticks: int = 1,
+                 fault_ticks: int = 1):
         if spec.mode not in ("bwraft", "raft"):
             raise ValueError(f"mode={spec.mode!r}")
-        _check_ported(spec)
         cfg = spec.cfg
         if spec.budget_per_period is not None:
             cfg = dataclasses.replace(
@@ -251,8 +251,11 @@ class _Member:
             pad_keys=self.pads["pad_keys"],
             spot_price_vol=spec.spot_price_vol,
             cross_shard_frac=spec.cross_shard_frac, two_pc_ticks=two_pc,
-            warning_ticks=spec.warning_ticks,
+            market=spec.market, trace=spec.trace, trace_ticks=trace_ticks,
+            arrivals=spec.arrivals, arrival_ticks=arrival_ticks,
+            keypop=spec.keypop, warning_ticks=spec.warning_ticks,
             bid_on_trace=spec.bid_on_trace,
+            faults=spec.faults, fault_ticks=fault_ticks,
             n_observers=spec.n_observers,
             pad_observers=self.pads["pad_observers"],
             staleness_bound=spec.staleness_bound,
@@ -307,7 +310,21 @@ class FleetSim:
             O=max(s.n_observers for s in specs),
             C=max(s.trace_capacity for s in specs),
         )
-        self.members = [_Member(s, self.shapes, self.device) for s in specs]
+        # fleet-shared widths of the market-trace, arrival-curve and
+        # fault-schedule arrays (DESIGN.md §10-§12): shorter ones wrap at
+        # their own length, members without one carry inert leaves
+        self.trace_ticks = max(
+            [s.trace.ticks for s in specs if s.trace is not None],
+            default=1)
+        self.arrival_ticks = max(
+            [s.arrivals.ticks for s in specs if s.arrivals is not None],
+            default=1)
+        self.fault_ticks = max(
+            [s.faults.ticks for s in specs if s.faults is not None],
+            default=1)
+        self.members = [_Member(s, self.shapes, self.device,
+                                self.trace_ticks, self.arrival_ticks,
+                                self.fault_ticks) for s in specs]
 
         # ---- shard groups (DESIGN.md §9) -----------------------------
         order = sorted({s.group_id for s in specs if s.group_id >= 0})
@@ -486,9 +503,28 @@ class FleetSim:
             m.epoch += 1
             m.reports.append(rep)
             out.append(rep)
+        self._apply_bid_policies()
         if managed_rows:
             self._write_rows(managed_rows, managed_vals)
         return out
+
+    def _apply_bid_policies(self) -> None:
+        """Per-epoch bid updates (DESIGN.md §12): each policy member's
+        (S,) bids, computed on the host, written into its `spot_bid` row
+        of the stacked `cfg_c` in place."""
+        rows, vals = [], []
+        for i, m in enumerate(self.members):
+            if m.spec.bid_policy is None:
+                continue
+            rows.append(i)
+            vals.append(np.asarray(m.spec.bid_policy.update(
+                predictor=m.controller.predictor, trace=m.spec.trace,
+                end_tick=m.epoch * m.cfg.period_ticks,
+                sites=self.shapes.S), np.float32))
+        if rows:
+            idx = torch.tensor(rows, dtype=torch.long, device=self.device)
+            self._cfg_c["spot_bid"].index_copy_(
+                0, idx, torch.as_tensor(np.stack(vals), device=self.device))
 
     def _write_rows(self, rows: List[int], vals: List[Tuple]) -> None:
         """Write (role, alive, sec_of, obs_of) rows back for the members
@@ -561,9 +597,11 @@ class FleetSim:
     @property
     def single_dispatch_eligible(self) -> bool:
         """True when `run(E)` can run its E epochs with no host read
-        between them: no member runs the per-epoch control plane (the
-        bid policies that would also exclude it are not ported)."""
-        return not any(m.manage for m in self.members)
+        between them: no member runs the per-epoch control plane or a
+        per-epoch bid policy (bid updates are host writes between
+        epochs, DESIGN.md §12)."""
+        return not any(m.manage or m.spec.bid_policy is not None
+                       for m in self.members)
 
     def _run_scan(self, epochs: int) -> None:
         """The multi-epoch path: `epochs` device epochs back to back with
@@ -605,7 +643,7 @@ class FleetSim:
             single_dispatch = epochs > 1 and self.single_dispatch_eligible
         if single_dispatch and not self.single_dispatch_eligible:
             raise ValueError("a single-dispatch run needs a fleet with no "
-                             "managing member")
+                             "managing member and no bid policy")
         start = len(self.members[0].reports)
         if single_dispatch:
             self._run_scan(epochs)
@@ -624,24 +662,38 @@ class FleetSim:
 # --------------------------------------------------------------------- #
 def system_specs(cfg: ClusterConfig, *, write_rate: float,
                  read_rate: float, seed: int = 0, phi: float = 0.0,
-                 shards: int = 2, group_id: int = 0, n_observers: int = 0,
+                 shards: int = 2, group_id: int = 0,
+                 market: str = "process", trace=None, arrivals=None,
+                 keypop=None, warning_ticks: int = 0, bid_policy=None,
+                 bid_on_trace: bool = False, n_observers: int = 0,
                  staleness_bound: int = 16, ae_interval: int = 4
                  ) -> List[MemberSpec]:
     """The members of one comparison point: BW-Raft (managed), plain
     Raft, and a Multi-Raft system of `shards` shards forming shard group
     `group_id` (DESIGN.md §6.3, §9) — the port's copy of the benchmarks'
-    `system_specs` for a closed-loop, process-market point.  The
-    digest-tier knobs attach a rack to the BW-Raft member only."""
+    `system_specs`.  `market`/`trace` select the BW-Raft member's spot
+    market (DESIGN.md §10; the on-demand baselines lease no spot nodes);
+    `arrivals`/`keypop` put every system under the same open-loop plan,
+    the shards at the `shard_workload`-divided intensity (§11);
+    `warning_ticks`/`bid_policy`/`bid_on_trace` harden the BW-Raft
+    member's spot consumption (§12); the digest-tier knobs attach a rack
+    to the BW-Raft member only (§13)."""
     from repro_torch.core.multiraft import shard_specs
     return ([MemberSpec(cfg=cfg, mode="bwraft", write_rate=write_rate,
                         read_rate=read_rate, phi=phi, seed=seed,
+                        market=market, trace=trace,
+                        arrivals=arrivals, keypop=keypop,
+                        warning_ticks=warning_ticks, bid_policy=bid_policy,
+                        bid_on_trace=bid_on_trace,
                         n_observers=n_observers,
                         staleness_bound=staleness_bound,
                         ae_interval=ae_interval),
              MemberSpec(cfg=cfg, mode="raft", write_rate=write_rate,
-                        read_rate=read_rate, phi=phi, seed=seed)] +
+                        read_rate=read_rate, phi=phi, seed=seed,
+                        arrivals=arrivals, keypop=keypop)] +
             shard_specs(cfg, shards=shards, write_rate=write_rate,
-                        read_rate=read_rate, seed=seed, group_id=group_id))
+                        read_rate=read_rate, seed=seed, group_id=group_id,
+                        arrivals=arrivals, keypop=keypop))
 
 
 def rack_voters(cfg: ClusterConfig) -> int:

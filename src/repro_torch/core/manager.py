@@ -93,14 +93,26 @@ def spot_scores(cpu: np.ndarray, mem: np.ndarray, price: np.ndarray,
 
 
 class RevocationPredictor:
-    """EWMA per-site revocation-rate estimate (stands in for SpotTune):
-    a flat prior updated online from the epoch census.  The
-    trace-calibrated predictor of the JAX package is not ported yet."""
+    """EWMA per-site revocation-rate estimate (stands in for SpotTune).
+
+    The default is a flat prior updated online from the epoch census;
+    `calibrated` (or `market.calibrate.calibrate_predictor`, which also
+    fits alpha) seeds the rates from a market trace's empirical per-site
+    hazard instead (DESIGN.md §10)."""
 
     def __init__(self, n_sites: int, alpha: float = 0.3,
                  prior: float = 0.02):
         self.rate = np.full(n_sites, prior)
         self.alpha = alpha
+
+    @classmethod
+    def calibrated(cls, rates, alpha: float = 0.3) -> "RevocationPredictor":
+        """Predictor seeded from per-site rates fitted offline against a
+        trace, instead of the flat prior."""
+        rates = np.atleast_1d(np.asarray(rates, float))
+        p = cls(len(rates), alpha=alpha)
+        p.rate = rates.copy()
+        return p
 
     def update(self, revoked: np.ndarray, leased: np.ndarray) -> None:
         obs = revoked / np.maximum(leased, 1)

@@ -74,21 +74,30 @@ def two_pc_penalty(cfg: ClusterConfig) -> int:
 def shard_specs(cfg: ClusterConfig, *, shards: int = 2,
                 write_rate: float = 8.0, read_rate: float = 32.0,
                 cross_shard_frac: float = 0.1, seed: int = 0,
-                group_id: int = 0, n_observers: int = 0,
-                staleness_bound: int = 16, ae_interval: int = 4) -> List:
+                group_id: int = 0, arrivals=None, keypop=None,
+                n_observers: int = 0, staleness_bound: int = 16,
+                ae_interval: int = 4) -> List:
     """This Multi-Raft system as `shards` fleet members (mode="raft",
     unmanaged, seeds `seed + 17 * i`).  With `group_id >= 0` the members
     form one shard group (DESIGN.md §9) and the fleet reports them as
     `MultiRaftReport`s in `FleetSim.group_reports[group_id]`; with
-    `group_id=-1` they are independent members.  The digest-tier knobs
-    attach a rack to each shard (DESIGN.md §13)."""
+    `group_id=-1` they are independent members.  `arrivals` (a
+    system-wide `workload.OpenLoop` plan) is divided over the shards
+    with the `shard_workload` factors of the scalar rates, writes
+    inflated by (1 + chi) (DESIGN.md §11); `keypop` passes through to
+    every shard.  The digest-tier knobs attach a rack to each shard
+    (DESIGN.md §13)."""
     from repro_torch.core.fleet import MemberSpec  # fleet imports runtime
     w_eff, r_eff = shard_workload(write_rate, read_rate, shards,
                                   cross_shard_frac)
+    shard_plan = (arrivals.scaled((1 + cross_shard_frac) / shards,
+                                  1.0 / shards)
+                  if arrivals is not None else None)
     grouped = group_id >= 0
     return [MemberSpec(cfg=cfg, mode="raft", write_rate=w_eff,
                        read_rate=r_eff, seed=seed + 17 * i,
                        manage_resources=False,
+                       arrivals=shard_plan, keypop=keypop,
                        n_observers=n_observers,
                        staleness_bound=staleness_bound,
                        ae_interval=ae_interval,

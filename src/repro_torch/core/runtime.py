@@ -15,9 +15,10 @@ can later be captured as a CUDA graph.  `device_epoch` runs on trees
 with a leading member axis B: `BWRaftSim` runs it at B = 1 and
 `core/fleet.FleetSim` at the fleet's B, through the same tick.
 
-Not ported yet (ROADMAP.md, item 8): the constructor objects `trace=`,
-`arrivals=`, `keypop=`, `faults=`, `bid_policy=`, `predictor=` (their
-`cfg_c` arrays are consumed by the tick already).
+The host services ride in `cfg_c` as data: a market trace
+(`market="trace"`, DESIGN.md §10), an open-loop plan and Zipfian keys
+(§11), a fault schedule and per-epoch bid policies (§12).  A
+trace-calibrated `predictor` seeds the control plane.
 """
 from __future__ import annotations
 
@@ -48,18 +49,33 @@ def make_cfg_arrays(cfg: ClusterConfig, device, *, write_rate: float,
                     pad_keys: int = 0,
                     spot_price_vol: Optional[float] = None,
                     cross_shard_frac: float = 0.0, two_pc_ticks: int = 0,
+                    market: str = "process",
+                    trace=None, trace_ticks: Optional[int] = None,
+                    arrivals=None, arrival_ticks: Optional[int] = None,
+                    keypop=None,
                     warning_ticks: int = 0, spot_bid=None,
                     bid_on_trace: bool = False,
+                    faults=None, fault_ticks: Optional[int] = None,
                     n_observers: int = 0, pad_observers: int = 0,
                     staleness_bound: int = 16, ae_interval: int = 4,
                     ae_phase=None, trace_on: bool = False,
                     trace_mask=None) -> Dict[str, torch.Tensor]:
     """The per-epoch knobs as tensors on `device`, equal leaf for leaf to
-    `repro.core.runtime.make_cfg_arrays` for a closed-loop,
-    process-market cluster without a fault schedule.  The trace-market,
-    open-loop, Zipf-key and fault leaves are present at their inert
-    shapes; the tick consumes them as data, so a `cfg_c` built by the
-    JAX package (through `state.from_numpy`) runs those branches too.
+    `repro.core.runtime.make_cfg_arrays`.  Every knob is data: swapping
+    a trace, a plan, a schedule or a bid changes leaves, never the
+    tick's code.
+
+    `market="trace"` replays `trace` (a `market.MarketTrace`), fitted to
+    the padded sites and widened to a shared `trace_ticks` (time wrap);
+    the in-step lookup wraps at the member's own `trace_len`.  A trace
+    with per-node columns enters as `revoke_node_trace` (DESIGN.md §10,
+    §12).  `arrivals` (a `workload.OpenLoop`) enters as the
+    `write_curve`/`read_curve` arrays, widened to `arrival_ticks`;
+    `keypop` (a `workload.ZipfianKeys`) as the (K,) `key_cdf`
+    (DESIGN.md §11).  `faults` (a `market.chaos.FaultSchedule`) enters
+    as the (N, Tf) `fault_trace`, widened to `fault_ticks` with inert
+    False padding (DESIGN.md §12).  Members without one of these carry
+    the inert leaf at the shared width, so mixed fleets stack.
 
     The digest tier (DESIGN.md §13): `staleness_bound` is the read
     freshness contract in ticks, `ae_interval` the anti-entropy period,
@@ -81,8 +97,47 @@ def make_cfg_arrays(cfg: ClusterConfig, device, *, write_rate: float,
         phase = np.asarray(ae_phase, np.int32).reshape(-1)
         if phase.size != O:
             raise ValueError(f"ae_phase has {phase.size} slots, not {O}")
+    if market not in ("process", "trace"):
+        raise ValueError(f"market={market!r}")
+    if market == "trace" and trace is None:
+        raise ValueError("market='trace' needs a market.MarketTrace (see "
+                         "market.load / market/synthetic.py providers)")
     S = cfg.num_sites + pad_sites
     N = cfg.max_nodes + pad_nodes
+    f32, i32 = np.float32, np.int32
+    per_node = (trace is not None
+                and getattr(trace, "revoked_node", None) is not None)
+    if trace is not None:
+        width = trace_ticks or trace.ticks
+        fitted = trace.fit_to(S, width)
+        price_trace = fitted.price.astype(f32)
+        revoke_trace = fitted.revoked.astype(bool)
+        trace_len = min(trace.ticks, width)
+    else:
+        price_trace = np.zeros((S, trace_ticks or 1), f32)
+        revoke_trace = np.zeros((S, trace_ticks or 1), bool)
+        trace_len = 1
+    if per_node:
+        revoke_node = trace.node_columns(N, price_trace.shape[1])
+    else:
+        revoke_node = np.zeros((N, price_trace.shape[1]), bool)
+    if faults is not None:
+        fault_len = fault_ticks or faults.ticks
+        fault_trace = faults.fit_to(N, fault_len)
+    else:
+        fault_len = 1
+        fault_trace = np.zeros((N, fault_ticks or 1), bool)
+    if arrivals is not None:
+        write_curve, read_curve, arrival_len = arrivals.fit_to(
+            arrival_ticks or arrivals.ticks)
+    else:
+        write_curve = np.zeros((arrival_ticks or 1,), f32)
+        read_curve = np.zeros((arrival_ticks or 1,), f32)
+        arrival_len = 1
+    if keypop is not None:
+        key_cdf = keypop.materialize(cfg.key_space, pad_keys)
+    else:
+        key_cdf = uniform_key_cdf(cfg.key_space, pad_keys)
     if spot_bid is None:
         bid = state_mod.site_price_init(cfg, S)[1]
     else:
@@ -105,26 +160,25 @@ def make_cfg_arrays(cfg: ClusterConfig, device, *, write_rate: float,
     sp = sp + [sp[-1]] * pad_sites
     vol = (cfg.sites[0].spot_price_vol if spot_price_vol is None
            else spot_price_vol)
-    f32, i32 = np.float32, np.int32
     arrays = {
-        "open_loop": np.asarray(False),
-        "write_curve": np.zeros((1,), f32),
-        "read_curve": np.zeros((1,), f32),
-        "arrival_len": i32(1),
-        "key_zipf": np.asarray(False),
-        "key_cdf": uniform_key_cdf(cfg.key_space, pad_keys),
-        "market_trace": np.asarray(False),
-        "price_trace": np.zeros((S, 1), f32),
-        "revoke_trace": np.zeros((S, 1), bool),
-        "trace_len": i32(1),
+        "open_loop": np.asarray(arrivals is not None),
+        "write_curve": np.asarray(write_curve, f32),
+        "read_curve": np.asarray(read_curve, f32),
+        "arrival_len": i32(arrival_len),
+        "key_zipf": np.asarray(keypop is not None),
+        "key_cdf": np.asarray(key_cdf, f32),
+        "market_trace": np.asarray(market == "trace"),
+        "price_trace": price_trace,
+        "revoke_trace": revoke_trace,
+        "trace_len": i32(trace_len),
         "spot_bid": np.asarray(bid, f32),
         "warn_ticks": i32(warning_ticks),
         "bid_on_trace": np.asarray(bool(bid_on_trace)),
-        "node_trace": np.asarray(False),
-        "revoke_node_trace": np.zeros((N, 1), bool),
-        "fault_on": np.asarray(False),
-        "fault_trace": np.zeros((N, 1), bool),
-        "fault_len": i32(1),
+        "node_trace": np.asarray(per_node),
+        "revoke_node_trace": np.asarray(revoke_node, bool),
+        "fault_on": np.asarray(faults is not None),
+        "fault_trace": np.asarray(fault_trace, bool),
+        "fault_len": i32(fault_len),
         "write_rate": f32(write_rate),
         "read_rate": f32(read_rate),
         "phi": f32(phi),
@@ -448,11 +502,16 @@ class ClusterController:
     revocation predictor, the per-site lease census and the read-growth
     history that Algorithm 1 needs between epochs."""
 
-    def __init__(self, cfg: ClusterConfig, static, *, seed: int):
+    def __init__(self, cfg: ClusterConfig, static, *, seed: int,
+                 predictor: Optional[mgr.RevocationPredictor] = None):
         self.cfg = cfg
         self.static = static
         self.np_rng = np.random.default_rng(seed + 1)
-        self.predictor = mgr.RevocationPredictor(cfg.num_sites)
+        # default: flat-prior EWMA; a trace-calibrated predictor
+        # (`market.calibrate.calibrate_predictor`) scores spot offers with
+        # per-site rates fitted offline (DESIGN.md §10)
+        self.predictor = predictor if predictor is not None \
+            else mgr.RevocationPredictor(cfg.num_sites)
         self.reads_prev = 0
         self.leased = np.zeros(cfg.num_sites, np.int64)
 
@@ -510,6 +569,14 @@ class BWRaftSim:
     `n_observers > 0` attaches a digest-tier observer rack (DESIGN.md
     §13), `pad_observers` inert padded slots.
 
+    `market="trace"` replays `trace` (a `market.MarketTrace`) instead of
+    the walk (DESIGN.md §10); `predictor` seeds the control plane with a
+    trace-calibrated `RevocationPredictor`.  `arrivals`/`keypop` put the
+    cluster under an open-loop plan and Zipfian keys (§11), `faults`
+    under a scripted `FaultSchedule` (§12), and `bid_policy` (e.g.
+    `market.calibrate.HazardAwareBid`) rewrites the per-site bids after
+    every epoch through `set_bid`.
+
     `state` and `cfg_c` are this cluster's unbatched trees; the epoch
     runs the batched tick on them at B = 1 (views, no copies)."""
 
@@ -522,8 +589,12 @@ class BWRaftSim:
                  spot_price_vol: Optional[float] = None,
                  prelease: Optional[Tuple[int, int]] = None,
                  cross_shard_frac: float = 0.0, two_pc_ticks: int = 0,
-                 warning_ticks: int = 0, spot_bid=None,
-                 bid_on_trace: bool = False, n_observers: int = 0,
+                 market: str = "process", trace=None, predictor=None,
+                 arrivals=None, arrival_ticks: Optional[int] = None,
+                 keypop=None, warning_ticks: int = 0, spot_bid=None,
+                 bid_on_trace: bool = False, faults=None,
+                 fault_ticks: Optional[int] = None, bid_policy=None,
+                 n_observers: int = 0,
                  pad_observers: int = 0, staleness_bound: int = 16,
                  ae_interval: int = 4, ae_phase=None,
                  trace_on: bool = False, trace_mask=None,
@@ -546,16 +617,22 @@ class BWRaftSim:
             phi=phi, pad_nodes=pad_nodes, pad_sites=pad_sites,
             pad_keys=pad_keys, spot_price_vol=spot_price_vol,
             cross_shard_frac=cross_shard_frac, two_pc_ticks=two_pc_ticks,
+            market=market, trace=trace, arrivals=arrivals,
+            arrival_ticks=arrival_ticks, keypop=keypop,
             warning_ticks=warning_ticks, spot_bid=spot_bid,
-            bid_on_trace=bid_on_trace, n_observers=n_observers,
+            bid_on_trace=bid_on_trace, faults=faults,
+            fault_ticks=fault_ticks, n_observers=n_observers,
             pad_observers=pad_observers, staleness_bound=staleness_bound,
             ae_interval=ae_interval, ae_phase=ae_phase, trace_on=trace_on,
             trace_mask=trace_mask)
         self._trace_on = bool(trace_on)
         self.draws = draws if draws is not None else \
             TorchDraws(seed, self.device)
+        self.bid_policy = bid_policy
+        self._trace = trace
         self.manage = manage_resources and mode == "bwraft"
-        self.controller = ClusterController(cfg, self.static, seed=seed)
+        self.controller = ClusterController(cfg, self.static, seed=seed,
+                                            predictor=predictor)
         self.epoch = 0
         self._reports: List[EpochReport] = []
         self.last_digest: Optional[Dict] = None
@@ -573,6 +650,30 @@ class BWRaftSim:
                        ("phi", phi)):
             if v is not None:
                 self.cfg_c[key] = self._scalar(v, torch.float32)
+
+    def set_arrivals(self, arrivals) -> None:
+        """Swap the open-loop arrival plan: the curves are refitted to
+        the width the sim was built with and written into the existing
+        leaves (DESIGN.md §11)."""
+        width = int(self.cfg_c["write_curve"].shape[0])
+        w, r, alen = arrivals.fit_to(width)
+        self.cfg_c["open_loop"].fill_(True)
+        self.cfg_c["write_curve"].copy_(torch.from_numpy(w))
+        self.cfg_c["read_curve"].copy_(torch.from_numpy(r))
+        self.cfg_c["arrival_len"].fill_(int(alen))
+
+    def set_bid(self, bids) -> None:
+        """Swap the per-site spot bids in place, at the fixed (S,) shape
+        (DESIGN.md §12).  A scalar broadcasts; a short vector repeats its
+        last site (the `site_price_init` padding rule)."""
+        S = int(self.cfg_c["spot_bid"].shape[0])
+        b = np.asarray(bids, np.float32).reshape(-1)
+        if b.size == 1:
+            b = np.full((S,), b[0], np.float32)
+        elif b.size < S:
+            b = np.concatenate(
+                [b, np.full((S - b.size,), b[-1], np.float32)])
+        self.cfg_c["spot_bid"].copy_(torch.from_numpy(b[:S].copy()))
 
     def set_trace(self, on=None, mask=None) -> None:
         """Toggle flight-recorder capture / remask event classes."""
@@ -636,6 +737,11 @@ class BWRaftSim:
                 max(dec.dk_o, 0) + int(((roles == OBSERVER) &
                                         warned).sum()),
                 warned=warned)
+        if self.bid_policy is not None:
+            self.set_bid(self.bid_policy.update(
+                predictor=self.controller.predictor, trace=self._trace,
+                end_tick=(self.epoch + 1) * self.cfg.period_ticks,
+                sites=int(self.cfg_c["spot_bid"].shape[0])))
         self.controller.end_epoch(rep)
         self.epoch += 1
         self._reports.append(rep)

@@ -760,3 +760,40 @@ def test_mamba2_prefill_decode_on_the_card():
     for want, got in zip(*outs):
         np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=2e-4,
                                    atol=2e-4)
+
+
+@pytest.mark.gpu
+def test_run_chaos_on_the_card():
+    """A warned mass-kill drill on a small cluster under an AWS trace
+    market: the card's `ChaosReport` (snapshots and events included)
+    equals the CPU's from the same draws, and the safety checks and the
+    trace-replayed leader timeline hold."""
+    _need_cuda()
+    import dataclasses
+    from repro_torch.core.cluster_config import ClusterConfig, SiteConfig
+    from repro_torch.core.draws import CpuDraws
+    from repro_torch.market import mass_kill, run_chaos
+    sites = tuple(SiteConfig(f"g{i}", followers=f, rtt_intra=1,
+                             rtt_inter=6 + 2 * i, on_demand_price=0.0416,
+                             spot_price_mean=0.0125)
+                  for i, f in enumerate((2, 1, 1)))
+    cfg = ClusterConfig(name="gchaos", sites=sites, max_log=256,
+                        key_space=64, max_secretaries=4, max_observers=8,
+                        period_ticks=50)
+    faults = mass_kill(25, n_nodes=cfg.max_nodes, ticks=60,
+                       spare=(0, 1, 2), warning_ticks=3)
+    kw = dict(warning_ticks=3, ticks=60, seed=0, spot_bid=10.0,
+              trace_on=True)
+    dev = torch.device("cuda")
+    card = run_chaos(cfg, faults, device=dev, draws=CpuDraws(0, dev), **kw)
+    host = run_chaos(cfg, faults, device="cpu", **kw)
+    a, b = dataclasses.asdict(card), dataclasses.asdict(host)
+    for k in ("trace", "events"):
+        a.pop(k), b.pop(k)
+    assert a == b
+    for x, y in zip(card.trace, host.trace):
+        for k in x:
+            assert np.array_equal(x[k], y[k]), k
+    assert card.events == host.events
+    assert card.safety_error is None and card.trace_leader_match
+    assert card.killed_total >= 1

@@ -160,9 +160,10 @@ def test_batched_tick_has_no_coupling():
 
 
 def test_fleet_guards_and_unported_fields():
-    """The shard-group guards raise as the JAX fleet's asserts do; the
-    member fields whose objects are not ported yet, and the host
-    pipeline, raise NotImplementedError naming the ROADMAP item."""
+    """The shard-group guards raise as the JAX fleet's asserts do; each
+    host-service field (DESIGN.md §10-§12) is accepted, a trace market
+    without a trace gets the JAX package's message, and the host
+    pipeline raises NotImplementedError naming the ROADMAP item."""
     cfg = port_config(small_config())
     shard = TMR.shard_specs(cfg, shards=2, cross_shard_frac=0.1)
     with pytest.raises(ValueError, match="ragged-group"):
@@ -174,9 +175,24 @@ def test_fleet_guards_and_unported_fields():
         TFleet([TSpec(cfg=cfg),
                 TSpec(cfg=dataclasses.replace(cfg, period_ticks=20))],
                device="cpu")
-    for field in ("arrivals", "keypop", "faults", "bid_policy", "trace"):
-        with pytest.raises(NotImplementedError, match="item 8"):
-            TFleet([TSpec(cfg=cfg, **{field: object()})], device="cpu")
+    from repro_torch import market as TM
+    from repro_torch import workload as TW
+    trace = TM.load("aws-us-east", ticks=60)
+    services = {
+        "trace": trace,
+        "arrivals": TW.OpenLoop(write=TW.ConstantRate(2.0),
+                                read=TW.ConstantRate(8.0), ticks=20),
+        "keypop": TW.ZipfianKeys(1.1),
+        "faults": TM.kill_nodes([0], 3, n_nodes=cfg.max_nodes, ticks=10),
+        "bid_policy": TM.HazardAwareBid(mean_price=[0.0125, 0.0135]),
+    }
+    for field, obj in services.items():
+        f = TFleet([TSpec(cfg=cfg, **{field: obj})], device="cpu")
+        assert getattr(f.members[0].spec, field) is obj
+    f = TFleet([TSpec(cfg=cfg, market="trace", trace=trace)], device="cpu")
+    assert bool(f._cfg_c["market_trace"][0]) and f.trace_ticks == 60
+    with pytest.raises(ValueError, match="needs a market.MarketTrace"):
+        TFleet([TSpec(cfg=cfg, market="trace")], device="cpu")
     with pytest.raises(NotImplementedError, match="item 11"):
         TFleet([TSpec(cfg=cfg)], pipeline="host", device="cpu")
     with pytest.raises(ValueError, match="sweep axis"):

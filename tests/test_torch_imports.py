@@ -80,13 +80,20 @@ def test_entry_points_need_a_device():
 
 def test_digest_tier_builds_and_unported_fleet_paths_raise():
     """The digest tier is ported (a rack of 550 slots builds on the
-    CPU); what is not ported yet raises and names its ROADMAP item."""
+    CPU); a trace market is accepted with a trace and refused without
+    one with the JAX package's message; what is not ported yet raises
+    and names its ROADMAP item."""
     from repro_torch.configs.bwraft_kv import CONFIG
     from repro_torch.core.fleet import FleetSim, MemberSpec
     from repro_torch.core.runtime import BWRaftSim
+    from repro_torch.market import load
     sim = BWRaftSim(CONFIG, n_observers=550, device="cpu")
     assert sim.state["dobs_alive"].shape == (550,)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    trace = load("aws-us-east", ticks=200)
+    f = FleetSim([MemberSpec(cfg=CONFIG, market="trace", trace=trace)],
+                 device="cpu")
+    assert f._cfg_c["price_trace"].shape == (1, CONFIG.num_sites, 200)
+    with pytest.raises(ValueError, match="needs a market.MarketTrace"):
         FleetSim([MemberSpec(cfg=CONFIG, market="trace")], device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         FleetSim([MemberSpec(cfg=CONFIG)], pipeline="host", device="cpu")
