@@ -6,10 +6,12 @@
                                      # and of the fleet path, and a
                                      # prefill and 4 decode steps of each
                                      # serve path, smollm-360m and
-                                     # mamba2-130m (device busy share,
+                                     # mamba2-130m, and 2 full-width
+                                     # train steps (device busy share,
                                      # kernels by name)
     python3 chip_smoke.py --phase10 N  # phases 1, 8, 9, then phase 10's
                                      # float32 smollm check N times
+    python3 chip_smoke.py --phase15  # phases 1 and 15 (training)
 
 Phases, each fatal on failure:
 
@@ -153,7 +155,27 @@ Phases, each fatal on failure:
    CPU's, pass `invariants.check_all`, replay the probe's leader
    timeline from the trace, and write a Perfetto file; epoch walls and
    (member-)ticks/s printed;
-15. a `kernels` JSON line, the card line, and the last line
+15. the training path: (a) one train step of smollm-360m at full width
+   cut to 2 layers (B = 4, S = 64) on the card and on the CPU from the
+   same weights and batch, float32 (TF32 off) and bfloat16, M = 1 and
+   2, loss and grad_norm within TRAIN_GATES and every updated parameter
+   within 2 x lr + one rounding (AdamW's first step is at most lr in
+   size), and the card's step rerun from the same start and held to the
+   same bounds (its embedding backward accumulates with atomics, so a
+   rerun need not be bit-equal); (b) `launch.train.main` at full width and
+   depth (TRAIN_ARGS: 32 layers, bf16 weights, f32 AdamW, B = 8, S =
+   64, 6 steps, checkpoints at steps 3 and 6 of about 3.6 GB in a
+   temporary directory, pod 1 failing at step 4) with the coordinator on
+   the paper's cluster, counts set to 0 just before: finite losses,
+   every CKPT_COMMIT in the replicated log and the last one and the
+   MEMBERSHIP record in the leader's state machine, then the leader pod
+   killed, a new leader, and the last committed checkpoint restored bit
+   for bit with its digest tag the record's; each per-tick consensus
+   kernel launched once per coordinator tick, every other kernel 0;
+   ms per train step, training tokens/s, save, restore and commit
+   times, ticks per commit and peak memory printed;
+16. a `kernels` JSON line (with each kernel's launches in phase 15,
+   `launches_train`), the card line, and the last line
    `{"ok": true, "device": {...}}`.
 
 Exits non-zero, printing no result, without a CUDA device or outside a
@@ -164,6 +186,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import math
 import re
 import statistics
 import subprocess
@@ -2416,6 +2439,247 @@ def run_host_services(dev, cfg):
     return out, walls
 
 
+# --------------------------------------------------------------------- #
+# phase 15: the training path, card against CPU, then launch/train.py at
+# full width
+# --------------------------------------------------------------------- #
+TRAIN_ARGS = ["--arch", "smollm-360m", "--full", "--batch", "8", "--seq",
+              "64", "--steps", "6", "--ckpt-every", "3", "--kill-at", "4"]
+# card vs CPU after one train step of the 2-layer full-width smollm, by
+# dtype: (loss rtol, grad_norm rtol).  The parameters are held to what
+# AdamW's first step allows: its normalized update is at most lr in size,
+# so card and CPU may differ by 2 x lr where a gradient's sign or its
+# size against eps differs, plus (bfloat16) the two sides' roundings to
+# bf16, one ulp at most.  Chip readings on the H100: float32 loss 0 /
+# 1.8e-7 apart (M = 1 / 2), grad_norm 2.1e-4 / 7.6e-5, the parameters at
+# 0.998 of the bound, 2% of them more than 1e-6 apart (the clip scale,
+# 1 / grad_norm, moves every update in eps's range) and under 1e-6 more
+# than lr; bfloat16 loss 3.4e-5, grad_norm 1.4% / 1.6%, 0.4% of the
+# parameters more than lr apart.
+TRAIN_GATES = {"float32": (1e-4, 1e-3), "bfloat16": (2e-2, 5e-2)}
+
+
+def train_param_diff(a, b, lr, bf16):
+    """(largest |a - b| over the bound 2 lr + one rounding, and the shares
+    of the parameters more than one rounding, lr / 10 and lr apart) of
+    two parameter sets."""
+    worst, n, counts = 0.0, 0, [0, 0, 0]
+    for x, y in zip(a, b):
+        x, y = x.detach().float().cpu(), y.detach().float().cpu()
+        # bf16: both sides round to bf16, at most one ulp <= 2**-7 |v|
+        rnd = (2 ** -7 * x.abs().maximum(y.abs()) if bf16
+               else 1e-6 * x.abs()) + 1e-7
+        d = (x - y).abs()
+        worst = max(worst, float((d / (2 * lr + rnd)).max()))
+        for k, t in enumerate((rnd, lr / 10, lr)):
+            counts[k] += int((d > t).sum())
+        n += d.numel()
+    return worst, [c / n for c in counts]
+
+
+def run_train_card_vs_cpu(dev, dtype, M, layers=2, B=4, S=64):
+    """One train step of smollm-360m at full width (`layers` layers) on
+    the card and on the CPU from the same weights and batch, M
+    microbatches; then the card's step again from the same start.  The
+    card's embedding backward accumulates with atomics, so its two runs
+    need not be equal bit for bit: the rerun is held to the same bounds
+    against the CPU, and its distance from the first run is printed.
+    Returns the failures, after printing every reading."""
+    import copy
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    from repro_torch.launch import steps as S_
+    from repro_torch.models import lm
+    torch.backends.cuda.matmul.allow_tf32 = False    # full f32 products
+    name = dtype_name(dtype)
+    bf16 = name == "bfloat16"
+    cfg = get_config("smollm-360m").with_layers(layers)
+    run = RunConfig(remat=False, param_dtype=name, activation_dtype=name,
+                    num_microbatches=M)
+    cpu = torch.device("cpu")
+    m0 = lm.init_lm(cfg, run, seed=1, device=cpu, trainable=True)
+    batch = TokenPipeline(DataConfig(cfg.vocab_size, S, B)).batch_at(
+        0, device=cpu)
+    step = S_.make_train_step(cfg, run)
+    out = []
+    for where in (cpu, dev, dev):
+        st = S_.init_train_state(copy.deepcopy(m0).to(where))
+        st, met = step(st, {k: v.to(where) for k, v in batch.items()})
+        out.append((met["loss"].item(), met["grad_norm"].item(),
+                    list(st["params"].parameters())))
+        del st
+    (l0, g0, p0), (l1, g1, p1), (l2, g2, p2) = out
+    loss_rtol, gn_rtol = TRAIN_GATES[name]
+    lr = run.learning_rate
+    tag = f"train card vs CPU ({layers} layers, {name}, B={B}, S={S}, M={M})"
+    worst, shares = train_param_diff(p0, p1, lr, bf16)
+    r_worst, r_shares = train_param_diff(p0, p2, lr, bf16)
+    rr_worst, rr_shares = train_param_diff(p1, p2, lr, bf16)
+    fmt = lambda w, sh: (f"{w:.4g} x (2 lr + rounding); shares past one "
+                         f"rounding, lr/10, lr: "
+                         f"{', '.join(f'{x:.3g}' for x in sh)}")
+    log(f"{tag}: loss card {l1!r} / CPU {l0!r} (rerun {l2!r}); grad_norm "
+        f"card {g1!r} / CPU {g0!r} (rerun {g2!r}); params card - CPU "
+        f"{fmt(worst, shares)}; rerun - CPU {fmt(r_worst, r_shares)}; "
+        f"rerun - card {fmt(rr_worst, rr_shares)}")
+    failed = []
+    for a, b, what, rtol in ((l1, l0, "loss", loss_rtol),
+                             (l2, l0, "rerun loss", loss_rtol),
+                             (g1, g0, "grad_norm", gn_rtol),
+                             (g2, g0, "rerun grad_norm", gn_rtol)):
+        if not abs(a - b) <= rtol * abs(b):
+            failed.append(f"{tag}: {what} {a!r} vs CPU {b!r} (rtol {rtol})")
+    for w, what in ((worst, "card"), (r_worst, "rerun")):
+        if not w <= 1.0:
+            failed.append(f"{tag}: {what} params {w:.4g} x the bound")
+    return failed
+
+
+def run_train_profile(state, dev, steps=2):
+    """Device busy share and kernel time by name over `steps` more
+    training steps of the trainer's final state (TRAIN_ARGS' shapes)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    from repro_torch.launch import steps as S_
+    cfg = state["params"].cfg
+    B, S = (int(TRAIN_ARGS[TRAIN_ARGS.index(f) + 1])
+            for f in ("--batch", "--seq"))
+    step = S_.make_train_step(cfg, RunConfig(remat=False,
+                                             num_microbatches=1))
+    batch = TokenPipeline(DataConfig(cfg.vocab_size, S, B)).batch_at(
+        6, device=dev)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            step(state, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    evs = [e for e in prof.key_averages()
+           if e.self_device_time_total > 0 and not e.key.startswith("aten::")]
+    dev_us = sum(e.self_device_time_total for e in evs)
+    log(f"train step profile over {steps} steps: wall "
+        f"{wall * 1e3 / steps:.3f} ms/step, device busy "
+        f"{dev_us / 1e3 / steps:.3f} ms/step "
+        f"({100 * dev_us / 1e6 / wall:.1f}% of wall), "
+        f"{sum(e.count for e in evs) / steps:.0f} device kernels/step")
+    for e in sorted(evs, key=lambda e: -e.self_device_time_total)[:8]:
+        log(f"  {e.self_device_time_total / steps:9.2f} us/step "
+            f"{e.count / steps:6.1f}/step  {e.key[:90]}")
+
+
+def run_train_path(dev, profile=False):
+    """`launch.train.main` at full width on the card (TRAIN_ARGS: 32
+    layers, bf16 weights, f32 AdamW, 6 steps, checkpoints at steps 3 and
+    6, pod 1 failing at step 4) on the paper's cluster, launch counts set
+    to 0 just before; then the leader pod killed, a new leader, and the
+    last committed checkpoint restored.  Gates: finite losses; every
+    CKPT_COMMIT in the replicated log in order and the last one in the
+    leader's state machine, with the MEMBERSHIP record; the restored
+    state bit for bit the saved one, its digest tag the record's; each
+    per-tick consensus kernel launched once a tick (> 0), no other."""
+    import tempfile
+    import torch
+    from repro_torch import kernels as K_
+    from repro_torch.checkpoint.store import tree_digest
+    from repro_torch.coord import log_records as rec
+    from repro_torch.core import state as SM
+    from repro_torch.launch import steps as S_
+    from repro_torch.launch import train
+    from repro_torch.models.common import tree_items
+    with tempfile.TemporaryDirectory() as ckpt:
+        torch.cuda.reset_peak_memory_stats(dev)
+        K_.reset_launch_counts()
+        t0 = time.perf_counter()
+        rep = train.main(TRAIN_ARGS + ["--ckpt-dir", ckpt, "--device",
+                                       str(dev)])
+        wall = time.perf_counter() - t0
+        coord = rep.coord
+        if not all(map(math.isfinite, rep.losses)) or len(rep.losses) != 6:
+            raise AssertionError(f"train: losses {rep.losses}")
+        st = coord.sim.state
+        lid = int(SM.leader_id(st))
+        base = rec.record_base(coord.cfg.key_space)
+        ck = base + int(rec.RecordType.CKPT_COMMIT)
+        n = int(st["commit_len"][lid])
+        keys = st["log_key"][lid, :n].cpu().numpy()
+        vals = st["log_val"][lid, :n].cpu().numpy()
+        logged = [rec.unpack_ckpt(int(v)) for v in vals[keys == ck]]
+        want = [(s, int(d[:3], 16)) for s, d, _ in rep.commits]
+        if logged != want or coord.last_committed_checkpoint() != want[-1]:
+            raise AssertionError(f"train: committed CKPT_COMMITs {logged}, "
+                                 f"state machine "
+                                 f"{coord.last_committed_checkpoint()}, "
+                                 f"expected {want}")
+        if rep.membership != 0b1101:
+            raise AssertionError(f"train: MEMBERSHIP {rep.membership:#b}")
+        coord.kill_pod(lid)
+        new = coord.wait_for_leader()
+        coord.kv._step(20)
+        step, tag = coord.last_committed_checkpoint()
+        saved = S_.state_tree(rep.state)
+        t1 = time.perf_counter()
+        got, digest = rep.store.restore(step, saved)
+        restore_ms = (time.perf_counter() - t1) * 1e3
+        if new == lid or (step, tag) != want[-1] or \
+                int(digest[:3], 16) != tag or tree_digest(got) != digest:
+            raise AssertionError(f"train: after killing leader {lid}: "
+                                 f"leader {new}, record {(step, tag)}, "
+                                 f"digest {digest}")
+        for (path, a), (_, b) in zip(tree_items(saved), tree_items(got)):
+            if a.dtype != b.dtype or not torch.equal(a, b):
+                raise AssertionError(f"train: restored {path} differs")
+        del saved, got
+        ticks = int(coord.sim.state["tick"])
+        counts = K_.launch_counts()
+        peak = torch.cuda.max_memory_allocated(dev) / 2 ** 20
+        if profile:
+            run_train_profile(rep.state, dev)
+    for k, c in counts.items():
+        if c != (ticks if k in PER_TICK else 0) or (k in PER_TICK and
+                                                   not c):
+            raise AssertionError(f"train: {k} launched {c} times over "
+                                 f"{ticks} coordinator ticks")
+    B, S = (int(TRAIN_ARGS[TRAIN_ARGS.index(f) + 1])
+            for f in ("--batch", "--seq"))
+    step_ms = statistics.median(rep.step_ms[1:])
+    n_params = sum(p.numel() for p in rep.state["params"].parameters())
+    width = "full" if "--full" in TRAIN_ARGS else "reduced"
+    log(f"train main (smollm-360m {width}, {n_params} params, B={B}, "
+        f"S={S}): losses {rep.losses}; ms per train step {step_ms:.2f} "
+        f"(median of steps 2-6; step 1 {rep.step_ms[0]:.1f}), "
+        f"{B * S * 1e3 / step_ms:.1f} training tokens/s; checkpoint "
+        f"save ms {[round(x, 1) for x in rep.save_ms]}, restore "
+        f"{restore_ms:.1f}; CKPT_COMMIT ticks {rep.commit_ticks}, ms "
+        f"{[round(x, 1) for x in rep.commit_ms]}; commits {rep.commits}; "
+        f"membership {rep.membership:#b}; leader {lid} killed, new leader "
+        f"{new}, restored step {step} bit for bit; {ticks} coordinator "
+        f"ticks; peak {peak:.0f} MiB; {wall:.1f} s")
+    log(f"train launches over the phase: {json.dumps(counts)}")
+    return counts
+
+
+def run_training(dev, profile=False):
+    """Phase 15: (a) one train step card vs CPU, float32 and bfloat16,
+    M = 1 and 2; (b) `launch.train.main` at full width (with `profile`, two
+    more steps profiled); then (a)'s failures, if any, raise.  Returns
+    the launches."""
+    import torch
+    failed = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for M in (1, 2):
+            failed += run_train_card_vs_cpu(dev, dtype, M)
+    counts = run_train_path(dev, profile)
+    if failed:
+        raise AssertionError("; ".join(failed))
+    return counts
+
+
 def repeat_phase10(dev, n) -> int:
     """Phases 8-9 once, then phase 10's float32 smollm check `n` times in
     this process (ROADMAP.md §3 F4): each failure prints its diagnosis;
@@ -2439,12 +2703,15 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
                     help="also profile 10 ticks of the solo and fleet "
-                    "paths and a prefill and 4 decode steps of each "
-                    "serve path")
+                    "paths, a prefill and 4 decode steps of each "
+                    "serve path and 2 train steps")
     ap.add_argument("--phase10", type=int, default=0, metavar="N",
                     help="build the kernels, run phases 8-9, then phase "
                     "10's float32 smollm check N times in this process "
                     "(ROADMAP.md F4), print how many failed and exit")
+    ap.add_argument("--phase15", action="store_true",
+                    help="build the kernels, run phase 15 (training) "
+                    "alone and exit")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -2489,6 +2756,10 @@ def main() -> int:
     dev = torch.device("cuda")
     if args.phase10:
         return repeat_phase10(dev, args.phase10)
+    if args.phase15:
+        run_training(dev, args.profile)
+        log(card)
+        return 0
     static = SM.build_static(CONFIG)
     fleet_shapes = dict(O=50 * rack_voters(CONFIG), S=CONFIG.num_sites,
                         Fi=group_digest_width(CONFIG), G=1)
@@ -2520,6 +2791,9 @@ def main() -> int:
     t0 = time.perf_counter()
     services, _ = run_host_services(dev, CONFIG)
     log(f"services phase {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    train_counts = run_training(dev, args.profile)
+    log(f"training phase {time.perf_counter() - t0:.1f} s")
     if args.profile:
         b = sim.draws.epoch(10, sim.state, sim.cfg_c)
         run_profile("solo", SM.batch1(sim.state), sim.static_t,
@@ -2540,7 +2814,8 @@ def main() -> int:
             "bound_ms": bound_ms(r["bytes"], r["ops"]),
             "bound_by": bound_by(r["bytes"], r["ops"]),
             "library_ms": r["library_ms"],
-            "launches_solo": solo_counts[name], "floor_ms": floor,
+            "launches_solo": solo_counts[name],
+            "launches_train": train_counts[name], "floor_ms": floor,
             "launches_services": {run: c[name]
                                   for run, c in services.items()}}
         if "solo" in results[name]:
@@ -2567,7 +2842,8 @@ def main() -> int:
             "bound_by": att_bound_by(r["bytes"], r["flops"], r["dtype"]),
             "library_ms": r["library_ms"],
             "launches_tensor_core": serve_counts["routes"][name][
-                "tensor_core"]}
+                "tensor_core"],
+            "launches_train": train_counts[name]}
         if "long" in a:
             g = a["long"]
             entry.update(
@@ -2588,6 +2864,7 @@ def main() -> int:
         "library_ms": None,
         "launches_tensor_core": mamba_counts["routes"]["ssd_scan"][
             "tensor_core"],
+        "launches_train": train_counts["ssd_scan"],
         "ms_long": g["ms"],
         "plain_ms_long": g["plain_ms"], "library_ms_long": None,
         "bound_ms_long": att_bound_ms(g["bytes"], g["flops"], g["dtype"])})

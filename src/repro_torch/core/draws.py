@@ -24,8 +24,10 @@ with a member axis after T: `fleet_epoch` stacks the bundles of one
 source per member into `(T, B, ...)`, so each member follows the key
 schedule a solo simulator with its seed would follow, and `row(bundle,
 t)` gives tick t's `(B, ...)` draws.
-`TorchDraws` makes bundles with a seeded `torch.Generator` on the
-state's device; `CpuDraws` makes them on the CPU and moves them to the
+`TorchDraws` makes bundles with seeded `torch.Generator`s on the
+state's device, the price normals from a generator of their own so that
+the price path depends on the seed and S alone, as the JAX walk does
+(DESIGN.md §10); `CpuDraws` makes them on the CPU and moves them to the
 card, so a card run and a CPU run of one seed see the same draws; the
 tests pass a source that replays the JAX key schedule instead.  The
 price path is chained from the state's current price through
@@ -59,14 +61,27 @@ def fleet_epoch(sources: Sequence, T: int, state: Dict,
             for k in bundles[0]}
 
 
+# the price stream's seed is `seed + PRICE_STREAM`, apart from the stream
+# of every other draw (seeded `seed`)
+PRICE_STREAM = 0x9E3779B9
+
+
 class TorchDraws:
-    """Draw bundles from one `torch.Generator` seeded with `seed`, on
-    `device`; nothing is read on the host."""
+    """Draw bundles on `device` from two `torch.Generator`s: the price
+    normals from one seeded `seed + PRICE_STREAM`, every other draw from
+    one seeded `seed`.  The other draws' use of their stream depends on
+    N, O and (on the CPU) the Poisson rates; kept apart, the price walk
+    depends only on the seed, S and the epochs' lengths, so
+    `market.synthetic.export_walk_trace` replays any same-seed sim or
+    fleet member whatever its rates, plan, padding or observer slots.
+    Nothing is read on the host."""
 
     def __init__(self, seed: int, device):
         self.device = torch.device(device)
         self.gen = torch.Generator(device=self.device)
         self.gen.manual_seed(int(seed))
+        self.price_gen = torch.Generator(device=self.device)
+        self.price_gen.manual_seed(int(seed) + PRICE_STREAM)
 
     def _rand(self, *shape):
         return torch.rand(shape, generator=self.gen, device=self.device)
@@ -76,7 +91,7 @@ class TorchDraws:
         K = state["kv"].shape[1]
         S = state["spot_price"].shape[0]
         O = state["dobs_alive"].shape[0]
-        normals = torch.randn((T, S), generator=self.gen,
+        normals = torch.randn((T, S), generator=self.price_gen,
                               device=self.device)
         price = epoch_walk_prices(state["spot_price"],
                                   cfg_c["spot_price_mean"],

@@ -1,1 +1,2 @@
-"""Workload generators of the port (numpy only)."""
+"""Data of the port: the seeded training token stream and the serving
+workload generators (numpy makes every number)."""

@@ -1,24 +1,86 @@
-"""Step builders for serving (the port of `repro.launch.steps`):
-`make_prefill_step` and `make_decode_step`, plus the spec trees they
-share with the serving entry point.
+"""Step builders (the port of `repro.launch.steps`): `make_train_step`,
+`make_prefill_step` and `make_decode_step`, plus the spec trees and the
+train-state layout they share with the entry points.
 
 One card, so there is no mesh, no sharding rules and no constrainer.
 The steps take the port's `models.lm.LM` where the JAX steps take the
-parameter tree, run without autograd, and write the caches in place
-(the JAX decode step donates them).  Training (`make_train_step`,
-`optim/adamw`) is a later slice (ROADMAP.md §1 item 10c).
+parameter tree.  The serving steps run without autograd and write the
+caches in place (the JAX decode step donates them).  The train step's
+state is `{"params": LM (trainable), "opt": AdamW state}`, updated in
+place (the JAX step donates it); `state_tree` gives it the JAX train
+state's layout, `{"params", "opt": {"m", "v", "step"}}` with stacked
+blocks, which a checkpoint stores, and `load_state_tree` copies such a
+tree back in.
 """
 from __future__ import annotations
+
+from typing import Dict
 
 import torch
 
 from repro_torch.configs.base import ModelConfig, RunConfig, ShapeConfig
 from repro_torch.models import lm
 from repro_torch.models.common import DTYPES, ParamSpec
+from repro_torch.optim import adamw
 
 
 def param_specs(cfg: ModelConfig, runcfg: RunConfig):
     return lm.build_param_specs(cfg, DTYPES[runcfg.param_dtype])
+
+
+def train_state_specs(cfg: ModelConfig, runcfg: RunConfig):
+    ps = param_specs(cfg, runcfg)
+    opt = adamw.abstract_opt_state(ps, DTYPES[runcfg.opt_state_dtype])
+    return {"params": ps, "opt": opt}
+
+
+def batch_specs(cfg: ModelConfig, shape: ShapeConfig, *,
+                act_dtype=torch.bfloat16) -> Dict[str, ParamSpec]:
+    """ParamSpec tree for one input batch of the given shape."""
+    B, S = shape.global_batch, shape.seq_len
+    out = {
+        "tokens": ParamSpec((B, S), torch.int32, ("batch", "seq")),
+        "labels": ParamSpec((B, S), torch.int32, ("batch", "seq")),
+    }
+    if cfg.family == "vlm":
+        out["img_embeds"] = ParamSpec((B, cfg.num_image_tokens, cfg.d_model),
+                                      act_dtype, ("batch", "img_seq", None))
+    if cfg.family == "audio_encdec":
+        out["frames"] = ParamSpec((B, S, cfg.d_model), act_dtype,
+                                  ("batch", "seq", None))
+    return out
+
+
+def init_train_state(model: lm.LM, dtype=torch.float32) -> Dict:
+    """A train state around a trainable `model`: AdamW moments at zero in
+    `dtype` (JAX `launch/train.py`'s `init_opt_state(params)`: float32)."""
+    return {"params": model,
+            "opt": adamw.init_opt_state(dict(model.named_parameters()),
+                                        dtype)}
+
+
+def state_tree(state) -> Dict:
+    """The train state as the JAX train state's tree of tensors (blocks
+    stacked: a copy of those leaves), what a checkpoint stores."""
+    model, opt = state["params"], state["opt"]
+    params = {n: p.detach() for n, p in model.named_parameters()}
+    return {"params": lm.to_tree(model, params),
+            "opt": {"m": lm.to_tree(model, opt["m"]),
+                    "v": lm.to_tree(model, opt["v"]),
+                    "step": opt["step"]}}
+
+
+@torch.no_grad()
+def load_state_tree(state, tree) -> None:
+    """Copy a JAX-layout train-state tree of tensors (`state_tree`'s
+    layout, e.g. a restored checkpoint) into `state` in place."""
+    model, opt = state["params"], state["opt"]
+    named = dict(model.named_parameters())
+    for src, dst in ((tree["params"], named), (tree["opt"]["m"], opt["m"]),
+                     (tree["opt"]["v"], opt["v"])):
+        for n, t in lm.from_tree(model, src).items():
+            dst[n].copy_(t)
+    opt["step"].copy_(tree["opt"]["step"])
 
 
 def decode_state_specs(cfg: ModelConfig, shape: ShapeConfig,
@@ -28,6 +90,51 @@ def decode_state_specs(cfg: ModelConfig, shape: ShapeConfig,
     layers = lm.cache_specs(cfg, B, T, DTYPES[runcfg.activation_dtype])
     return {"pos": ParamSpec((B,), torch.int32, ("batch",), "zeros"),
             "layers": layers}
+
+
+def make_train_step(cfg: ModelConfig, runcfg: RunConfig):
+    """train_step(state, batch) -> (state, metrics): loss and gradients
+    by autograd, then AdamW in place.  With `num_microbatches` M > 1 the
+    batch splits into M slices of rows; their float32 gradients
+    accumulate in slice order from zero, then divide by M, and the loss
+    is the slices' mean, as in the JAX scan.  Metrics: `loss`, `aux`,
+    `grad_norm`, device scalars."""
+    M = runcfg.num_microbatches
+
+    def grads_of(model, names, plist, batch):
+        total, (loss, aux) = lm.loss_fn(model, batch, runcfg)
+        gs = torch.autograd.grad(total, plist)
+        return dict(zip(names, gs)), loss.detach(), aux.detach()
+
+    def train_step(state, batch):
+        model = state["params"]
+        params = dict(model.named_parameters())
+        names, plist = list(params), list(params.values())
+        if M > 1:
+            B = batch["tokens"].shape[0]
+            grads = {n: torch.zeros(p.shape, dtype=torch.float32,
+                                    device=p.device)
+                     for n, p in params.items()}
+            lsum = torch.zeros((), dtype=torch.float32,
+                               device=batch["tokens"].device)
+            for i in range(M):
+                mb = {k: v.reshape((M, B // M) + tuple(v.shape[1:]))[i]
+                      for k, v in batch.items()}
+                g, loss, _ = grads_of(model, names, plist, mb)
+                for n in names:
+                    grads[n] += g[n].float()
+                lsum = lsum + loss
+            grads = {n: g / M for n, g in grads.items()}
+            loss = lsum / M
+            aux = torch.zeros_like(loss)
+        else:
+            grads, loss, aux = grads_of(model, names, plist, batch)
+        _, _, om = adamw.adamw_update(
+            params, grads, state["opt"], lr=runcfg.learning_rate,
+            weight_decay=runcfg.weight_decay, grad_clip=runcfg.grad_clip)
+        return state, {"loss": loss, "aux": aux, **om}
+
+    return train_step
 
 
 def make_prefill_step(cfg: ModelConfig, runcfg: RunConfig):
@@ -63,3 +170,13 @@ def make_decode_step(cfg: ModelConfig, runcfg: RunConfig):
         return next_tok, {"pos": pos + 1, "layers": new_layers}
 
     return decode_step
+
+
+def make_step(cfg, runcfg, kind: str):
+    if kind == "train":
+        return make_train_step(cfg, runcfg)
+    if kind == "prefill":
+        return make_prefill_step(cfg, runcfg)
+    if kind == "decode":
+        return make_decode_step(cfg, runcfg)
+    raise ValueError(kind)

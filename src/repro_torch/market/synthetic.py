@@ -78,11 +78,12 @@ def export_walk_trace(cfg: ClusterConfig, *, seed: int, epochs: int,
     """Materialize the in-sim walk as a `MarketTrace` covering `epochs` x
     `cfg.period_ticks` ticks, bit-identical to the price path of a
     `BWRaftSim(cfg, seed=seed, device=device)` whose draw source is
-    `draws` (default `TorchDraws(seed, device)`, the sim's own default).
-    The source is consumed epoch by epoch exactly as that sim consumes
-    it: the bundle of a cluster with the sim's shapes and default rates,
-    chained from the epoch's last price.  Under the tests' JAX tape this
-    equals
+    `draws` (default `TorchDraws(seed, device)`, the sim's own default),
+    and of every same-seed fleet member, whatever their rates, arrival
+    plan, node padding or observer slots: the source is consumed epoch
+    by epoch as such a sim consumes it, chained from the epoch's last
+    price, and the price stream of either source depends only on the
+    seed and S (`core/draws.py`).  Under the tests' JAX tape this equals
     `repro.market.synthetic.export_walk_trace`.  Revocations follow the
     in-sim bid rule (price > 1.5x site mean).  Runs on the card unless
     `device="cpu"`."""

@@ -1,27 +1,43 @@
 """Attention of the dense LM (the port of `repro.models.attention`): GQA
 projections with optional bias and qk-norm, causal self-attention for
-prefill, and single-token decode against a KV cache.
+prefill, single-token decode against a KV cache, and the training
+attention.
 
-Both attention paths go through the port's hand-written kernels (a CPU
+Prefill and decode go through the port's hand-written kernels (a CPU
 tensor runs their plain twins): causal self-attention through
 `kernels.flash_attention` — the JAX model reaches the Pallas kernel only
 with `attention_impl="pallas"` and otherwise computes the same function
-with `causal_blocked_attention`, so the port has one path for both — and
-decode through `kernels.decode_attention`, the function of the JAX
-`decode_attention` (DESIGN.md §3).  Neither repeats the KV heads: the
-kernels read query head h's KV head as h // (H // KV).  `full_attention`
-and `chunked_attention` serve only the non-causal encoder and
-cross-attention paths, which are not ported yet (ROADMAP.md §1 item 10d).
+with `causal_blocked_attention`, so the port has one prefill path for
+both — and decode through `kernels.decode_attention`, the function of
+the JAX `decode_attention` (DESIGN.md §3).  Neither repeats the KV
+heads: the kernels read query head h's KV head as h // (H // KV).
+
+Training differentiates through `causal_blocked_attention`, the port of
+the JAX XLA path (`_chunk_update`, `chunked_attention`): plain torch ops
+under autograd, an online softmax over key chunks of `chunk_k` with
+padded key slots at position 2**30, query chunks of `chunk_q` that skip
+the key chunks wholly in their future (a skipped chunk is an exact no-op
+of the update), and score/exp intermediates in `acc_dtype`.  It is not
+the flash kernel's twin: JAX cannot differentiate its Pallas kernel
+either, so training never reaches a kernel.  The JAX forms' `unroll`
+(the roofline variant) and `cn` (a sharding constrainer) have no meaning
+on one card and are dropped.  `full_attention`, for the non-causal
+encoder and cross-attention paths, is not ported yet (ROADMAP.md §1 item
+10d).
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels.decode_attention.ops import \
     decode_attention as _decode_op
 from repro_torch.kernels.flash_attention.ops import \
     flash_attention as _flash_op
 from repro_torch.models.common import ParamSpec, apply_rope, rms_norm
+
+NEG_INF = -1e30
+PAD_POS = 2 ** 30          # position of a padded key slot: never attended
 
 
 def attention_params(cfg, *, cross: bool = False, dtype=torch.bfloat16):
@@ -86,3 +102,87 @@ def decode_attention(q, k_cache, v_cache, cache_len):
     """q: (B,1,H,hd); caches: (B,T,KV,hd); positions < cache_len[b]
     attended.  On the decode-attention kernel."""
     return _decode_op(q, k_cache, v_cache, cache_len.to(torch.int32))
+
+
+# ---------------------------------------------------------------------------
+# Training attention (differentiable, no kernel)
+# ---------------------------------------------------------------------------
+
+def _chunk_update(q, kc, vc, m, l, acc, smask, acc_dtype=torch.float32):
+    """One online-softmax update. q:(B,S,H,hd), kc/vc:(B,ck,H,hd),
+    smask:(B,S,ck) bool or None.  The m/l/acc carries stay float32; with
+    acc_dtype=bf16 the (B,H,S,ck) score/exp intermediates are bf16."""
+    hd = q.shape[-1]
+    s = torch.einsum("bshk,bthk->bhst", q, kc).float() / (hd ** 0.5)
+    if smask is not None:
+        s = torch.where(smask[:, None], s, NEG_INF)
+    m_new = torch.maximum(m, s.amax(dim=-1))
+    corr = torch.exp(m - m_new)
+    e = torch.exp((s - m_new[..., None]).to(acc_dtype).float()).to(acc_dtype)
+    l_new = l * corr + e.sum(dim=-1, dtype=torch.float32)
+    acc_new = acc * corr[..., None] + torch.einsum(
+        "bhst,bthk->bhsk", e, vc.to(acc_dtype)).float()
+    return m_new, l_new, acc_new
+
+
+def _pad_keys(k, v, k_pos, ck):
+    """Pad the key axis to a whole number of `ck` chunks, the padded
+    slots at position PAD_POS."""
+    T = k.shape[1]
+    Tp = -(-T // ck) * ck
+    if Tp != T:
+        k = F.pad(k, (0, 0, 0, 0, 0, Tp - T))
+        v = F.pad(v, (0, 0, 0, 0, 0, Tp - T))
+        k_pos = F.pad(k_pos, (0, Tp - T), value=PAD_POS)
+    return k, v, k_pos
+
+
+def _attend(q, k, v, q_pos, k_pos, ck, nk, causal, acc_dtype):
+    """The online softmax of q over the first `nk` key chunks of width
+    `ck` (k, v, k_pos already padded).  Returns (B,S,H,hd) in q's dtype."""
+    B, S, H, hd = q.shape
+    dev = q.device
+    m = torch.full((B, H, S), NEG_INF, dtype=torch.float32, device=dev)
+    l = torch.zeros((B, H, S), dtype=torch.float32, device=dev)
+    acc = torch.zeros((B, H, S, hd), dtype=torch.float32, device=dev)
+    for i in range(nk):
+        sl = slice(i * ck, (i + 1) * ck)
+        kp = k_pos[:, sl]
+        if causal:
+            smask = kp[:, None, :] <= q_pos[:, :, None]
+        else:       # non-causal: only exclude padded key slots
+            smask = (kp < PAD_POS)[:, None, :].expand(B, S, kp.shape[1])
+        m, l, acc = _chunk_update(q, k[:, sl], v[:, sl], m, l, acc, smask,
+                                  acc_dtype)
+    out = acc / torch.clamp(l[..., None], min=1e-30)
+    return out.transpose(1, 2).to(q.dtype)                  # (B,S,H,hd)
+
+
+def chunked_attention(q, k, v, *, q_pos, k_pos, causal=True,
+                      chunk_k=2048, acc_dtype=torch.float32):
+    """Flash-style attention over all key chunks with a running softmax:
+    q (B,S,H,hd) at positions q_pos (B,S), k/v (B,T,H,hd) at k_pos
+    (B,T)."""
+    ck = min(chunk_k, k.shape[1])
+    k, v, k_pos = _pad_keys(k, v, k_pos, ck)
+    return _attend(q, k, v, q_pos, k_pos, ck, k.shape[1] // ck, causal,
+                   acc_dtype)
+
+
+def causal_blocked_attention(q, k, v, *, chunk_q=2048, chunk_k=2048,
+                             acc_dtype=torch.float32):
+    """Causal self-attention over aligned q/k (B,S,H,hd) at positions
+    [0,S), the training path: the key chunks are the JAX scan's (width
+    min(chunk_k, S) from 0), and each query chunk of `chunk_q` runs only
+    the chunks up to its causal horizon."""
+    B, S, H, hd = q.shape
+    ck = min(chunk_k, S)
+    cq = min(chunk_q, S)
+    pos = torch.arange(S, device=q.device)[None].expand(B, S)
+    kp, vp, kpos = _pad_keys(k, v, pos, ck)
+    outs = []
+    for lo in range(0, S, cq):
+        hi = min(lo + cq, S)
+        outs.append(_attend(q[:, lo:hi], kp, vp, pos[:, lo:hi], kpos, ck,
+                            -(-hi // ck), True, acc_dtype))
+    return outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)

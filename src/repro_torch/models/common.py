@@ -141,3 +141,16 @@ def swiglu(x, wg, wu, wd, *, bg=None, bu=None, bd=None):
     if bd is not None:
         out = out + bd
     return out
+
+
+def cross_entropy(logits, labels, vocab_size: int):
+    """Mean next-token cross entropy in float32; logits may carry padded
+    vocab entries, masked to -1e30 before the logsumexp."""
+    padded = logits.shape[-1]
+    logits = logits.float()
+    if padded != vocab_size:
+        mask = torch.arange(padded, device=logits.device) < vocab_size
+        logits = torch.where(mask, logits, -1e30)
+    lse = torch.logsumexp(logits, dim=-1)
+    picked = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    return torch.mean(lse - picked)

@@ -14,23 +14,36 @@ and {"r{r}": {"ssm": {"ssm", "conv_x", "conv_B", "conv_C"}}} with leaves
 place by prefill and decode.  Public functions keep the JAX layout
 (B,S,H,hd).
 
+Training (`forward(mode="train")`, `loss_fn`) runs the same layers with
+no caches under autograd, attention through
+`attention.causal_blocked_attention` and SSD layers through
+`ssd.ssd_chunked` (the JAX training forms; no kernel has a backward);
+`runcfg.remat` recomputes each layer period (or each block, with
+`remat_policy="block"`) in the backward pass through
+`torch.utils.checkpoint`, as `jax.checkpoint` does in JAX.  `leaf_names`,
+`to_tree` and `from_tree` map the unstacked parameters (and anything
+keyed by their names: gradients, AdamW moments) to and from the JAX
+tree with stacked blocks, the layout of a checkpoint.
+
 The MoE, cross-attention and encoder branches are not ported yet and
 raise `NotImplementedError` naming their ROADMAP item.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, NamedTuple, Tuple
+import functools
+from typing import Any, Dict, List, NamedTuple, Tuple
 
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import ssd as ssd_mod
-from repro_torch.models.common import (DTYPES, ParamSpec, init_tree,
-                                       rms_norm, swiglu, tree_items,
-                                       tree_map, zeros_tree)
+from repro_torch.models.common import (DTYPES, ParamSpec, cross_entropy,
+                                       init_tree, rms_norm, swiglu,
+                                       tree_items, tree_map, zeros_tree)
 
 
 class LayerKind(NamedTuple):
@@ -162,10 +175,11 @@ class LM(nn.Module):
     """The model: `embed` (Vp,D), `final_norm`, `head` (D,Vp) when the
     embeddings are not tied, and `blocks`, one `Block` per layer whose
     `attn` or `ssd`, and `mlp`, map the JAX names to parameters.
-    Inference only: no parameter takes a gradient.  Applied by
+    Frozen (no parameter takes a gradient) unless `trainable`, which a
+    training run asks for; serving keeps it frozen.  Applied by
     `forward`."""
 
-    def __init__(self, cfg, tree):
+    def __init__(self, cfg, tree, trainable: bool = False):
         super().__init__()
         self.cfg = cfg
         self.kinds = layer_kinds(cfg)
@@ -178,19 +192,21 @@ class LM(nn.Module):
             Block(self.kinds[r],
                   tree_map(lambda a, g=g: a[g], tree["blocks"][f"r{r}"]))
             for g in range(G) for r in range(P))
-        self.requires_grad_(False)
+        self.requires_grad_(trainable)
 
 
-def init_lm(cfg, runcfg, *, seed: int = 0, device=None) -> LM:
+def init_lm(cfg, runcfg, *, seed: int = 0, device=None,
+            trainable: bool = False) -> LM:
     """Random weights from `seed`, made on `device` by `init_tree`;
     `device` None means the card (`repro_torch.resolve_device`)."""
     device = resolve_device(device)
     gen = torch.Generator(device=device).manual_seed(seed)
     specs = build_param_specs(cfg, DTYPES[runcfg.param_dtype])
-    return LM(cfg, init_tree(gen, specs))
+    return LM(cfg, init_tree(gen, specs), trainable)
 
 
-def from_numpy(params_np, cfg, runcfg, device=None) -> LM:
+def from_numpy(params_np, cfg, runcfg, device=None,
+               trainable: bool = False) -> LM:
     """The JAX parameter tree (`repro.models.common.init_tree` of
     `param_specs`) as numpy arrays -> the port's `LM` on `device`.
     bfloat16 leaves come as their uint16 bits (`a.view(np.uint16)`),
@@ -220,20 +236,83 @@ def from_numpy(params_np, cfg, runcfg, device=None) -> LM:
         for k in path[:-1]:
             out = out.setdefault(k, {})
         out[path[-1]] = t.to(device)
-    return LM(cfg, tree)
+    return LM(cfg, tree, trainable)
+
+
+def leaf_names(model: LM) -> List[Tuple[Tuple[str, ...], Tuple[str, ...]]]:
+    """(JAX path, parameter names): every leaf of the JAX parameter tree
+    in flatten order, with the `named_parameters` names that hold it —
+    its own name for a top-level leaf, and layer g*P + r's for g = 0..G-1
+    for the stacked block leaf ("blocks", "r{r}", part, name)."""
+    P = len(model.kinds)
+    G = model.cfg.num_layers // P
+    out = []
+    for path, _ in tree_items(build_param_specs(model.cfg)):
+        if path[0] == "blocks":
+            r = int(path[1][1:])
+            names = tuple(f"blocks.{g * P + r}.{path[2]}.{path[3]}"
+                          for g in range(G))
+        else:
+            names = (path[0],)
+        out.append((path, names))
+    return out
+
+
+def to_tree(model: LM, named: Dict[str, torch.Tensor]) -> Dict:
+    """The JAX-layout tree of tensors keyed by parameter name (the
+    parameters, their gradients, AdamW moments): block leaves stacked on
+    a leading G (a copy), top-level leaves as they are."""
+    tree: Dict[str, Any] = {}
+    for path, names in leaf_names(model):
+        node = tree
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = (torch.stack([named[n] for n in names])
+                          if path[0] == "blocks" else named[names[0]])
+    return tree
+
+
+def from_tree(model: LM, tree) -> Dict[str, Any]:
+    """The inverse of `to_tree`: {parameter name: leaf or leaf[g]} from a
+    JAX-layout tree (of tensors or numpy arrays)."""
+    out: Dict[str, Any] = {}
+    for path, names in leaf_names(model):
+        node = tree
+        for k in path:
+            node = node[k]
+        if path[0] == "blocks":
+            out.update({n: node[g] for g, n in enumerate(names)})
+        else:
+            out[names[0]] = node
+    return out
 
 
 # ---------------------------------------------------------------------------
 # Layer application
 # ---------------------------------------------------------------------------
 
-def _attn_mixer(p, h, cfg, *, mode, cache, positions, cache_len=None):
-    """Causal self-attention mixer; writes this layer's K/V into `cache`
-    (a cache at capacity) in place.  Returns its output."""
+def _attn_mixer(p, h, cfg, *, mode, cache, positions, cache_len=None,
+                runcfg=None):
+    """Causal self-attention mixer; in prefill and decode it writes this
+    layer's K/V into `cache` (a cache at capacity) in place, in training
+    it takes no cache.  Returns its output."""
     B, S, _ = h.shape
     x = rms_norm(h, p["pre_norm"], cfg.norm_eps)
     q, k, v = attn_mod._project_qkv(p, x, x, cfg, positions, positions,
                                     rope=True)
+    if mode == "train":
+        if runcfg.attention_impl == "pallas":
+            raise ValueError(
+                "attention_impl='pallas' cannot train: the flash kernel "
+                "has no backward, as JAX cannot differentiate its Pallas "
+                "kernel either; train with attention_impl='xla'")
+        H = cfg.num_heads
+        o = attn_mod.causal_blocked_attention(
+            q, attn_mod.repeat_kv(k, H), attn_mod.repeat_kv(v, H),
+            chunk_q=runcfg.attn_chunk_q, chunk_k=runcfg.attn_chunk_k,
+            acc_dtype=DTYPES[runcfg.attn_acc_dtype])
+        wo = p["wo"]
+        return o.reshape(B, S, -1) @ wo.reshape(-1, wo.shape[-1])
     ck, cv = cache["k"], cache["v"]
     if mode == "decode":
         # The JAX step writes position cache_len[b] with a one-hot select
@@ -257,8 +336,12 @@ def _attn_mixer(p, h, cfg, *, mode, cache, positions, cache_len=None):
 def _ssd_mixer(p, h, cfg, *, mode, cache):
     """SSD mixer: prefill scans the prompt from a zero state (any state in
     `cache` is ignored, as in the JAX model) and copies the final state
-    into `cache`; decode updates `cache` in place.  Returns its output."""
+    into `cache`; decode updates `cache` in place; training runs the
+    differentiable chunked scan and keeps no state.  Returns its
+    output."""
     x = rms_norm(h, p["pre_norm"], cfg.norm_eps)
+    if mode == "train":
+        return ssd_mod.ssd_chunked(p, x, cfg)
     if mode == "decode":
         return ssd_mod.ssd_decode(p, x, cache, cfg)[0]
     o, state = ssd_mod.ssd_apply(p, x, cfg)
@@ -268,16 +351,18 @@ def _ssd_mixer(p, h, cfg, *, mode, cache):
 
 
 def apply_block(block: Block, h, cfg, *, mode, cache, positions,
-                cache_len=None):
+                cache_len=None, runcfg=None):
     """One layer; `cache` is its {"self": {"k", "v"}} (attention) or
-    {"ssm": {...}} (SSD) slice.  Returns h."""
+    {"ssm": {...}} (SSD) slice, None in training.  Returns h."""
     kind = block.kind
     if kind.mixer == "attn":
         h = h + _attn_mixer(block.attn, h, cfg, mode=mode,
-                            cache=cache["self"], positions=positions,
-                            cache_len=cache_len)
+                            cache=cache["self"] if cache else None,
+                            positions=positions, cache_len=cache_len,
+                            runcfg=runcfg)
     else:
-        h = h + _ssd_mixer(block.ssd, h, cfg, mode=mode, cache=cache["ssm"])
+        h = h + _ssd_mixer(block.ssd, h, cfg, mode=mode,
+                           cache=cache["ssm"] if cache else None)
     if kind.ffn == "mlp":
         p = block.mlp
         x = rms_norm(h, p["pre_norm"], cfg.norm_eps)
@@ -287,12 +372,38 @@ def apply_block(block: Block, h, cfg, *, mode, cache, positions,
     return h
 
 
-def run_stack(model: LM, h, *, mode, caches, positions, cache_len=None):
+def _train_period(model: LM, g: int, h, positions, runcfg):
+    """Layers g*P .. g*P + P-1 in training mode, each block recomputed
+    in the backward pass when `runcfg.remat_policy == "block"`."""
+    P = len(model.kinds)
+    for r in range(P):
+        blk = functools.partial(apply_block, model.blocks[g * P + r],
+                                cfg=model.cfg, mode="train", cache=None,
+                                positions=positions, runcfg=runcfg)
+        if runcfg.remat and runcfg.remat_policy == "block":
+            h = checkpoint(blk, h, use_reentrant=False)
+        else:
+            h = blk(h)
+    return h
+
+
+def run_stack(model: LM, h, *, mode, caches, positions, cache_len=None,
+              runcfg=None):
     """All num_layers layers, layer g*P + r in order, each writing its
-    slice of `caches` (the JAX tree with leading G) in place."""
+    slice of `caches` (the JAX tree with leading G) in place; training
+    takes no caches and, with `runcfg.remat`, recomputes each period of
+    P layers (the JAX default policy) in the backward pass."""
     cfg, kinds = model.cfg, model.kinds
     P = len(kinds)
     G = cfg.num_layers // P
+    if mode == "train":
+        for g in range(G):
+            if runcfg.remat and runcfg.remat_policy != "block":
+                h = checkpoint(_train_period, model, g, h, positions,
+                               runcfg, use_reentrant=False)
+            else:
+                h = _train_period(model, g, h, positions, runcfg)
+        return h
     for g in range(G):
         for r in range(P):
             h = apply_block(model.blocks[g * P + r], h, cfg, mode=mode,
@@ -315,14 +426,16 @@ def _unembed(model: LM, h):
     return h @ head
 
 
-def forward(model: LM, tokens, *, mode: str, caches, cache_len=None):
-    """tokens: (B,S) int.  `caches` are decode caches at capacity T >= S
-    (`alloc_caches`), written in place.  mode "prefill" (positions
-    0..S-1, K/V into cache positions 0..S-1, SSD states after token S-1)
-    or "decode" (S = 1 at positions cache_len).  Returns (logits
+def forward(model: LM, tokens, *, mode: str, caches=None, cache_len=None,
+            runcfg=None):
+    """tokens: (B,S) int.  mode "prefill" (positions 0..S-1, K/V into
+    cache positions 0..S-1, SSD states after token S-1) or "decode" (S =
+    1 at positions cache_len) write `caches`, decode caches at capacity
+    T >= S (`alloc_caches`), in place; mode "train" takes no caches and
+    needs `runcfg` (attention chunks and dtype, remat).  Returns (logits
     (B,S,Vp), caches)."""
-    if mode not in ("prefill", "decode"):
-        raise unported(f"forward mode {mode!r} (training)", "10c")
+    if mode not in ("prefill", "decode", "train"):
+        raise ValueError(f"mode={mode!r}")
     B, S = tokens.shape
     if mode == "decode":
         positions = cache_len[:, None]
@@ -330,5 +443,15 @@ def forward(model: LM, tokens, *, mode: str, caches, cache_len=None):
         positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
     h = _embed(model, tokens)
     h = run_stack(model, h, mode=mode, caches=caches, positions=positions,
-                  cache_len=cache_len)
+                  cache_len=cache_len, runcfg=runcfg)
     return _unembed(model, h), caches
+
+
+def loss_fn(model: LM, batch, runcfg):
+    """Next-token cross entropy (+ 0.01 x the MoE aux loss, 0 for the
+    ported families).  batch: tokens, labels.  Returns (total, (loss,
+    aux))."""
+    logits, _ = forward(model, batch["tokens"], mode="train", runcfg=runcfg)
+    loss = cross_entropy(logits, batch["labels"], model.cfg.vocab_size)
+    aux = torch.zeros((), dtype=torch.float32, device=loss.device)
+    return loss + 0.01 * aux, (loss, aux)

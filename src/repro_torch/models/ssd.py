@@ -4,12 +4,15 @@ exp(A_log))``, rank-1 state updates ``h_t = a_t h_{t-1} + dt_t (B_t ⊗
 x_t)`` with shared (G=1) B/C projections, computed chunk-parallel in
 prefill and one token at a time in decode (arXiv:2405.21060).
 
-`ssd_apply` runs the chunked scan through the `ssd_scan` op, so on the
-card it is the hand-written kernel (`kernels/csrc/ssd_scan.cu`) and on
-the CPU its plain twin.  The op accumulates both chunk products in
-float32, as the Pallas kernel does, where the JAX `ssd_apply` rounds
+`ssd_apply` (prefill) runs the chunked scan through the `ssd_scan` op,
+so on the card it is the hand-written kernel (`kernels/csrc/ssd_scan.cu`)
+and on the CPU its plain twin.  The op accumulates both chunk products
+in float32, as the Pallas kernel does, where the JAX `ssd_apply` rounds
 its intra-chunk output and chunk states to the activation dtype; in
 float32 the two agree to rounding, in bfloat16 by one bf16 rounding.
+`ssd_chunked` (training) is the JAX `ssd_apply` itself in plain torch
+ops under autograd, its roundings to the activation dtype included: the
+JAX package trains through that jnp code, not through a kernel.
 The JAX forms' `unroll` (a Python loop over chunks for the roofline
 path) and `cn` (a sharding constrainer) have no meaning on one card and
 are dropped.
@@ -122,6 +125,66 @@ def ssd_apply(p, x, cfg):
              "conv_B": conv_B_st.to(x.dtype),
              "conv_C": conv_C_st.to(x.dtype)}
     return out, state
+
+
+def ssd_chunked(p, x, cfg):
+    """Training path, differentiable: the JAX `ssd_apply` op for op.
+    x:(B,S,D) -> y:(B,S,D) (training keeps no state, so none is
+    returned).  The intra-chunk weights and the chunk-state weights round
+    to x's dtype before their products, as in JAX; the carries and the
+    inter-chunk term stay float32."""
+    B, S, _ = x.shape
+    H, P, N = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
+    Q = min(cfg.ssm_chunk, S)
+    S_pad = -(-S // Q) * Q
+
+    z, xs, Bm, Cm, dt = _project(p, x)
+    xs, Bm, Cm = (_silu(_causal_conv(t, p[k])[0], x.dtype)
+                  for t, k in ((xs, "conv_x"), (Bm, "conv_B"),
+                               (Cm, "conv_C")))
+    if S_pad != S:
+        # pad the tail after the projection with dt = 0: padded steps are
+        # exact no-ops in the recurrence
+        pad = (0, 0, 0, S_pad - S)
+        xs, Bm, Cm, dt = (F.pad(t, pad) for t in (xs, Bm, Cm, dt))
+    nc = S_pad // Q
+
+    xh = xs.reshape(B, nc, Q, H, P)
+    Bc = Bm.reshape(B, nc, Q, N)
+    Cc = Cm.reshape(B, nc, Q, N)
+    dtc = dt.reshape(B, nc, Q, H)
+    loga = -torch.exp(p["A_log"]) * dtc                        # f32
+    cs = torch.cumsum(loga, dim=2)                             # within-chunk
+
+    # intra-chunk term: step j's contribution to output i >= j
+    Lij = cs[:, :, :, None, :] - cs[:, :, None, :, :]          # (B,nc,Q,Q,H)
+    tri = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=x.device))
+    Ldec = torch.where(tri[None, None, :, :, None], torch.exp(Lij), 0.0)
+    scores = torch.einsum("bcin,bcjn->bcij", Cc, Bc)           # (B,nc,Q,Q)
+    w_ij = scores[..., None] * Ldec * dtc[:, :, None, :, :]
+    y_diag = torch.einsum("bcijh,bcjhp->bcihp", w_ij.to(x.dtype), xh)
+
+    # chunk summary states: s_c = sum_j exp(cs_Q - cs_j) dt_j B_j (x) x_j
+    decay_to_end = torch.exp(cs[:, :, -1:, :] - cs)            # (B,nc,Q,H)
+    wB = Bc[..., None, :] * (decay_to_end * dtc)[..., :, None]
+    s_chunk = torch.einsum("bcqhn,bcqhp->bchpn", wB.to(x.dtype), xh)
+
+    # inter-chunk recurrence over the running state
+    chunk_decay = torch.exp(cs[:, :, -1, :])                   # (B,nc,H)
+    h = torch.zeros((B, H, P, N), dtype=torch.float32, device=x.device)
+    hs = []
+    for c in range(nc):
+        hs.append(h)
+        h = h * chunk_decay[:, c, :, None, None] + s_chunk[:, c].float()
+    h_prev = torch.stack(hs, dim=1)                            # (B,nc,H,P,N)
+
+    # off-diagonal term: y_off_i = exp(cs_i) * C_i . h_prev
+    y_off = torch.einsum("bcqn,bchpn->bcqhp", Cc.float(), h_prev)
+    y_off = y_off * torch.exp(cs)[..., None]
+    y = y_diag.float() + y_off
+    y = y + xh.float() * p["D_skip"][:, None]
+    y = y.reshape(B, S_pad, H * P)[:, :S]
+    return _gate_out(p, y, z, x.dtype, cfg)
 
 
 def ssd_init_cache(cfg, batch: int, dtype=torch.bfloat16, device=None):

@@ -797,3 +797,140 @@ def test_run_chaos_on_the_card():
     assert card.events == host.events
     assert card.safety_error is None and card.trace_leader_match
     assert card.killed_total >= 1
+
+
+def _walk_cluster(name, followers):
+    from repro_torch.core.cluster_config import ClusterConfig, SiteConfig
+    sites = tuple(SiteConfig(f"{name}{i}", followers=f, rtt_intra=1,
+                             rtt_inter=6 + 2 * i, on_demand_price=0.0416,
+                             spot_price_mean=0.0125 + 0.001 * i)
+                  for i, f in enumerate(followers))
+    return ClusterConfig(name=name, sites=sites, max_log=256, key_space=64,
+                         max_secretaries=4, max_observers=8,
+                         period_ticks=50)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["default", "write16", "open_loop",
+                                  "observers", "pad_nodes", "fleet"])
+def test_export_walk_trace_replays_on_the_card(case):
+    """The walk exported on the card from `TorchDraws(seed)` replays a
+    same-seed card sim at the exporter's rates and shapes, at another
+    write rate, under an open-loop plan, with digest-tier observers,
+    with padded nodes, and as a fleet member padded to a wider member:
+    the trace-market run's reports and state equal the process-market
+    run's (the price stream depends on the seed and S alone)."""
+    _need_cuda()
+    from repro_torch import market as TM
+    from repro_torch import workload as TW
+    from repro_torch.core.fleet import FleetSim, MemberSpec
+    from repro_torch.core.runtime import BWRaftSim
+    from repro_torch.core.state import member
+    dev = torch.device("cuda")
+    cfg = _walk_cluster("gwalk", (2, 1))
+    trace = TM.export_walk_trace(cfg, seed=4, epochs=2, device=dev)
+    if case == "fleet":
+        other = MemberSpec(cfg=_walk_cluster("gwide", (4, 3)), seed=9)
+        a = FleetSim([MemberSpec(cfg=cfg, seed=4, phi=0.02), other],
+                     device=dev)
+        b = FleetSim([MemberSpec(cfg=cfg, seed=4, phi=0.02, market="trace",
+                                 trace=trace), other], device=dev)
+        for e in range(2):
+            assert repr(a.run_epoch()[0]) == repr(b.run_epoch()[0]), e
+        sa, sb = member(a.state, 0), member(b.state, 0)
+    else:
+        kw = {"default": {}, "write16": {"write_rate": 16.0},
+              "observers": {"n_observers": 16},
+              "pad_nodes": {"pad_nodes": 3},
+              "open_loop": {"arrivals": TW.OpenLoop(
+                  write=TW.DiurnalRate(3.0, amplitude=0.5, phase=0.3),
+                  read=TW.FlashCrowd(TW.DiurnalRate(20.0, amplitude=0.5),
+                                     mult=4.0, every_ticks=25,
+                                     burst_ticks=5),
+                  ticks=60)}}[case]
+        a = BWRaftSim(cfg, seed=4, phi=0.02, device=dev, **kw)
+        b = BWRaftSim(cfg, seed=4, phi=0.02, market="trace", trace=trace,
+                      device=dev, **kw)
+        for e in range(2):
+            assert repr(a.run_epoch()) == repr(b.run_epoch()), (case, e)
+        sa, sb = a.state, b.state
+    for k, v in sa.items():
+        assert torch.equal(v, sb[k]), (case, k)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M", [1, 2])
+def test_train_step_on_the_card(M):
+    """One float32 train step of the reduced smollm-360m (TF32 off) on
+    the card against the CPU from the same weights and batch: loss and
+    grad_norm rtol 1e-4, every parameter within 2 x lr + 1e-6 relative
+    (AdamW's first step is +-lr wherever |g| >> eps, so a gradient of
+    rounding size that flips sign moves a parameter by up to 2 x lr)."""
+    _need_cuda()
+    import copy
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    from repro_torch.launch import steps as S
+    from repro_torch.models import lm
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config("smollm-360m").reduced().with_layers(2)
+    run = RunConfig(remat=True, param_dtype="float32",
+                    activation_dtype="float32", num_microbatches=M)
+    m0 = lm.init_lm(cfg, run, seed=3, device="cpu", trainable=True)
+    batch = TokenPipeline(DataConfig(cfg.vocab_size, 32, 4)).batch_at(
+        0, device="cpu")
+    out = []
+    for dev in ("cpu", "cuda"):
+        st = S.init_train_state(copy.deepcopy(m0).to(dev))
+        st, met = S.make_train_step(cfg, run)(
+            st, {k: v.to(dev) for k, v in batch.items()})
+        out.append((met, [p.detach().cpu() for p in
+                          st["params"].parameters()]))
+    (mc, pc), (mg, pg) = out
+    for k in ("loss", "grad_norm"):
+        assert abs(mg[k].item() - mc[k].item()) <= 1e-4 * abs(mc[k].item())
+    for a, b in zip(pc, pg):
+        assert ((a - b).abs() <= 2 * run.learning_rate + 1e-6 * a.abs()
+                ).all()
+
+
+@pytest.mark.gpu
+def test_coordinator_and_checkpoint_on_the_card(tmp_path):
+    """The coordinator on the card: a leader, a CKPT_COMMIT read back
+    from the state machine, a new leader after killing the old one, and
+    a card tree restored from the store bit for bit with its digest; the
+    four per-tick kernels launch once per coordinator tick."""
+    _need_cuda()
+    from repro_torch import kernels as K
+    from repro_torch.checkpoint.store import CheckpointStore, tree_digest
+    from repro_torch.coord.coordinator import ConsensusCoordinator
+    from repro_torch.core import state as SM
+    cfg = _walk_cluster("gcoord", (2, 2, 1))
+    K.reset_launch_counts()
+    coord = ConsensusCoordinator(cfg, seed=2)
+    lid = coord.wait_for_leader()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    tree = {"w": torch.randn((300, 40), generator=gen, device="cuda")
+            .to(torch.bfloat16),
+            "opt": {"step": torch.ones((), dtype=torch.int32,
+                                       device="cuda")}}
+    store = CheckpointStore(str(tmp_path))
+    digest = store.save(7, tree, blocking=False)
+    store.wait()
+    coord.commit_checkpoint(7, digest)
+    assert coord.last_committed_checkpoint() == (7, int(digest[:3], 16))
+    coord.kill_pod(lid)
+    assert coord.wait_for_leader() != lid
+    coord.kv._step(20)
+    step, tag = coord.last_committed_checkpoint()
+    got, d2 = store.restore(step, tree)
+    assert d2 == digest == tree_digest(got) and tag == int(d2[:3], 16)
+    assert got["w"].device.type == "cuda"
+    assert torch.equal(got["w"], tree["w"])
+    ticks = int(coord.sim.state["tick"])
+    counts = K.launch_counts()
+    assert ticks > 0 and all(counts[k] == ticks for k in (
+        "log_match_append", "commit_majority", "apply_last_wins",
+        "leader_fanout"))
+    assert SM.leader_id(coord.sim.state).device.type == "cuda"

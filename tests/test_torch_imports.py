@@ -1,6 +1,7 @@
 """Package rules of the PyTorch port: importing `repro_torch` and every
 one of its modules (the fleet, Multi-Raft, the model stack with its SSD
-mixer, the serving loop and every kernel family included) loads no
+mixer, the serving loop, the training path — optimizer, checkpoint
+store, coordinator, `launch.train` — and every kernel family included) loads no
 `jax` module and nothing of the `repro` package (checked in a fresh
 interpreter), importing builds nothing, and an entry point given no
 device runs on the card or raises — it never falls back to the CPU
@@ -38,7 +39,7 @@ def test_port_imports_no_jax_and_no_repro():
                          capture_output=True, text=True, timeout=120,
                          check=True)
     lines = out.stdout.splitlines() + [""]
-    assert int(lines[0]) >= 76, out.stdout
+    assert int(lines[0]) >= 85, out.stdout
     assert lines[1] == "", f"the port imported {lines[1]}"
 
 
@@ -55,10 +56,24 @@ def test_entry_points_need_a_device():
     from repro_torch.core.runtime import BWRaftSim
     from repro_torch.models import lm
     cfg = get_config("smollm-360m").reduced()
+    from repro_torch.coord.coordinator import ConsensusCoordinator
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    from repro_torch.launch import train
+    pipe = TokenPipeline(DataConfig(vocab_size=64, seq_len=4,
+                                    global_batch=2))
     if torch.cuda.is_available():
         assert resolve_device(None).type == "cuda"
         assert lm.init_lm(cfg, RunConfig()).embed.device.type == "cuda"
+        assert pipe.batch_at(0)["tokens"].device.type == "cuda"
+        assert ConsensusCoordinator(CONFIG).sim.state["kv"].device.type == \
+            "cuda"
         return
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        pipe.batch_at(0)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ConsensusCoordinator(CONFIG)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train.main(["--steps", "1"])
     from repro_torch.core.fleet import FleetSim, MemberSpec
     from repro_torch.core.multiraft import MultiRaftSim
     with pytest.raises(RuntimeError, match="device='cpu'"):

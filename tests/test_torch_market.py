@@ -141,6 +141,65 @@ def test_export_walk_trace_replays_bit_identically():
         assert torch.equal(v, b.state[k]), k
 
 
+def _replay_kw(case):
+    """Sim knobs of the replay cases: each changes how much of the
+    non-price draw stream an epoch uses (its rates, its plan, N, O)."""
+    from repro_torch import workload as TW
+    if case == "write16":
+        return {"write_rate": 16.0}
+    if case == "open_loop":
+        return {"arrivals": TW.OpenLoop(
+            write=TW.DiurnalRate(3.0, amplitude=0.5, phase=0.3),
+            read=TW.FlashCrowd(TW.DiurnalRate(20.0, amplitude=0.5),
+                               mult=4.0, every_ticks=25, burst_ticks=5),
+            ticks=60)}
+    if case == "observers":
+        return {"n_observers": 16}
+    return {"pad_nodes": 3}
+
+
+@pytest.mark.parametrize("case", ["write16", "open_loop", "observers",
+                                  "pad_nodes"])
+def test_export_walk_trace_replays_other_rates_and_shapes(case):
+    """The replay invariant away from the exporter's own rates and
+    shapes: the walk exported from `TorchDraws(seed)` replays a
+    same-seed sim at another write rate, under an open-loop plan, with
+    digest-tier observers or with padded nodes, reports and state
+    exactly (the price stream depends on the seed and S alone)."""
+    cfg = port_config(small_config())
+    kw = dict(seed=4, phi=0.02, device="cpu", **_replay_kw(case))
+    trace = TM.export_walk_trace(cfg, seed=4, epochs=2, device="cpu")
+    a = TRT.BWRaftSim(cfg, **kw)
+    b = TRT.BWRaftSim(cfg, market="trace", trace=trace, **kw)
+    for e in range(2):
+        assert repr(a.run_epoch()) == repr(b.run_epoch()), (case, e)
+    for k, v in a.state.items():
+        assert torch.equal(v, b.state[k]), (case, k)
+
+
+def test_export_walk_trace_replays_a_padded_fleet_member():
+    """A fleet member padded to a wider member's N follows the walk the
+    exporter gives for its own cluster and seed: fed back as a trace
+    market, the member's reports and state are the process-market
+    run's."""
+    from repro_torch.core.fleet import FleetSim, MemberSpec
+    from repro_torch.core.state import member
+    cfg = port_config(small_config())
+    wide = port_config(small_config("twide", followers=(4, 3)))
+    trace = TM.export_walk_trace(cfg, seed=4, epochs=2, device="cpu")
+    other = MemberSpec(cfg=wide, seed=9)
+    a = FleetSim([MemberSpec(cfg=cfg, seed=4, phi=0.02), other],
+                 device="cpu")
+    b = FleetSim([MemberSpec(cfg=cfg, seed=4, phi=0.02, market="trace",
+                             trace=trace), other], device="cpu")
+    assert a.state["role"].shape[1] == wide.max_nodes > cfg.max_nodes
+    for e in range(2):
+        assert repr(a.run_epoch()[0]) == repr(b.run_epoch()[0]), e
+    sa, sb = member(a.state, 0), member(b.state, 0)
+    for k, v in sa.items():
+        assert torch.equal(v, sb[k]), k
+
+
 # --------------------------------------------------------------------- #
 # market/calibrate.py
 # --------------------------------------------------------------------- #
