@@ -5,13 +5,17 @@
     python3 chip_smoke.py --profile  # also profiles 10 ticks of the solo
                                      # and of the fleet path, and a
                                      # prefill and 4 decode steps of each
-                                     # serve path, smollm-360m and
-                                     # mamba2-130m, and 2 full-width
-                                     # train steps (device busy share,
-                                     # kernels by name)
+                                     # serve path, smollm-360m,
+                                     # mamba2-130m and phase 16's three,
+                                     # and 2 full-width train steps
+                                     # (device busy share, kernels by
+                                     # name)
     python3 chip_smoke.py --phase10 N  # phases 1, 8, 9, then phase 10's
                                      # float32 smollm check N times
     python3 chip_smoke.py --phase15  # phases 1 and 15 (training)
+    python3 chip_smoke.py --phase16  # phases 1, 8 (without the long
+                                     # shapes) and 16 (MoE, cross-
+                                     # attention, encoder-decoder)
 
 Phases, each fatal on failure:
 
@@ -86,13 +90,17 @@ Phases, each fatal on failure:
    causal and not, ragged S, T and cache_len, S < T and S > T, the
    tensor-core route's tile edges (S = 1, 63, 64, 65, 127, 129; T off
    the 64-row tile; cache_len 1 and T), GQA groups 1, 3 and 8, hd 16 to
-   128, within float32 2e-4 / bfloat16 3e-2, with the launches of each
-   route (tensor_core: bf16 at hd 64/128; scalar: the rest) printed and
-   both routes required to run; then device times of kernel, twin and
-   one library call (`scaled_dot_product_attention`, timed only) at the
-   serve shapes (flash B=8, S=512, 15 heads over 5, hd=64; decode B=8,
-   T=544) and the long ones (flash B=1, S=8192; decode B=32, T=32768),
-   kernel and library each on inputs rotated through enough copies to
+   128, phase 16(b)'s serve shapes (prefill B = 8, S = 128 at 64 heads
+   over 8 and 16 over 16 with hd 128, 16 over 16 with hd 64; decode at
+   capacity 144 with ragged cache_len, vision's cross cache of 1,600
+   image tokens all read, seamless's cross cache of capacity 144 with
+   cache_len 128), within float32 2e-4 / bfloat16 3e-2, with the
+   launches of each route (tensor_core: bf16 at hd 64/128; scalar: the
+   rest) printed and both routes required to run; then device times
+   of kernel, twin and one library call (`scaled_dot_product_attention`,
+   timed only) at the serve shapes (flash B=8, S=512, 15 heads over 5,
+   hd=64; decode B=8, T=544) and the long ones (flash B=1, S=8192;
+   decode B=32, T=32768), kernel and library each on inputs rotated through enough copies to
    defeat the L2, and decode also with one split (no combine) and at
    B=1, T=32768, where its cache splits matter;
 9. the SSD scan against its twin on the card: bfloat16 and float32
@@ -174,9 +182,37 @@ Phases, each fatal on failure:
    kernel launched once per coordinator tick, every other kernel 0;
    ms per train step, training tokens/s, save, restore and commit
    times, ticks per commit and peak memory printed;
-16. a `kernels` JSON line (with each kernel's launches in phase 15,
-   `launches_train`), the card line, and the last line
-   `{"ok": true, "device": {...}}`.
+16. MoE, cross-attention and the encoder-decoder (ROADMAP.md §1 item
+   10d): (a) card against CPU, every cross layer's gate drawn from a
+   normal distribution and the context (image embeddings or frames)
+   seeded, since the zero init and the serve loop's zero stubs would
+   leave those paths numerically dead: qwen2-moe-a2.7b at full width
+   cut to 2 layers and seamless-m4t-medium cut to 2 + 2 layers, each in
+   float32 and bfloat16 (B = 2, a 128-token prefill, 8 decode steps);
+   llama-3.2-vision-90b at full width, one period of 5 layers, in
+   bfloat16 (a 64-token prefill, 4 decode steps), after printing the
+   host's free RAM and failing below VISION_HOST_GIB; the reduced
+   vision and the reduced Jamba in float32.  Each run's attention
+   kernel calls are held, on the operands the run gave them, to a
+   float64 evaluation: within 3e-2 / 2e-4 (1 + |exact|) plus TWIN_SLACK
+   times the twin's distance from it; in float32 each layer, given the
+   CPU's input, against the CPU's output (LAYER_F32_SHARE outside 1e-3
+   at most, none past LAYER_F32_MAX); for qwen2-moe in float32 and the
+   reduced Jamba also every logit within 1e-3 (phase 10's gate).
+   The other whole-model figures are printed: these random models
+   amplify rounding through their layers;
+   (b) `launch.serve.serve()` (SERVE_10D: 16 requests in batches of 8,
+   prompt 128, 16 generated tokens, bf16, seed 0) on qwen2-moe-a2.7b
+   (24 layers) and seamless-m4t-medium (12 + 12) at full depth and on
+   llama-3.2-vision-90b at one period, counts set to 0 just before and
+   read just after: flash once per self-attention layer per batch,
+   decode once per self-attention and once per cross layer per token,
+   all on the tensor-core route; tokens/s, prefill and decode ms and
+   peak memory printed; then each model's sync-free check as in phase
+   12;
+17. a `kernels` JSON line (with each kernel's launches in phase 15,
+   `launches_train`, and in phase 16(b) by model, `launches_10d`), the
+   card line, and the last line `{"ok": true, "device": {...}}`.
 
 Exits non-zero, printing no result, without a CUDA device or outside a
 checkout of the repository.
@@ -1597,7 +1633,12 @@ def run_attention_checks(dev, long_shapes=True):
                                    (1, 127, 127, 3, 3, 64),
                                    (2, 129, 129, 24, 3, 128),
                                    (2, 65, 300, 15, 5, 64),
-                                   (1, 130, 70, 8, 1, 128)]:
+                                   (1, 130, 70, 8, 1, 128),
+                                   # phase 16(b)'s prefills: vision,
+                                   # qwen2-moe, seamless
+                                   (8, 128, 128, 64, 8, 128),
+                                   (8, 128, 128, 16, 16, 128),
+                                   (8, 128, 128, 16, 16, 64)]:
             q, k, v = att_inputs(gen, dev, dt, (B, S, H, hd), (B, T, KV, hd))
             for causal in (True, False):
                 got = fa.flash_attention(q, k, v, causal=causal)
@@ -1610,23 +1651,33 @@ def run_attention_checks(dev, long_shapes=True):
                 r = res["flash_attention"]
                 r["max_abs_err"] = max(r["max_abs_err"], err)
                 r["cases"] += 1
-        # (B, T, H, KV, hd) with ragged cache_len including 1 and T; then
-        # T off the 64-row tile, G = 1, 3, 8 at hd 64 and 128
-        for B, T, H, KV, hd in [(8, 544, 15, 5, 64), (3, 1000, 8, 8, 64),
-                                (4, 77, 16, 2, 128), (2, 33, 8, 1, 16),
-                                (32, 4096, 15, 5, 64), (1, 1, 3, 3, 32),
-                                (2, 63, 8, 1, 64), (3, 65, 6, 2, 128),
-                                (2, 129, 16, 16, 128), (5, 700, 24, 3, 128),
-                                (1, 1, 15, 5, 64)]:
+        # (B, T, H, KV, hd, cache_len): ragged cache_len including 1 and
+        # T where it is None; T off the 64-row tile, G = 1, 3, 8 at hd 64
+        # and 128; then phase 16(b)'s decode steps: vision's self and
+        # cross (its 1,600 image tokens, all read), qwen2-moe's, and
+        # seamless's self and cross (capacity 144, the 128 prompt frames)
+        for B, T, H, KV, hd, fill in [
+                (8, 544, 15, 5, 64, None), (3, 1000, 8, 8, 64, None),
+                (4, 77, 16, 2, 128, None), (2, 33, 8, 1, 16, None),
+                (32, 4096, 15, 5, 64, None), (1, 1, 3, 3, 32, None),
+                (2, 63, 8, 1, 64, None), (3, 65, 6, 2, 128, None),
+                (2, 129, 16, 16, 128, None), (5, 700, 24, 3, 128, None),
+                (1, 1, 15, 5, 64, None),
+                (8, 144, 64, 8, 128, None), (8, 1600, 64, 8, 128, 1600),
+                (8, 144, 16, 16, 128, None), (8, 144, 16, 16, 64, None),
+                (8, 144, 16, 16, 64, 128)]:
             q, k, v = att_inputs(gen, dev, dt, (B, 1, H, hd), (B, T, KV, hd))
             clen = torch.randint(1, T + 1, (B,), generator=gen, device=dev,
                                  dtype=torch.int32)
-            clen[0], clen[-1] = T, 1
+            if fill is None:
+                clen[0], clen[-1] = T, 1
+            else:
+                clen.fill_(fill)
             got = da.decode_attention(q, k, v, clen)
             torch.cuda.synchronize()
             err = att_compare("decode_attention", got,
                               da_ref.decode_attention_ref(q, k, v, clen), dt,
-                              (B, T, H, KV, hd, dtype_name(dt)))
+                              (B, T, H, KV, hd, fill, dtype_name(dt)))
             r = res["decode_attention"]
             r["max_abs_err"] = max(r["max_abs_err"], err)
             r["cases"] += 1
@@ -1880,9 +1931,9 @@ def run_serve_card_vs_cpu(dev, dtype, arch="smollm-360m", layers=2, B=2,
     max_err, n_out, n_all, n_cmp, n_tok = 0.0, 0, 0, 0, 0
     fed = []                          # the CPU's greedy tokens, fed back
     with torch.no_grad(), decode_ticket_check(dev) as tickets:
-        l_cpu, _ = lm.forward(m_cpu, toks, mode="prefill", caches=c_cpu)
-        l_gpu, _ = lm.forward(m_gpu, toks.to(dev), mode="prefill",
-                              caches=c_gpu)
+        l_cpu, _, _ = lm.forward(m_cpu, toks, mode="prefill", caches=c_cpu)
+        l_gpu, _, _ = lm.forward(m_gpu, toks.to(dev), mode="prefill",
+                                 caches=c_gpu)
         pos = torch.full((B,), S, dtype=torch.int32)
         for step in range(steps + 1):
             a, b = l_gpu.float().cpu(), l_cpu.float()
@@ -1915,10 +1966,10 @@ def run_serve_card_vs_cpu(dev, dtype, arch="smollm-360m", layers=2, B=2,
                 break
             nxt = g_cpu.to(torch.int32)[:, None]
             fed.append(nxt)
-            l_cpu, _ = lm.forward(m_cpu, nxt, mode="decode", caches=c_cpu,
-                                  cache_len=pos)
-            l_gpu, _ = lm.forward(m_gpu, nxt.to(dev), mode="decode",
-                                  caches=c_gpu, cache_len=pos.to(dev))
+            l_cpu, _, _ = lm.forward(m_cpu, nxt, mode="decode", caches=c_cpu,
+                                     cache_len=pos)
+            l_gpu, _, _ = lm.forward(m_gpu, nxt.to(dev), mode="decode",
+                                     caches=c_gpu, cache_len=pos.to(dev))
             pos = pos + 1
     share = n_out / n_all
     log(f"serve card vs CPU ({arch}, {layers} layers, {name}, B={B}, "
@@ -2007,12 +2058,12 @@ def serve_f32_diagnosis(where, m_gpu, cfg, dtype, dev, toks, fed, step,
     for rerun in range(2):
         c = lm.alloc_caches(cfg, B, S + steps, dtype, dev)
         with torch.no_grad():
-            l, _ = lm.forward(m_gpu, toks.to(dev), mode="prefill",
-                              caches=c)
+            l, _, _ = lm.forward(m_gpu, toks.to(dev), mode="prefill",
+                                 caches=c)
             pos = torch.full((B,), S, dtype=torch.int32, device=dev)
             for nxt in fed[:step]:
-                l, _ = lm.forward(m_gpu, nxt.to(dev), mode="decode",
-                                  caches=c, cache_len=pos)
+                l, _, _ = lm.forward(m_gpu, nxt.to(dev), mode="decode",
+                                     caches=c, cache_len=pos)
                 pos = pos + 1
         r = l.float().cpu()
         n_diff = int((r != a).sum())
@@ -2024,10 +2075,11 @@ def serve_f32_diagnosis(where, m_gpu, cfg, dtype, dev, toks, fed, step,
             f"{(r - b).abs().max().item():.6g}")
 
 
-def run_serve_path(dev, arch="smollm-360m"):
-    """`serve()` on `arch` at full width and depth on the card, with the
-    launch counts set to 0 just before and read just after: every
-    attention layer launches flash once per batch and decode once per
+def run_serve_path(dev, arch="smollm-360m", layers=None, serve_kw=SERVE):
+    """`serve()` on `arch` at full width and depth (`layers` layers when
+    given) on the card, with the launch counts set to 0 just before and
+    read just after: every self-attention layer launches flash once per
+    batch, every self-attention and every cross layer decode once per
     token, every SSD layer ssd_scan once per batch, and nothing else
     launches."""
     import torch
@@ -2040,6 +2092,8 @@ def run_serve_path(dev, arch="smollm-360m"):
     from repro_torch.launch.serve import serve, summary_line
     from repro_torch.models import lm
     cfg = get_config(arch)
+    if layers:
+        cfg = cfg.with_layers(layers)
     runcfg = RunConfig(remat=False)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -2051,22 +2105,28 @@ def run_serve_path(dev, arch="smollm-360m"):
     n_attn = sum(k.mixer == "attn" for k in kinds) * (
         cfg.num_layers // len(kinds))
     n_ssd = cfg.num_layers - n_attn
+    n_cross = sum(k.cross for k in kinds) * (cfg.num_layers // len(kinds))
     heads = (f"{cfg.num_heads}/{cfg.num_kv_heads} heads" if n_attn else
              f"{cfg.ssm_heads} SSD heads of {cfg.ssm_head_dim}, state "
              f"{cfg.ssm_state}, chunk {cfg.ssm_chunk}")
-    log(f"serve: {arch}, {cfg.num_layers} layers, d_model "
+    extra = "".join((f", {n_cross} cross layers" if n_cross else "",
+                     f", {cfg.encoder_layers} encoder layers"
+                     if cfg.encoder_layers else "",
+                     f", {cfg.moe_num_experts} experts top-{cfg.moe_top_k}"
+                     if cfg.moe_num_experts else ""))
+    log(f"serve: {arch}, {cfg.num_layers} layers{extra}, d_model "
         f"{cfg.d_model}, {heads}, "
         f"{n_params} parameters in bf16, made in "
-        f"{(time.perf_counter() - t0) * 1e3:.0f} ms; {json.dumps(SERVE)}")
+        f"{(time.perf_counter() - t0) * 1e3:.0f} ms; {json.dumps(serve_kw)}")
     K_.reset_launch_counts()
-    r = serve(cfg, runcfg, params=model, device=dev, **SERVE)
+    r = serve(cfg, runcfg, params=model, device=dev, **serve_kw)
     counts = K_.launch_counts()
     peak = torch.cuda.max_memory_allocated() / 2 ** 20
-    B, G = SERVE["batch"], SERVE["gen_len"]
+    B, G = serve_kw["batch"], serve_kw["gen_len"]
     n_batches = len(r["generated"])
     log(summary_line(r))
     want = {"flash_attention": n_attn * n_batches,
-            "decode_attention": n_attn * n_batches * G,
+            "decode_attention": (n_attn + n_cross) * n_batches * G,
             "ssd_scan": n_ssd * n_batches}
     routes = K_.route_counts()
     log(f"launches on the {arch} serve path: {json.dumps(counts)}; by "
@@ -2101,7 +2161,7 @@ def run_serve_path(dev, arch="smollm-360m"):
     dec = statistics.median(r["decode_ms"][steady]) / G
     log(f"serve {arch}: {r['tok_per_s']:.1f} generated tokens/s over "
         f"{r['seconds']:.2f} s; prefill {pre:.2f} ms per batch of "
-        f"{B} x {SERVE['prompt_len']} (median of batches 1-"
+        f"{B} x {serve_kw['prompt_len']} (median of batches 1-"
         f"{n_batches - 1}; batch 0 {r['prefill_ms'][0]:.1f} ms); decode "
         f"{dec:.3f} ms per token step of B={B} (median); peak device "
         f"memory {peak:.0f} MiB; pool served={r['served']} "
@@ -2117,17 +2177,19 @@ def check_serve_sync_free(model, dev):
     import torch
     from repro_torch.configs.base import RunConfig
     from repro_torch.launch import steps as S_
+    from repro_torch.launch.serve import context_stubs
     from repro_torch.models import lm
     cfg, runcfg = model.cfg, RunConfig(remat=False)
     layers = lm.alloc_caches(cfg, 2, 20, torch.bfloat16, dev)
     prefill = S_.make_prefill_step(cfg, runcfg)
     decode = S_.make_decode_step(cfg, runcfg)
     toks = torch.randint(0, cfg.vocab_size, (2, 16), device=dev)
-    tok, caches = prefill(model, {"tokens": toks}, layers)      # warm
+    batch = {"tokens": toks, **context_stubs(cfg, 2, 16, dev)}
+    tok, caches = prefill(model, batch, layers)                 # warm
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
-        tok, caches = prefill(model, {"tokens": toks}, layers)
+        tok, caches = prefill(model, batch, layers)
         for _ in range(2):
             tok, caches = decode(model, caches, tok[:, None])
     finally:
@@ -2144,6 +2206,7 @@ def run_serve_profile(model, dev, steps=4):
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.configs.base import RunConfig
     from repro_torch.launch import steps as S_
+    from repro_torch.launch.serve import context_stubs
     from repro_torch.models import lm
     cfg = model.cfg
     runcfg = RunConfig(remat=False)
@@ -2152,11 +2215,11 @@ def run_serve_profile(model, dev, steps=4):
     prefill = S_.make_prefill_step(cfg, runcfg)
     decode = S_.make_decode_step(cfg, runcfg)
     toks = torch.randint(0, cfg.vocab_size, (B, P), device=dev)
-    tok, caches = prefill(model, {"tokens": toks}, layers)     # warm
+    batch = {"tokens": toks, **context_stubs(cfg, B, P, dev)}
+    tok, caches = prefill(model, batch, layers)                # warm
     tok, caches = decode(model, caches, tok[:, None])
     for tag, fn, n in (
-            ("serve prefill", lambda: prefill(model, {"tokens": toks},
-                                              layers), 1),
+            ("serve prefill", lambda: prefill(model, batch, layers), 1),
             ("serve decode", None, steps)):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
@@ -2680,6 +2743,348 @@ def run_training(dev, profile=False):
     return counts
 
 
+# --------------------------------------------------------------------- #
+# phase 16: MoE, cross-attention and the encoder-decoder (ROADMAP 10d)
+# --------------------------------------------------------------------- #
+SERVE_10D = dict(requests=16, batch=8, prompt_len=128, gen_len=16,
+                 revoke_p=0.1, seed=0)
+# what phase 16(b) serves: (arch, layers; None = the config's depth).
+# llama-3.2-vision-90b's 100 layers (about 170 GB in bf16) do not fit on
+# the card: one period of 5, its last a cross layer (about 13 GB)
+SERVE_10D_ARCHS = (("qwen2-moe-a2.7b", None), ("seamless-m4t-medium", None),
+                   ("llama-3.2-vision-90b", 5))
+# host RAM phase 16(a)'s vision check needs: the 13 GB bf16 model, the
+# copy on its way to the card, and activations
+VISION_HOST_GIB = 32
+# phase 16(a)'s kernel gate on a run's own operands: the kernel's distance
+# from float64 at most this many times the twin's (plus ATT_TOL).  Chip
+# readings on the H100: the kernel's largest distance at most 1.10x the
+# twin's in every run; a decode kernel that drops the newest key 67,000x
+# (float32) and 280x (bfloat16)
+TWIN_SLACK = 4
+# ... and its float32 per-layer gate: each layer fed the CPU's input, at
+# most a share LAYER_F32_SHARE of the outputs outside 1e-3 (1 + |CPU's|)
+# and none further than LAYER_F32_MAX.  Chip readings on the H100: at
+# most 85 of 1,081,344 outputs (7.9e-5, seamless) outside, the largest
+# 6.0e-3 (the f32 attention twin itself is up to 1.9e-3 from float64 on
+# these operands); with the dropped key 12,694 of 1,114,112 (1.1e-2),
+# the largest 70.9
+LAYER_F32_SHARE = 1e-3
+LAYER_F32_MAX = 0.05
+
+
+@contextlib.contextmanager
+def keep_attention_calls(kept):
+    """The model's attention ops (`models.attention._flash_op`,
+    `_decode_op`) wrapped: each call runs as before, and its operands and
+    output are cloned into `kept` as (name, args, kwargs, output), so the
+    kernels can be held against their twins afterwards on the operands a
+    model run gave them."""
+    from repro_torch.models import attention as A
+    orig = A._flash_op, A._decode_op
+
+    def keep(name, fn):
+        def op(*args, **kw):
+            out = fn(*args, **kw)
+            kept.append((name, [a.clone() for a in args], kw, out.clone()))
+            return out
+        return op
+
+    A._flash_op = keep("flash_attention", orig[0])
+    A._decode_op = keep("decode_attention", orig[1])
+    try:
+        yield kept
+    finally:
+        A._flash_op, A._decode_op = orig
+
+
+def attention_exact(name, args, kw):
+    """An attention op's call (`models.attention._flash_op` or
+    `_decode_op` operands) computed in float64 with plain torch
+    (`attention.full_attention`): flash with its causal flag, decode
+    over the keys below cache_len."""
+    import torch
+    from repro_torch.models import attention as A
+    q, k, v = (a.double() for a in args[:3])
+    H = q.shape[2]
+    k, v = A.repeat_kv(k, H), A.repeat_kv(v, H)
+    if name == "flash_attention":
+        return A.full_attention(q, k, v, causal=kw.get("causal", True))
+    B, T = k.shape[:2]
+    return A.full_attention(
+        q, k, v, q_pos=args[3].long()[:, None] - 1,
+        k_pos=torch.arange(T, device=q.device)[None].expand(B, T))
+
+
+def kernel_vs_twin(name, args, kw, got, want, dtype, ctx):
+    """A kernel's output `got` against its twin's `want` on a model run's
+    operands.  These operands are ill-conditioned (random-weight
+    attention scores hundreds wide, values of both signs in the tens):
+    on them the twin itself lands up to 1.9e-3 (float32) and 0.5
+    (bfloat16) from the call in float64, past phase 8's tolerances.  So
+    both are held against the call in float64 (`attention_exact`):
+    every element of the kernel's output within ATT_TOL (1 + |exact|)
+    plus TWIN_SLACK times the twin's largest distance from it in this
+    call.  A wrong kernel (a key dropped, a wrong head) lands orders of
+    magnitude outside.  Returns ((max |kernel - twin|, max |twin -
+    exact|, max |kernel - exact|), the elements outside)."""
+    import torch
+    tol = ATT_TOL[dtype_name(dtype)]
+    x = attention_exact(name, args, kw)
+    g, w = got.double(), want.double()
+    if not torch.isfinite(g).all():
+        raise AssertionError(f"{name} {ctx}: non-finite output")
+    t_err = (w - x).abs().max().item()
+    d = (g - x).abs()
+    out = d > tol + tol * x.abs() + TWIN_SLACK * t_err
+    return ((g - w).abs().max().item(), t_err, d.max().item()), \
+        int(out.sum())
+
+
+@contextlib.contextmanager
+def layer_taps(record, names, feed=None):
+    """Every layer call (`lm.apply_block`, `lm._encoder_block`) in order:
+    (its module's name in `names`, input h, context, output h) appended
+    to `record` on the CPU.  With `feed`, such a record of another run,
+    each layer takes that run's input h and context in place of its
+    own: a run fed the CPU's record gives each layer's error from equal
+    inputs, which the layers after it cannot amplify."""
+    from repro_torch.models import lm
+    orig = lm.apply_block, lm._encoder_block
+
+    def tap(blk, h, ctx, call):
+        if feed is not None:
+            _, h0, c0, _ = feed[len(record)]
+            h = h0.to(h.device)
+            ctx = None if ctx is None else c0.to(h.device)
+        out = call(h, ctx)
+        h1 = out[0] if isinstance(out, tuple) else out
+        record.append((names[id(blk)], h.cpu(),
+                       None if ctx is None else ctx.cpu(), h1.cpu()))
+        return out
+
+    def block(blk, h, cfg, **kw):
+        return tap(blk, h, kw.pop("ctx", None),
+                   lambda h, c: orig[0](blk, h, cfg, ctx=c, **kw))
+
+    def encoder_block(blk, h, *a, **kw):
+        return tap(blk, h, None, lambda h, c: orig[1](blk, h, *a, **kw))
+
+    lm.apply_block, lm._encoder_block = block, encoder_block
+    try:
+        yield record
+    finally:
+        lm.apply_block, lm._encoder_block = orig
+
+
+def run_10d_card_vs_cpu(dev, dtype, arch, layers=2, B=2, S=128, steps=8,
+                        reduced=False, direct=False):
+    """One prefill and `steps` decode steps of `arch` at full width
+    (`layers` layers; `reduced`: the reduced config) on the CPU, then
+    twice on the card, from the same weights, tokens, drawn gates and
+    seeded context; every run is fed the CPU's greedy tokens.  Gates:
+
+    - each attention kernel call of the card's first run (prefill
+      self-attention; self and cross decode) against its twin and a
+      float64 evaluation on the operands it was given
+      (`kernel_vs_twin`);
+    - float32: the card's second run gives each layer (decoder and
+      encoder) the CPU's input to that layer and its context; at most a
+      share LAYER_F32_SHARE of the layers' outputs outside SERVE_F32_TOL
+      (1 + |CPU's|) of the CPU's, and none further than LAYER_F32_MAX;
+    - `direct` (qwen2-moe-a2.7b and the reduced Jamba in float32): all
+      the first run's logits within SERVE_F32_TOL of the CPU's, phase
+      10's float32 gate.
+
+    These random models amplify rounding through their layers (at full
+    width attention is nearly one-hot, so a rounding moves how much of
+    a row goes to which key, and in bf16 a rounding of a router input
+    which experts a token takes), and card and CPU stood equally far
+    from a float64 run of the same model (PERF.md §6).  So the other
+    runs' whole-model figures, and the per-layer figures in bfloat16,
+    are printed and not gated."""
+    import collections
+    import copy
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.kernels.decode_attention import ref as da_ref
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    from repro_torch.launch.serve import draw_gates, seeded_context
+    from repro_torch.models import lm
+    torch.backends.cuda.matmul.allow_tf32 = False    # full f32 products
+    t0 = time.perf_counter()
+    name = dtype_name(dtype)
+    cfg = get_config(arch)
+    cfg = cfg.reduced() if reduced else cfg.with_layers(layers)
+    runcfg = RunConfig(remat=False, param_dtype=name, activation_dtype=name)
+    cpu = torch.device("cpu")
+    m_cpu = draw_gates(lm.init_lm(cfg, runcfg, seed=1, device=cpu), 2)
+    m_gpu = copy.deepcopy(m_cpu).to(dev)
+    names = {id(b): n for m in (m_cpu, m_gpu)
+             for n, b in m.named_modules()}
+    ctx = seeded_context(cfg, B, S, 3, dtype)
+    toks = torch.as_tensor(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (B, S)).astype(np.int32))
+    tol = SERVE_F32_TOL if name == "float32" else ATT_TOL[name]
+    where = f"16(a) {arch} {name}"
+
+    def run(model, d, fed=None):
+        """Logits of each step on the CPU; `fed`: the tokens each decode
+        step takes (None: this run's greedy ones, which it returns)."""
+        caches = lm.alloc_caches(cfg, B, S + steps, dtype, d)
+        nxt, out, greedy = toks, [], []
+        for step in range(-1, steps):
+            kw = ({n: v.to(d) for n, v in ctx.items()} if step < 0 else
+                  {"cache_len": torch.full((B,), S + step,
+                                           dtype=torch.int32, device=d)})
+            logits, _, _ = lm.forward(
+                model, nxt.to(d), mode="prefill" if step < 0 else "decode",
+                caches=caches, **kw)
+            out.append(logits.float().cpu())
+            greedy.append(out[-1][:, -1].argmax(-1).to(torch.int32)[:, None])
+            nxt = greedy[-1] if fed is None else fed[step + 1]
+        return out, greedy
+
+    cpu_rec, card_rec, kept = [], [], []
+    with torch.no_grad(), decode_ticket_check(dev) as tickets:
+        with layer_taps(cpu_rec, names):
+            want, fed = run(m_cpu, cpu)
+        with keep_attention_calls(kept):
+            got, _ = run(m_gpu, dev, fed)
+        with layer_taps(card_rec, names, feed=cpu_rec):
+            run(m_gpu, dev, fed)
+    n_all = n_direct = n_tok = 0
+    max_direct = 0.0
+    for g, w in zip(got, want):
+        if not torch.isfinite(g).all():
+            raise AssertionError(f"{where}: non-finite logits on the card")
+        d = (g - w).abs()
+        n_direct += int((d > tol + tol * w.abs()).sum())
+        max_direct = max(max_direct, d.max().item())
+        n_all += w.numel()
+        n_tok += int((g[:, -1].argmax(-1) == w[:, -1].argmax(-1)).sum())
+    # each layer from the CPU's inputs: its largest error and the share of
+    # its outputs outside tol, over the steps
+    per_layer = collections.defaultdict(lambda: [0.0, 0, 0])
+    for (n, _, _, w), (_, _, _, g) in zip(cpu_rec, card_rec):
+        d = (g.float() - w.float()).abs()
+        r = per_layer[n]
+        r[0] = max(r[0], d.max().item())
+        r[1] += int((d > tol + tol * w.float().abs()).sum())
+        r[2] += d.numel()
+    n_layer_out = sum(r[1] for r in per_layer.values())
+    n_layer_all = sum(r[2] for r in per_layer.values())
+    worst = max(per_layer, key=lambda n: per_layer[n][0])
+    del cpu_rec, card_rec
+    # the kernels against their twins on the operands the card's run
+    # gave them
+    twins = {"flash_attention": fa_ref.flash_attention_ref,
+             "decode_attention": da_ref.decode_attention_ref}
+    calls = collections.Counter(n for n, *_ in kept)
+    k_err = collections.defaultdict(lambda: [0.0, 0.0, 0.0])
+    failed = []
+    for i, (n, args, kw, out) in enumerate(kept):
+        errs, bad = kernel_vs_twin(n, args, kw, out, twins[n](*args, **kw),
+                                   dtype, (where, n, i))
+        k_err[n] = [max(a, b) for a, b in zip(k_err[n], errs)]
+        if bad:
+            failed.append(f"{n} call {i} (q {tuple(args[0].shape)}, k "
+                          f"{tuple(args[1].shape)}): {bad} elements "
+                          f"outside")
+    del kept
+    depth = ("reduced" if reduced else f"{cfg.num_layers} layers") + (
+        f" + {cfg.encoder_layers} encoder" if cfg.encoder_layers else "")
+    k_err = {n: [float(f"{x:.4g}") for x in e] for n, e in k_err.items()}
+    by_layer = {n: float(f"{r[0]:.4g}") for n, r in per_layer.items()}
+    log(f"{where} ({depth}, B={B}, prefill {S} + {steps} decode steps, "
+        f"{time.perf_counter() - t0:.1f} s): kernel against twin on the "
+        f"card's own operands: {json.dumps(dict(calls))} calls, max "
+        f"|kernel - twin|, |twin - float64|, |kernel - float64| "
+        f"{json.dumps(k_err)}; each layer from the CPU's inputs: "
+        f"{n_layer_out} of {n_layer_all} outputs outside {tol}, max "
+        f"|card - CPU| {per_layer[worst][0]:.4g} ({worst}), by layer "
+        f"{json.dumps(by_layer)}; whole model: {n_direct} of {n_all} "
+        f"logits outside {tol} (share {n_direct / n_all:.4g}), max "
+        f"{max_direct:.4g}, greedy tokens equal on {n_tok} of "
+        f"{B * (steps + 1)}; decode tickets "
+        f"{json.dumps(tickets)}")
+    if name == "float32" and (n_layer_out > LAYER_F32_SHARE * n_layer_all
+                              or per_layer[worst][0] > LAYER_F32_MAX):
+        failed.append(f"from the CPU's inputs, {n_layer_out} of "
+                      f"{n_layer_all} layer outputs outside {tol}, the "
+                      f"largest {per_layer[worst][0]:.4g} ({worst})")
+    if direct and n_direct:
+        failed.append(f"{n_direct} logits outside {tol}")
+    if failed:
+        raise AssertionError(f"{where}: {'; '.join(failed)}")
+
+
+def host_available_gib() -> float:
+    for line in Path("/proc/meminfo").read_text().splitlines():
+        if line.startswith("MemAvailable:"):
+            return int(line.split()[1]) / 2 ** 20
+    return float("nan")
+
+
+def free_card():
+    import gc
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def run_10d(dev, profile=False):
+    """Phase 16: (a) card against CPU at full width cut in depth, with
+    drawn gates and seeded contexts (`run_10d_card_vs_cpu`):
+    qwen2-moe-a2.7b (2 layers) and seamless-m4t-medium (2 + 2 layers)
+    in float32 and bfloat16, llama-3.2-vision-90b (one period of 5
+    layers) in bfloat16, the reduced vision and the reduced Jamba in
+    float32; (b) `serve()` of each SERVE_10D_ARCHS entry with its
+    launches counted from 0, then its sync-free check and, with
+    `profile`, the profile of a prefill and 4 decode steps.  Returns
+    {"serve": {arch: launches with routes}, "jamba": launches of the
+    Jamba check}."""
+    import torch
+    from repro_torch import kernels as K_
+    f32, bf16 = torch.float32, torch.bfloat16
+    for arch in ("qwen2-moe-a2.7b", "seamless-m4t-medium"):
+        for dt in (f32, bf16):
+            run_10d_card_vs_cpu(dev, dt, arch, direct=arch ==
+                                "qwen2-moe-a2.7b" and dt == f32)
+            free_card()
+    gib = host_available_gib()
+    log(f"host RAM available before the vision check: {gib:.1f} GiB "
+        f"(it needs about {VISION_HOST_GIB})")
+    if not gib >= VISION_HOST_GIB:
+        raise AssertionError(f"{gib:.1f} GiB of host RAM available, the "
+                             f"vision check needs {VISION_HOST_GIB}")
+    run_10d_card_vs_cpu(dev, bf16, "llama-3.2-vision-90b", layers=5,
+                        S=64, steps=4)
+    free_card()
+    # the reduced vision: the model whose whole-model card-vs-CPU error
+    # sets test_torch_cuda.py's float32 bound
+    run_10d_card_vs_cpu(dev, f32, "llama-3.2-vision-90b", S=24, steps=3,
+                        reduced=True)
+    K_.reset_launch_counts()
+    run_10d_card_vs_cpu(dev, f32, "jamba-1.5-large-398b", S=40,
+                        reduced=True, direct=True)
+    jamba = K_.launch_counts()
+    log(f"reduced Jamba card-vs-CPU launches: {json.dumps(jamba)}; by "
+        f"route {json.dumps(K_.route_counts())}")
+    served = {}
+    for arch, layers in SERVE_10D_ARCHS:
+        model, counts, _ = run_serve_path(dev, arch, layers, SERVE_10D)
+        check_serve_sync_free(model, dev)
+        if profile:
+            run_serve_profile(model, dev)
+        served[arch] = counts
+        del model
+        free_card()
+    return {"serve": served, "jamba": jamba}
+
+
 def repeat_phase10(dev, n) -> int:
     """Phases 8-9 once, then phase 10's float32 smollm check `n` times in
     this process (ROADMAP.md §3 F4): each failure prints its diagnosis;
@@ -2712,6 +3117,10 @@ def main() -> int:
     ap.add_argument("--phase15", action="store_true",
                     help="build the kernels, run phase 15 (training) "
                     "alone and exit")
+    ap.add_argument("--phase16", action="store_true",
+                    help="build the kernels, run phase 8 without its "
+                    "long shapes and phase 16 (MoE, cross-attention, "
+                    "encoder-decoder), and exit")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -2760,6 +3169,11 @@ def main() -> int:
         run_training(dev, args.profile)
         log(card)
         return 0
+    if args.phase16:
+        run_attention_checks(dev, long_shapes=False)
+        run_10d(dev, args.profile)
+        log(card)
+        return 0
     static = SM.build_static(CONFIG)
     fleet_shapes = dict(O=50 * rack_voters(CONFIG), S=CONFIG.num_sites,
                         Fi=group_digest_width(CONFIG), G=1)
@@ -2794,6 +3208,9 @@ def main() -> int:
     t0 = time.perf_counter()
     train_counts = run_training(dev, args.profile)
     log(f"training phase {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    ten_d = run_10d(dev, args.profile)
+    log(f"10d phase {time.perf_counter() - t0:.1f} s")
     if args.profile:
         b = sim.draws.epoch(10, sim.state, sim.cfg_c)
         run_profile("solo", SM.batch1(sim.state), sim.static_t,
@@ -2843,7 +3260,11 @@ def main() -> int:
             "library_ms": r["library_ms"],
             "launches_tensor_core": serve_counts["routes"][name][
                 "tensor_core"],
-            "launches_train": train_counts[name]}
+            "launches_train": train_counts[name],
+            "launches_10d": {a: c[name] for a, c in ten_d["serve"].items()},
+            "launches_10d_tensor_core": {
+                a: c["routes"][name]["tensor_core"]
+                for a, c in ten_d["serve"].items()}}
         if "long" in a:
             g = a["long"]
             entry.update(
@@ -2865,6 +3286,7 @@ def main() -> int:
         "launches_tensor_core": mamba_counts["routes"]["ssd_scan"][
             "tensor_core"],
         "launches_train": train_counts["ssd_scan"],
+        "launches_10d_jamba_check": ten_d["jamba"]["ssd_scan"],
         "ms_long": g["ms"],
         "plain_ms_long": g["plain_ms"], "library_ms_long": None,
         "bound_ms_long": att_bound_ms(g["bytes"], g["flops"], g["dtype"])})

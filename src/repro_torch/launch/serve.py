@@ -19,7 +19,16 @@ layers, states and conv tails for SSD layers) are allocated at capacity
 P + G once, and each batch's prefill writes into them, where the
 reference pads fresh prefill caches to capacity by shape (and so, for an
 SSM model, also pads the SSM state when P equals the head count, and
-the conv tails when P is the conv width less one).
+the conv tails when P is the conv width less one).  A cross layer's
+cache holds the image tokens (vlm) or the capacity (audio_encdec), as
+`models.lm.cache_specs` sets out.
+
+The vlm and audio_encdec families get the reference's context stubs,
+zero image embeddings (B, num_image_tokens, D) and zero frames (B, P, D)
+in bfloat16.  With them the encoder's output and the cross-attention
+K/V are zero, so the cross layers add nothing: the serve loop matches
+the reference's, and the tests hold the cross and encoder paths to JAX
+with seeded contexts and a drawn gate instead.
 """
 from __future__ import annotations
 
@@ -38,6 +47,44 @@ from repro_torch.coord.elastic import ElasticObserverPool
 from repro_torch.launch import steps as S
 from repro_torch.models import lm
 from repro_torch.models.common import DTYPES
+
+
+def context_stubs(cfg, batch: int, prompt_len: int, device):
+    """The reference's context stubs for a batch: zero image embeddings
+    (B, num_image_tokens, D) for the vlm family, zero frames (B, P, D)
+    for audio_encdec, in bfloat16; none for the other families."""
+    shape = {"vlm": ("img_embeds", cfg.num_image_tokens),
+             "audio_encdec": ("frames", prompt_len)}.get(cfg.family)
+    if shape is None:
+        return {}
+    name, T = shape
+    return {name: torch.zeros((batch, T, cfg.d_model), dtype=torch.bfloat16,
+                              device=device)}
+
+
+def draw_gates(model: lm.LM, seed: int) -> lm.LM:
+    """Every `xattn_gate` of `model` drawn in place from a standard
+    normal (numpy, `seed`), in layer order.  The reference initializes
+    them to zero, and tanh(0) = 0 makes every cross layer add nothing,
+    so each check of the cross layers draws them.  Returns `model`."""
+    rng = np.random.default_rng(seed)
+    with torch.no_grad():
+        for blk in model.blocks:
+            g = blk.xattn_gate
+            if g is not None:
+                g.copy_(torch.as_tensor(rng.standard_normal(g.shape)))
+    return model
+
+
+def seeded_context(cfg, batch: int, prompt_len: int, seed: int,
+                   dtype=torch.float32, device="cpu"):
+    """`context_stubs`' shapes drawn from a standard normal (numpy,
+    `seed`): zero stubs make the encoder's output and the cross K/V
+    zero, so each check of those paths seeds the context instead."""
+    stubs = context_stubs(cfg, batch, prompt_len, "meta")
+    rng = np.random.default_rng(seed)
+    return {n: torch.as_tensor(rng.standard_normal(z.shape)).to(
+        device=device, dtype=dtype) for n, z in stubs.items()}
 
 
 def serve(cfg, runcfg: RunConfig, *, params: Optional[lm.LM] = None,
@@ -73,6 +120,7 @@ def serve(cfg, runcfg: RunConfig, *, params: Optional[lm.LM] = None,
     B, P, G = batch, prompt_len, gen_len
     layers = lm.alloc_caches(cfg, B, P + G, DTYPES[runcfg.activation_dtype],
                              dev)
+    stubs = context_stubs(cfg, B, P, dev)
     rng = np.random.default_rng(seed)
 
     generated, prefill_ms, decode_ms = [], [], []
@@ -90,7 +138,7 @@ def serve(cfg, runcfg: RunConfig, *, params: Optional[lm.LM] = None,
         toks = rng.integers(0, cfg.vocab_size, (B, P)).astype(np.int32)
         tokens = torch.from_numpy(toks).to(dev)
         tb = time.perf_counter()
-        tok, caches = prefill(model, {"tokens": tokens}, layers)
+        tok, caches = prefill(model, {"tokens": tokens, **stubs}, layers)
         sync()
         tp = time.perf_counter()
         out = [tok]

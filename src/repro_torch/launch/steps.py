@@ -140,13 +140,16 @@ def make_train_step(cfg: ModelConfig, runcfg: RunConfig):
 def make_prefill_step(cfg: ModelConfig, runcfg: RunConfig):
     @torch.no_grad()
     def prefill_step(model, batch, layers):
-        """batch["tokens"]: (B,S); `layers`: caches at capacity
-        (`lm.alloc_caches`), whose first S positions take the prompt's
-        K/V and whose SSM leaves take the states after the prompt.
-        Returns (next_token (B,) int32, caches {"pos", "layers"})."""
+        """batch["tokens"]: (B,S), and the context of a model with cross
+        layers, batch["img_embeds"] or batch["frames"]; `layers`: caches
+        at capacity (`lm.alloc_caches`), whose first S positions take
+        the prompt's K/V, whose SSM leaves take the states after the
+        prompt and whose cross caches take the context's K/V.  Returns
+        (next_token (B,) int32, caches {"pos", "layers"})."""
         tokens = batch["tokens"]
-        logits, layer_caches = lm.forward(model, tokens, mode="prefill",
-                                          caches=layers)
+        logits, layer_caches, _ = lm.forward(
+            model, tokens, mode="prefill", caches=layers, runcfg=runcfg,
+            img_embeds=batch.get("img_embeds"), frames=batch.get("frames"))
         B, S = tokens.shape
         caches = {"pos": torch.full((B,), S, dtype=torch.int32,
                                     device=tokens.device),
@@ -161,11 +164,11 @@ def make_decode_step(cfg: ModelConfig, runcfg: RunConfig):
     @torch.no_grad()
     def decode_step(model, caches, tokens):
         """tokens: (B,1) int.  Returns (next_token, new_caches); the
-        layer caches are updated in place."""
+        layer caches are updated in place, the cross caches read only."""
         pos = caches["pos"]
-        logits, new_layers = lm.forward(model, tokens, mode="decode",
-                                        caches=caches["layers"],
-                                        cache_len=pos)
+        logits, new_layers, _ = lm.forward(model, tokens, mode="decode",
+                                           caches=caches["layers"],
+                                           cache_len=pos, runcfg=runcfg)
         next_tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
         return next_tok, {"pos": pos + 1, "layers": new_layers}
 

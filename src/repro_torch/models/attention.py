@@ -21,9 +21,13 @@ of the update), and score/exp intermediates in `acc_dtype`.  It is not
 the flash kernel's twin: JAX cannot differentiate its Pallas kernel
 either, so training never reaches a kernel.  The JAX forms' `unroll`
 (the roofline variant) and `cn` (a sharding constrainer) have no meaning
-on one card and are dropped.  `full_attention`, for the non-causal
-encoder and cross-attention paths, is not ported yet (ROADMAP.md §1 item
-10d).
+on one card and are dropped.
+
+The non-causal forms, the encoder's self-attention and the
+cross-attention of a prefill or a training step, are plain torch ops as
+in JAX, which computes them outside any Pallas kernel: `full_attention`
+(the (B,H,S,T) scores materialized), or `chunked_attention` with
+`causal=False` where S·T > 2**22 (`models/lm._attn_mixer`).
 """
 from __future__ import annotations
 
@@ -34,7 +38,7 @@ from repro_torch.kernels.decode_attention.ops import \
     decode_attention as _decode_op
 from repro_torch.kernels.flash_attention.ops import \
     flash_attention as _flash_op
-from repro_torch.models.common import ParamSpec, apply_rope, rms_norm
+from repro_torch.models.common import ParamSpec, apply_rope, rms_norm, upcast
 
 NEG_INF = -1e30
 PAD_POS = 2 ** 30          # position of a padded key slot: never attended
@@ -102,6 +106,28 @@ def decode_attention(q, k_cache, v_cache, cache_len):
     """q: (B,1,H,hd); caches: (B,T,KV,hd); positions < cache_len[b]
     attended.  On the decode-attention kernel."""
     return _decode_op(q, k_cache, v_cache, cache_len.to(torch.int32))
+
+
+def full_attention(q, k, v, *, q_pos=None, k_pos=None, causal=True):
+    """Attention with the (B,H,S,T) scores materialized: q (B,S,H,hd),
+    k/v (B,T,H,hd).  With positions, causal masks keys past each query's
+    position (or nothing when not causal); without, causal is the
+    bottom-right mask (query i sees keys up to i + T - S).  Scores and
+    softmax in float32, the probabilities cast to q's dtype for the
+    product with v, as in JAX."""
+    hd = q.shape[-1]
+    s = upcast(torch.einsum("bshk,bthk->bhst", q, k)) / (hd ** 0.5)
+    if q_pos is not None:
+        if causal:
+            mask = k_pos[:, None, :] <= q_pos[:, :, None]
+            s = torch.where(mask[:, None], s, NEG_INF)
+    elif causal:
+        S, T = q.shape[1], k.shape[1]
+        mask = torch.ones((S, T), dtype=torch.bool,
+                          device=q.device).tril(T - S)
+        s = torch.where(mask, s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhst,bthk->bshk", p.to(q.dtype), v)
 
 
 # ---------------------------------------------------------------------------

@@ -81,6 +81,13 @@ def zeros_tree(tree, device) -> Dict:
                                           device=device), tree)
 
 
+def unported(what: str, item: str) -> NotImplementedError:
+    """The error a branch that is not ported yet raises, naming its
+    ROADMAP item (tests match on the message)."""
+    return NotImplementedError(f"{what} is not ported yet "
+                               f"(ROADMAP.md §1 item {item})")
+
+
 def param_count(tree) -> int:
     return sum(int(np.prod(p.shape)) for _, p in tree_items(tree))
 
@@ -94,11 +101,17 @@ def param_bytes(tree) -> int:
 # Shared layer math (the same float32 upcasts as the JAX forms)
 # ---------------------------------------------------------------------------
 
+def upcast(x: torch.Tensor) -> torch.Tensor:
+    """x in float32, the JAX forms' upcast; a float64 tensor (a float64
+    reference run of the model) stays float64."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
+
+
 def rms_norm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-6):
     dt = x.dtype
-    x = x.float()
+    x = upcast(x)
     x = x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps)
-    return (x * gamma.float()).to(dt)
+    return (x * gamma.to(x.dtype)).to(dt)
 
 
 def rope_freqs(head_dim: int, theta: float) -> np.ndarray:
@@ -122,10 +135,11 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float):
     """x: (..., S, H, hd); positions: broadcastable to (..., S)."""
     hd = x.shape[-1]
     freqs = _freqs_on(hd, theta, x.device)
-    ang = positions[..., :, None].float() * freqs          # (..., S, hd/2)
+    xf = upcast(x)
+    ang = positions[..., :, None].to(xf.dtype) * freqs    # (..., S, hd/2)
     cos = torch.cos(ang)[..., :, None, :]                 # (..., S, 1, hd/2)
     sin = torch.sin(ang)[..., :, None, :]
-    x1, x2 = x.float().chunk(2, dim=-1)
+    x1, x2 = xf.chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
 
@@ -136,7 +150,7 @@ def swiglu(x, wg, wu, wd, *, bg=None, bu=None, bd=None):
     if bg is not None:
         g = g + bg
         u = u + bu
-    h = torch.nn.functional.silu(g.float()).to(x.dtype) * u
+    h = torch.nn.functional.silu(upcast(g)).to(x.dtype) * u
     out = h @ wd
     if bd is not None:
         out = out + bd

@@ -1,7 +1,9 @@
-"""The LM stack (the port of `repro.models.lm`): dense attention + SwiGLU
-MLP layers and attention-free SSD layers (mamba2), a tied or separate
-head, prefill and single-token decode with per-layer caches (DESIGN.md
-§3).
+"""The LM stack (the port of `repro.models.lm`): attention or SSD mixers
+(dense, mamba2, the Jamba hybrid), SwiGLU or MoE MLPs, gated
+cross-attention to image embeddings (llama-3.2-vision) or to an
+encoder's output (seamless-m4t), a non-causal encoder stack, a tied or
+separate head, prefill and single-token decode with per-layer caches
+(DESIGN.md §3).
 
 Parameters keep the JAX package's names and shapes — wq (D,H,hd), wo
 (H,hd,D), the `blocks/r{r}` groups — so JAX weights carry across
@@ -11,8 +13,21 @@ and `run_stack` is a Python loop.  Caches keep the JAX tree and layout,
 {"r{r}": {"self": {"k", "v"}}} with leaves (G,B,T,KV,hd) for attention
 and {"r{r}": {"ssm": {"ssm", "conv_x", "conv_B", "conv_C"}}} with leaves
 (G,B,...) for SSD layers, allocated at capacity once and written in
-place by prefill and decode.  Public functions keep the JAX layout
-(B,S,H,hd).
+place by prefill and decode.  A cross-attention layer adds {"cross":
+{"k", "v", "len"}}: K/V (G,B,T,KV,hd) with T the image tokens, or the
+capacity for an encoder's output, filled by prefill from the raw context
+projections and read, never written, by decode.  Public functions keep
+the JAX layout (B,S,H,hd).
+
+The context comes in as `img_embeds` (B,T,D) or as `frames` (B,S,D),
+which `encode` runs through the encoder (non-causal attention + SwiGLU
+blocks, rope positions 0..S-1, a final norm), as in JAX.  The encoder
+and the cross-attention prefill are non-causal and plain torch ops
+(`attention.full_attention`, or `chunked_attention` past S·T = 2**22);
+the decoder's causal self-attention and every decode attention, the
+cross layers' included, run on the kernels.  MoE layers run
+`moe.moe_apply` (the dense path on one card) and add their Switch aux
+loss, which `loss_fn` weighs by 0.01.
 
 Training (`forward(mode="train")`, `loss_fn`) runs the same layers with
 no caches under autograd, attention through
@@ -24,9 +39,6 @@ no caches under autograd, attention through
 `to_tree` and `from_tree` map the unstacked parameters (and anything
 keyed by their names: gradients, AdamW moments) to and from the JAX
 tree with stacked blocks, the layout of a checkpoint.
-
-The MoE, cross-attention and encoder branches are not ported yet and
-raise `NotImplementedError` naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -39,11 +51,14 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
+from repro_torch.configs.base import RunConfig
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssd as ssd_mod
 from repro_torch.models.common import (DTYPES, ParamSpec, cross_entropy,
                                        init_tree, rms_norm, swiglu,
                                        tree_items, tree_map, zeros_tree)
+from repro_torch.models.common import unported  # noqa: F401 (lm.unported)
 
 
 class LayerKind(NamedTuple):
@@ -52,9 +67,7 @@ class LayerKind(NamedTuple):
     cross: bool = False
 
 
-def unported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet "
-                               f"(ROADMAP.md §1 item {item})")
+ENCODER_KIND = LayerKind("attn", "mlp", False)
 
 
 def layer_kinds(cfg) -> Tuple[LayerKind, ...]:
@@ -82,17 +95,19 @@ def mlp_params(cfg, dtype):
 
 
 def block_params(cfg, kind: LayerKind, dtype):
-    if kind.cross:
-        raise unported("cross-attention", "10d")
-    if kind.ffn == "moe":
-        raise unported("the MoE MLP", "10d")
     p: Dict[str, Any] = {}
     if kind.mixer == "attn":
         p["attn"] = attn_mod.attention_params(cfg, dtype=dtype)
     else:
         p["ssd"] = ssd_mod.ssd_params(cfg, dtype)
+    if kind.cross:
+        p["xattn"] = attn_mod.attention_params(cfg, cross=True, dtype=dtype)
+        p["xattn_gate"] = ParamSpec((1,), torch.float32, ("unsharded",),
+                                    "zeros")
     if kind.ffn == "mlp":
         p["mlp"] = mlp_params(cfg, dtype)
+    elif kind.ffn == "moe":
+        p["moe"] = moe_mod.moe_params(cfg, dtype)
     return p
 
 
@@ -108,8 +123,6 @@ def build_param_specs(cfg, dtype=torch.bfloat16):
     P = len(kinds)
     assert cfg.num_layers % P == 0, (cfg.name, cfg.num_layers, P)
     G = cfg.num_layers // P
-    if cfg.encoder_layers:
-        raise unported("the encoder stack", "10d")
     params: Dict[str, Any] = {
         "embed": ParamSpec((Vp, D), dtype, ("vocab", "embed"), "normal"),
         "final_norm": ParamSpec((D,), torch.float32, ("unsharded",), "ones"),
@@ -118,13 +131,22 @@ def build_param_specs(cfg, dtype=torch.bfloat16):
     }
     if not cfg.tie_embeddings:
         params["head"] = ParamSpec((D, Vp), dtype, ("embed", "vocab"))
+    if cfg.encoder_layers:
+        params["encoder"] = {
+            "blocks": {"r0": _stack(block_params(cfg, ENCODER_KIND, dtype),
+                                    cfg.encoder_layers)},
+            "final_norm": ParamSpec((D,), torch.float32, ("unsharded",),
+                                    "ones"),
+        }
     return params
 
 
 def cache_specs(cfg, batch: int, cache_cap: int, dtype=torch.bfloat16):
     """ParamSpec tree for decode caches (leading G per position): K/V at
     capacity `cache_cap` for attention layers; for SSD layers the state,
-    float32 whatever `dtype`, and the conv tails in `dtype`."""
+    float32 whatever `dtype`, and the conv tails in `dtype`; for cross
+    layers K/V over the image tokens, or over `cache_cap` for an
+    encoder's output, and the context length."""
     kinds = layer_kinds(cfg)
     G = cfg.num_layers // len(kinds)
     KV, hd = cfg.num_kv_heads, cfg.head_dim
@@ -135,20 +157,30 @@ def cache_specs(cfg, batch: int, cache_cap: int, dtype=torch.bfloat16):
 
     out = {}
     for r, kind in enumerate(kinds):
-        if kind.cross:
-            raise unported("the cross-attention cache", "10d")
+        c: Dict[str, Any] = {}
         if kind.mixer == "attn":
             kv = spec((cache_cap, KV, hd), ("kv_seq", "kv_heads", "head_dim"))
-            out[f"r{r}"] = {"self": {"k": kv, "v": kv}}
-            continue
-        H, P, N = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
-        W, DI = cfg.ssm_conv, cfg.d_inner
-        out[f"r{r}"] = {"ssm": {
-            "ssm": spec((H, P, N), ("ssm_heads", None, "ssm_state"),
-                        torch.float32),
-            "conv_x": spec((W - 1, DI), (None, "ssm_inner")),
-            "conv_B": spec((W - 1, N), (None, "ssm_state")),
-            "conv_C": spec((W - 1, N), (None, "ssm_state"))}}
+            c["self"] = {"k": kv, "v": kv}
+        else:
+            H, P, N = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
+            W, DI = cfg.ssm_conv, cfg.d_inner
+            c["ssm"] = {
+                "ssm": spec((H, P, N), ("ssm_heads", None, "ssm_state"),
+                            torch.float32),
+                "conv_x": spec((W - 1, DI), (None, "ssm_inner")),
+                "conv_B": spec((W - 1, N), (None, "ssm_state")),
+                "conv_C": spec((W - 1, N), (None, "ssm_state"))}
+        if kind.cross:
+            # an encoder's output is as long as the frames, so its cache
+            # takes the capacity; JAX's rule (`num_image_tokens or
+            # cache_cap`) gives the same T for every shipped config, but
+            # `reduced()` sets 8 image tokens on the encoder-decoder too
+            T = (cache_cap if cfg.encoder_layers
+                 else cfg.num_image_tokens or cache_cap)
+            kv = spec((T, KV, hd), (None, "kv_heads", "head_dim"))
+            c["cross"] = {"k": kv, "v": kv,
+                          "len": spec((), (), torch.int32)}
+        out[f"r{r}"] = c
     return out
 
 
@@ -163,21 +195,41 @@ def alloc_caches(cfg, batch: int, cache_cap: int, dtype, device):
 # ---------------------------------------------------------------------------
 
 class Block(nn.Module):
+    """One layer: its mixer (`attn` or `ssd`), its MLP (`mlp` or `moe`)
+    and, for a cross layer, `xattn` and the (1,) `xattn_gate`; each part
+    maps the JAX names to parameters, an absent part is None."""
+
+    PARTS = ("attn", "ssd", "xattn", "mlp", "moe")
+
     def __init__(self, kind: LayerKind, tree):
         super().__init__()
         self.kind = kind
-        self.attn = nn.ParameterDict(tree["attn"]) if "attn" in tree else None
-        self.ssd = nn.ParameterDict(tree["ssd"]) if "ssd" in tree else None
-        self.mlp = nn.ParameterDict(tree["mlp"]) if "mlp" in tree else None
+        for part in self.PARTS:
+            setattr(self, part, nn.ParameterDict(tree[part])
+                    if part in tree else None)
+        self.xattn_gate = (nn.Parameter(tree["xattn_gate"])
+                           if "xattn_gate" in tree else None)
+
+
+class Encoder(nn.Module):
+    """The encoder stack: `blocks`, one attention + SwiGLU `Block` per
+    encoder layer, and `final_norm`."""
+
+    def __init__(self, tree, n_layers: int):
+        super().__init__()
+        self.blocks = nn.ModuleList(
+            Block(ENCODER_KIND, tree_map(lambda a, g=g: a[g],
+                                         tree["blocks"]["r0"]))
+            for g in range(n_layers))
+        self.final_norm = nn.Parameter(tree["final_norm"])
 
 
 class LM(nn.Module):
     """The model: `embed` (Vp,D), `final_norm`, `head` (D,Vp) when the
-    embeddings are not tied, and `blocks`, one `Block` per layer whose
-    `attn` or `ssd`, and `mlp`, map the JAX names to parameters.
-    Frozen (no parameter takes a gradient) unless `trainable`, which a
-    training run asks for; serving keeps it frozen.  Applied by
-    `forward`."""
+    embeddings are not tied, `blocks`, one `Block` per layer, and, for
+    an encoder-decoder config, `encoder`.  Frozen (no parameter takes a
+    gradient) unless `trainable`, which a training run asks for; serving
+    keeps it frozen.  Applied by `forward`."""
 
     def __init__(self, cfg, tree, trainable: bool = False):
         super().__init__()
@@ -192,6 +244,8 @@ class LM(nn.Module):
             Block(self.kinds[r],
                   tree_map(lambda a, g=g: a[g], tree["blocks"][f"r{r}"]))
             for g in range(G) for r in range(P))
+        self.encoder = (Encoder(tree["encoder"], cfg.encoder_layers)
+                        if "encoder" in tree else None)
         self.requires_grad_(trainable)
 
 
@@ -239,21 +293,32 @@ def from_numpy(params_np, cfg, runcfg, device=None,
     return LM(cfg, tree, trainable)
 
 
+def _stacked(path: Tuple[str, ...]) -> bool:
+    """A leaf stacked on a leading layer axis in the JAX tree."""
+    return path[0] == "blocks" or path[:2] == ("encoder", "blocks")
+
+
 def leaf_names(model: LM) -> List[Tuple[Tuple[str, ...], Tuple[str, ...]]]:
     """(JAX path, parameter names): every leaf of the JAX parameter tree
     in flatten order, with the `named_parameters` names that hold it —
-    its own name for a top-level leaf, and layer g*P + r's for g = 0..G-1
-    for the stacked block leaf ("blocks", "r{r}", part, name)."""
+    its own name for an unstacked leaf ("embed", "encoder.final_norm"),
+    layer g*P + r's for g = 0..G-1 for a stacked block leaf ("blocks",
+    "r{r}", part[, name]), and encoder layer g's for ("encoder",
+    "blocks", "r0", part, name)."""
     P = len(model.kinds)
     G = model.cfg.num_layers // P
     out = []
     for path, _ in tree_items(build_param_specs(model.cfg)):
         if path[0] == "blocks":
             r = int(path[1][1:])
-            names = tuple(f"blocks.{g * P + r}.{path[2]}.{path[3]}"
-                          for g in range(G))
+            rest = ".".join(path[2:])
+            names = tuple(f"blocks.{g * P + r}.{rest}" for g in range(G))
+        elif _stacked(path):
+            rest = ".".join(path[3:])
+            names = tuple(f"encoder.blocks.{g}.{rest}"
+                          for g in range(model.cfg.encoder_layers))
         else:
-            names = (path[0],)
+            names = (".".join(path),)
         out.append((path, names))
     return out
 
@@ -268,7 +333,7 @@ def to_tree(model: LM, named: Dict[str, torch.Tensor]) -> Dict:
         for k in path[:-1]:
             node = node.setdefault(k, {})
         node[path[-1]] = (torch.stack([named[n] for n in names])
-                          if path[0] == "blocks" else named[names[0]])
+                          if _stacked(path) else named[names[0]])
     return tree
 
 
@@ -280,7 +345,7 @@ def from_tree(model: LM, tree) -> Dict[str, Any]:
         node = tree
         for k in path:
             node = node[k]
-        if path[0] == "blocks":
+        if _stacked(path):
             out.update({n: node[g] for g, n in enumerate(names)})
         else:
             out[names[0]] = node
@@ -291,16 +356,46 @@ def from_tree(model: LM, tree) -> Dict[str, Any]:
 # Layer application
 # ---------------------------------------------------------------------------
 
+def _out_proj(o, wo):
+    """einsum("bshk,hkd->bsd", o, wo) as one matrix product."""
+    B, S = o.shape[:2]
+    return o.reshape(B, S, -1) @ wo.reshape(-1, wo.shape[-1])
+
+
+def _noncausal_attention(q, k, v, cfg, runcfg):
+    """The JAX mixer's non-causal branch: the KV heads repeated, then
+    `full_attention`, or `chunked_attention` (no (S,T) scores) where S·T
+    passes 2**22."""
+    H = cfg.num_heads
+    kk, vv = attn_mod.repeat_kv(k, H), attn_mod.repeat_kv(v, H)
+    B, S = q.shape[:2]
+    T = kk.shape[1]
+    if S * T <= 2 ** 22:
+        return attn_mod.full_attention(q, kk, vv, causal=False)
+    qp = torch.arange(S, device=q.device)[None].expand(B, S)
+    kp = torch.arange(T, device=q.device)[None].expand(B, T)
+    return attn_mod.chunked_attention(
+        q, kk, vv, q_pos=qp, k_pos=kp, causal=False,
+        chunk_k=runcfg.attn_chunk_k,
+        acc_dtype=DTYPES[runcfg.attn_acc_dtype])
+
+
 def _attn_mixer(p, h, cfg, *, mode, cache, positions, cache_len=None,
-                runcfg=None):
-    """Causal self-attention mixer; in prefill and decode it writes this
-    layer's K/V into `cache` (a cache at capacity) in place, in training
-    it takes no cache.  Returns its output."""
+                runcfg=None, ctx=None, causal=True, rope=True, gate=None):
+    """Attention mixer.  Causal self-attention: in prefill and decode it
+    writes this layer's K/V into `cache` (a cache at capacity) in place,
+    in training it takes no cache.  `causal=False` (the encoder's
+    self-attention; cross-attention, with K/V projected from `ctx` and
+    `rope=False`) takes no cache in any mode.  With `gate` the output is
+    scaled by tanh(gate).  Returns its output."""
     B, S, _ = h.shape
     x = rms_norm(h, p["pre_norm"], cfg.norm_eps)
-    q, k, v = attn_mod._project_qkv(p, x, x, cfg, positions, positions,
-                                    rope=True)
-    if mode == "train":
+    src = x if ctx is None else ctx
+    q, k, v = attn_mod._project_qkv(p, x, src, cfg, positions, positions,
+                                    rope=rope)
+    if not causal:
+        o = _noncausal_attention(q, k, v, cfg, runcfg)
+    elif mode == "train":
         if runcfg.attention_impl == "pallas":
             raise ValueError(
                 "attention_impl='pallas' cannot train: the flash kernel "
@@ -311,15 +406,13 @@ def _attn_mixer(p, h, cfg, *, mode, cache, positions, cache_len=None,
             q, attn_mod.repeat_kv(k, H), attn_mod.repeat_kv(v, H),
             chunk_q=runcfg.attn_chunk_q, chunk_k=runcfg.attn_chunk_k,
             acc_dtype=DTYPES[runcfg.attn_acc_dtype])
-        wo = p["wo"]
-        return o.reshape(B, S, -1) @ wo.reshape(-1, wo.shape[-1])
-    ck, cv = cache["k"], cache["v"]
-    if mode == "decode":
+    elif mode == "decode":
         # The JAX step writes position cache_len[b] with a one-hot select
         # over the whole cache (elementwise, so a sequence-sharded cache
         # never sees a scatter).  On one card an indexed write in place
         # gives the same cache and moves one row per batch entry.  It
         # needs cache_len < T, as the serve loop's capacity P + G ensures.
+        ck, cv = cache["k"], cache["v"]
         rows = torch.arange(B, device=h.device)
         pos = cache_len.long()
         ck[rows, pos] = k[:, 0].to(ck.dtype)
@@ -327,10 +420,42 @@ def _attn_mixer(p, h, cfg, *, mode, cache, positions, cache_len=None,
         o = attn_mod.decode_attention(q, ck, cv, cache_len + 1)
     else:
         o = attn_mod.causal_attention(q, k, v)
-        ck[:, :S] = k
-        cv[:, :S] = v
-    wo = p["wo"]
-    return o.reshape(B, S, -1) @ wo.reshape(-1, wo.shape[-1])
+        cache["k"][:, :S] = k
+        cache["v"][:, :S] = v
+    out = _out_proj(o, p["wo"])
+    if gate is not None:
+        out = out * torch.tanh(gate).to(out.dtype)
+    return out
+
+
+def _cross_mixer(p, gate, h, cfg, *, mode, cache, ctx, runcfg):
+    """The gated cross-attention of a cross layer.  Prefill and training
+    attend to `ctx` (non-causal, no rope), and prefill fills `cache`
+    ({"k", "v", "len"}) with the raw context projections ctx @ wk, ctx @
+    wv — no bias, no k_norm, as the JAX prefill does — and the context
+    length; decode attends to that cache on the decode kernel, with q
+    from wq (+ bq) and no q_norm, as in JAX."""
+    if mode == "decode":
+        x = rms_norm(h, p["pre_norm"], cfg.norm_eps)
+        q = attn_mod._proj(x, p["wq"])
+        if "bq" in p:
+            q = q + p["bq"]
+        o = attn_mod.decode_attention(q, cache["k"], cache["v"],
+                                      cache["len"])
+        o = _out_proj(o, p["wo"])
+        return o * torch.tanh(gate).to(o.dtype)
+    if ctx is None:
+        raise ValueError(f"{cfg.name}: a cross-attention layer needs a "
+                         f"context: img_embeds or frames")
+    o = _attn_mixer(p, h, cfg, mode="train", cache=None, positions=None,
+                    runcfg=runcfg, ctx=ctx, causal=False, rope=False,
+                    gate=gate)
+    if mode == "prefill":
+        T = ctx.shape[1]
+        cache["k"][:, :T] = attn_mod._proj(ctx, p["wk"])
+        cache["v"][:, :T] = attn_mod._proj(ctx, p["wv"])
+        cache["len"].fill_(T)
+    return o
 
 
 def _ssd_mixer(p, h, cfg, *, mode, cache):
@@ -351,9 +476,11 @@ def _ssd_mixer(p, h, cfg, *, mode, cache):
 
 
 def apply_block(block: Block, h, cfg, *, mode, cache, positions,
-                cache_len=None, runcfg=None):
-    """One layer; `cache` is its {"self": {"k", "v"}} (attention) or
-    {"ssm": {...}} (SSD) slice, None in training.  Returns h."""
+                cache_len=None, runcfg=None, ctx=None):
+    """One layer; `cache` is its slice of the caches ({"self": {"k",
+    "v"}} or {"ssm": {...}}, and {"cross": {...}} for a cross layer),
+    None in training; `ctx` the cross layers' context (B,T,D).  Returns
+    (h, the MoE aux loss, None without an MoE MLP)."""
     kind = block.kind
     if kind.mixer == "attn":
         h = h + _attn_mixer(block.attn, h, cfg, mode=mode,
@@ -363,53 +490,74 @@ def apply_block(block: Block, h, cfg, *, mode, cache, positions,
     else:
         h = h + _ssd_mixer(block.ssd, h, cfg, mode=mode,
                            cache=cache["ssm"] if cache else None)
+    if kind.cross:
+        h = h + _cross_mixer(block.xattn, block.xattn_gate, h, cfg,
+                             mode=mode, cache=cache["cross"] if cache
+                             else None, ctx=ctx, runcfg=runcfg)
+    aux = None
     if kind.ffn == "mlp":
         p = block.mlp
         x = rms_norm(h, p["pre_norm"], cfg.norm_eps)
         h = h + swiglu(x, p["wg"], p["wu"], p["wd"])
     elif kind.ffn == "moe":
-        raise unported("the MoE MLP", "10d")
-    return h
+        p = block.moe
+        x = rms_norm(h, p["pre_norm"], cfg.norm_eps)
+        y, aux = moe_mod.moe_apply(p, x, cfg)
+        h = h + y
+    return h, aux
 
 
-def _train_period(model: LM, g: int, h, positions, runcfg):
+def _add_aux(total, a):
+    return a if total is None else (total if a is None else total + a)
+
+
+def _train_period(model: LM, g: int, h, positions, runcfg, ctx):
     """Layers g*P .. g*P + P-1 in training mode, each block recomputed
-    in the backward pass when `runcfg.remat_policy == "block"`."""
+    in the backward pass when `runcfg.remat_policy == "block"`.  Returns
+    (h, aux)."""
     P = len(model.kinds)
+    aux = None
     for r in range(P):
         blk = functools.partial(apply_block, model.blocks[g * P + r],
                                 cfg=model.cfg, mode="train", cache=None,
-                                positions=positions, runcfg=runcfg)
+                                positions=positions, runcfg=runcfg, ctx=ctx)
         if runcfg.remat and runcfg.remat_policy == "block":
-            h = checkpoint(blk, h, use_reentrant=False)
+            h, a = checkpoint(blk, h, use_reentrant=False)
         else:
-            h = blk(h)
-    return h
+            h, a = blk(h)
+        aux = _add_aux(aux, a)
+    return h, aux
 
 
 def run_stack(model: LM, h, *, mode, caches, positions, cache_len=None,
-              runcfg=None):
+              runcfg=None, ctx=None):
     """All num_layers layers, layer g*P + r in order, each writing its
     slice of `caches` (the JAX tree with leading G) in place; training
     takes no caches and, with `runcfg.remat`, recomputes each period of
-    P layers (the JAX default policy) in the backward pass."""
+    P layers (the JAX default policy) in the backward pass.  Returns (h,
+    the summed MoE aux loss, None without MoE layers)."""
     cfg, kinds = model.cfg, model.kinds
     P = len(kinds)
     G = cfg.num_layers // P
+    aux = None
     if mode == "train":
         for g in range(G):
             if runcfg.remat and runcfg.remat_policy != "block":
-                h = checkpoint(_train_period, model, g, h, positions,
-                               runcfg, use_reentrant=False)
+                h, a = checkpoint(_train_period, model, g, h, positions,
+                                  runcfg, ctx, use_reentrant=False)
             else:
-                h = _train_period(model, g, h, positions, runcfg)
-        return h
+                h, a = _train_period(model, g, h, positions, runcfg, ctx)
+            aux = _add_aux(aux, a)
+        return h, aux
     for g in range(G):
         for r in range(P):
-            h = apply_block(model.blocks[g * P + r], h, cfg, mode=mode,
-                            cache=tree_map(lambda a: a[g], caches[f"r{r}"]),
-                            positions=positions, cache_len=cache_len)
-    return h
+            h, a = apply_block(model.blocks[g * P + r], h, cfg, mode=mode,
+                               cache=tree_map(lambda a: a[g],
+                                              caches[f"r{r}"]),
+                               positions=positions, cache_len=cache_len,
+                               runcfg=runcfg, ctx=ctx)
+            aux = _add_aux(aux, a)
+    return h, aux
 
 
 # ---------------------------------------------------------------------------
@@ -426,32 +574,74 @@ def _unembed(model: LM, h):
     return h @ head
 
 
+def _encoder_block(block: Block, h, cfg, positions, runcfg):
+    h = h + _attn_mixer(block.attn, h, cfg, mode="train", cache=None,
+                        positions=positions, runcfg=runcfg, causal=False)
+    p = block.mlp
+    x = rms_norm(h, p["pre_norm"], cfg.norm_eps)
+    return h + swiglu(x, p["wg"], p["wu"], p["wd"])
+
+
+def encode(model: LM, frames, runcfg, *, remat: bool = False):
+    """The encoder stack over the frontend's embeddings `frames`
+    (B,S,D): non-causal attention + SwiGLU blocks at rope positions
+    0..S-1, then the encoder's final norm.  With `remat` each block is
+    recomputed in the backward pass."""
+    cfg = model.cfg
+    B, S, _ = frames.shape
+    pos = torch.arange(S, device=frames.device)[None].expand(B, S)
+    h = frames
+    for block in model.encoder.blocks:
+        f = functools.partial(_encoder_block, block, cfg=cfg, positions=pos,
+                              runcfg=runcfg)
+        h = checkpoint(f, h, use_reentrant=False) if remat else f(h)
+    return rms_norm(h, model.encoder.final_norm, cfg.norm_eps)
+
+
 def forward(model: LM, tokens, *, mode: str, caches=None, cache_len=None,
-            runcfg=None):
+            runcfg=None, img_embeds=None, frames=None):
     """tokens: (B,S) int.  mode "prefill" (positions 0..S-1, K/V into
-    cache positions 0..S-1, SSD states after token S-1) or "decode" (S =
-    1 at positions cache_len) write `caches`, decode caches at capacity
-    T >= S (`alloc_caches`), in place; mode "train" takes no caches and
-    needs `runcfg` (attention chunks and dtype, remat).  Returns (logits
-    (B,S,Vp), caches)."""
+    cache positions 0..S-1, SSD states after token S-1, the cross caches
+    from the context) or "decode" (S = 1 at positions cache_len) write
+    `caches`, decode caches at capacity T >= S (`alloc_caches`), in
+    place; mode "train" takes no caches.  Prefill and training of a
+    model with cross layers take the context: `img_embeds` (B,T,D), or
+    `frames` (B,S',D) for the encoder; cast to the parameters' dtype.
+    `runcfg` (attention chunks and dtype, remat) defaults to
+    `RunConfig()`.  Returns (logits (B,S,Vp), caches, the summed MoE aux
+    loss: float32, 0 without MoE layers), as the JAX forward does."""
     if mode not in ("prefill", "decode", "train"):
         raise ValueError(f"mode={mode!r}")
+    runcfg = runcfg or RunConfig()
     B, S = tokens.shape
+    ctx = None
+    if mode != "decode":
+        dt = model.embed.dtype
+        if model.encoder is not None and frames is not None:
+            ctx = encode(model, frames.to(dt), runcfg,
+                         remat=mode == "train" and runcfg.remat)
+        elif img_embeds is not None:
+            ctx = img_embeds.to(dt)
     if mode == "decode":
         positions = cache_len[:, None]
     else:
         positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
     h = _embed(model, tokens)
-    h = run_stack(model, h, mode=mode, caches=caches, positions=positions,
-                  cache_len=cache_len, runcfg=runcfg)
-    return _unembed(model, h), caches
+    h, aux = run_stack(model, h, mode=mode, caches=caches,
+                       positions=positions, cache_len=cache_len,
+                       runcfg=runcfg, ctx=ctx)
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    return _unembed(model, h), caches, aux
 
 
 def loss_fn(model: LM, batch, runcfg):
-    """Next-token cross entropy (+ 0.01 x the MoE aux loss, 0 for the
-    ported families).  batch: tokens, labels.  Returns (total, (loss,
+    """Next-token cross entropy + 0.01 x the MoE aux loss.  batch:
+    tokens, labels[, img_embeds | frames].  Returns (total, (loss,
     aux))."""
-    logits, _ = forward(model, batch["tokens"], mode="train", runcfg=runcfg)
+    logits, _, aux = forward(model, batch["tokens"], mode="train",
+                             runcfg=runcfg,
+                             img_embeds=batch.get("img_embeds"),
+                             frames=batch.get("frames"))
     loss = cross_entropy(logits, batch["labels"], model.cfg.vocab_size)
-    aux = torch.zeros((), dtype=torch.float32, device=loss.device)
     return loss + 0.01 * aux, (loss, aux)

@@ -934,3 +934,101 @@ def test_coordinator_and_checkpoint_on_the_card(tmp_path):
         "log_match_append", "commit_majority", "apply_last_wins",
         "leader_fanout"))
     assert SM.leader_id(coord.sim.state).device.type == "cuda"
+
+
+# --------------------------------------------------------------------- #
+# MoE, cross-attention and the encoder-decoder (ROADMAP item 10d)
+# --------------------------------------------------------------------- #
+def _attn_layers(cfg):
+    """(self-attention layers, cross layers) of `cfg`."""
+    from repro_torch.models import lm
+    kinds = lm.layer_kinds(cfg)
+    G = cfg.num_layers // len(kinds)
+    return (G * sum(k.mixer == "attn" for k in kinds),
+            G * sum(k.cross for k in kinds))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "llama-3.2-vision-90b",
+                                  "seamless-m4t-medium",
+                                  "jamba-1.5-large-398b"])
+def test_10d_prefill_decode_on_the_card(arch):
+    """The reduced model, float32 with a drawn gate and a seeded context:
+    the card's prefill and three decode steps against the CPU's on the
+    same weights within 1e-3, `chip_smoke.py`'s float32 card-vs-CPU
+    tolerance for whole models: on these random weights attention is
+    ill-conditioned, so each layer's own float32 rounding (phase 16(a)
+    reads the reduced vision's layers, fed equal inputs, up to 1.4e-4
+    apart, the float32 twin itself 3.3e-5 from float64, the kernels no
+    further) carries through five layers and the decode steps (one
+    draw put 30 of 12,288 logits up to 5.5e-4 apart); flash once per
+    self-attention layer in prefill, decode once per self-attention and
+    once per cross layer a step."""
+    _need_cuda()
+    import copy
+    from repro_torch import kernels as K
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.launch.serve import draw_gates, seeded_context
+    from repro_torch.models import lm
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config(arch).reduced()
+    run = RunConfig(remat=False, param_dtype="float32",
+                    activation_dtype="float32")
+    m_cpu = draw_gates(lm.init_lm(cfg, run, seed=4, device="cpu"), 5)
+    m_gpu = copy.deepcopy(m_cpu).to("cuda")
+    B, P, G = 2, 24, 3
+    toks = torch.as_tensor(np.random.default_rng(6).integers(
+        0, 256, (B, P)).astype(np.int32))
+    ctx = seeded_context(cfg, B, P, 7)
+    n_self, n_cross = _attn_layers(cfg)
+    outs = []
+    for model, dev in ((m_cpu, "cpu"), (m_gpu, "cuda")):
+        caches = lm.alloc_caches(cfg, B, P + G, torch.float32, dev)
+        K.reset_launch_counts()
+        with torch.no_grad():
+            logits = [lm.forward(model, toks.to(dev), mode="prefill",
+                                 caches=caches,
+                                 **{k: v.to(dev) for k, v in ctx.items()})[0]]
+            pos = torch.full((B,), P, dtype=torch.int32, device=dev)
+            for step in range(G):
+                nxt = toks[:, step:step + 1].to(dev)
+                logits.append(lm.forward(model, nxt, mode="decode",
+                                         caches=caches,
+                                         cache_len=pos + step)[0])
+        counts = K.launch_counts()
+        if dev == "cuda":
+            assert counts["flash_attention"] == n_self
+            assert counts["decode_attention"] == (n_self + n_cross) * G
+        outs.append([t.cpu() for t in logits])
+    print(f"{arch}: max |card - CPU| over the logits "
+          f"{max((g - w).abs().max().item() for w, g in zip(*outs)):.4g}")
+    for want, got in zip(*outs):
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-3,
+                                   atol=1e-3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "llama-3.2-vision-90b",
+                                  "seamless-m4t-medium"])
+def test_10d_reduced_serve_on_the_card(arch):
+    """`serve()` of the reduced model on the card with the reference's
+    context stubs: flash once per self-attention layer per batch, decode
+    once per self-attention and per cross layer per token, tokens in
+    range."""
+    _need_cuda()
+    from repro_torch import kernels as K
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.launch.serve import serve
+    cfg = get_config(arch).reduced()
+    n_self, n_cross = _attn_layers(cfg)
+    K.reset_launch_counts()
+    r = serve(cfg, RunConfig(remat=False), device="cuda", requests=16,
+              batch=8, prompt_len=24, gen_len=5, seed=1)
+    counts = K.launch_counts()
+    assert counts["flash_attention"] == n_self * 2
+    assert counts["decode_attention"] == (n_self + n_cross) * 2 * 5
+    for g in r["generated"]:
+        assert g.shape == (8, 6) and g.min() >= 0 and \
+            g.max() < cfg.padded_vocab

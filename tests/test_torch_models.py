@@ -161,8 +161,8 @@ def test_prefill_logits_match_jax_f32(impl):
     jlogits, jcaches, _ = _jax_prefill(jcfg, jrun, params, jnp.asarray(toks))
     caches = tlm.alloc_caches(tcfg, 2, 16, torch.float32, "cpu")
     with torch.no_grad():
-        logits, out = tlm.forward(model, torch.from_numpy(toks),
-                                  mode="prefill", caches=caches)
+        logits, out, _ = tlm.forward(model, torch.from_numpy(toks),
+                                     mode="prefill", caches=caches)
     assert out is caches                         # written in place
     assert logits.shape == (2, 16, tcfg.padded_vocab)
     np.testing.assert_allclose(logits.numpy(), np.asarray(jlogits),
@@ -182,8 +182,8 @@ def test_prefill_logits_match_jax_bf16():
     jlogits, jcaches, _ = _jax_prefill(jcfg, jrun, params, jnp.asarray(toks))
     caches = tlm.alloc_caches(tcfg, 2, 16, torch.bfloat16, "cpu")
     with torch.no_grad():
-        logits, _ = tlm.forward(model, torch.from_numpy(toks),
-                                mode="prefill", caches=caches)
+        logits, _, _ = tlm.forward(model, torch.from_numpy(toks),
+                                   mode="prefill", caches=caches)
     assert logits.dtype == torch.bfloat16
     np.testing.assert_allclose(_f32(logits), _f32(jlogits),
                                **TOL["bfloat16"])
@@ -226,10 +226,10 @@ def test_decode_steps_match_jax_f32():
     for _ in range(G):
         jlogits, jc = jdecode(params, jc, jnp.asarray(ttok.numpy())[:, None])
         with torch.no_grad():
-            logits, tlayers = tlm.forward(model, ttok[:, None].long(),
-                                          mode="decode",
-                                          caches=tc["layers"],
-                                          cache_len=tc["pos"])
+            logits, tlayers, _ = tlm.forward(model, ttok[:, None].long(),
+                                             mode="decode",
+                                             caches=tc["layers"],
+                                             cache_len=tc["pos"])
         tc = {"pos": tc["pos"] + 1, "layers": tlayers}
         np.testing.assert_allclose(logits.numpy(), np.asarray(jlogits),
                                    **TOL["float32"])
@@ -243,17 +243,15 @@ def test_decode_steps_match_jax_f32():
     assert np.array_equal(tc["pos"].numpy(), np.asarray(jc["pos"]))
 
 
-@pytest.mark.parametrize("arch,item", [("jamba-1.5-large-398b", "10d"),
-                                       ("qwen2-moe-a2.7b", "10d"),
-                                       ("llama-3.2-vision-90b", "10d"),
-                                       ("seamless-m4t-medium", "10d")])
-def test_unported_branches_raise_naming_their_item(arch, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md §1 item {item}"):
-        TS.param_specs(get_config(arch).reduced(), RunConfig())
-
-
 def test_every_dense_config_builds_specs_like_jax():
-    for arch in ("llama3.2-1b", "qwen2.5-3b", "smollm-360m", "qwen3-8b"):
+    """Full width, specs only: the dense configs and the five of ROADMAP
+    item 10d (MoE, cross-attention, the encoder-decoder, the Jamba
+    hybrid): parameter count and leaf paths, and the caches' leaf paths
+    and shapes (the cross caches included) equal JAX's."""
+    for arch in ("llama3.2-1b", "qwen2.5-3b", "smollm-360m", "qwen3-8b",
+                 "qwen2-moe-a2.7b", "qwen3-moe-30b-a3b",
+                 "llama-3.2-vision-90b", "seamless-m4t-medium",
+                 "jamba-1.5-large-398b"):
         tspec = TS.param_specs(get_config(arch), RunConfig())
         jspec = JS.param_specs(j_get_config(arch), JRunConfig())
         assert tcommon.param_count(tspec) == jcommon.param_count(jspec), arch
@@ -261,6 +259,12 @@ def test_every_dense_config_builds_specs_like_jax():
             [tuple(k.key for k in path) for path, _ in
              jax.tree_util.tree_flatten_with_path(
                  jspec, is_leaf=lambda x: isinstance(x, jcommon.ParamSpec))[0]]
+        tcache = tlm.cache_specs(get_config(arch), 2, 96)
+        jcache = jlm.cache_specs(j_get_config(arch), 2, 96)
+        assert [(p, s.shape) for p, s in tcommon.tree_items(tcache)] == \
+            [(tuple(k.key for k in path), tuple(s.shape)) for path, s in
+             jax.tree_util.tree_flatten_with_path(
+                 jcache, is_leaf=lambda x: isinstance(x, jcommon.ParamSpec))[0]]
 
 
 def test_decode_state_specs_match_jax():
@@ -310,8 +314,8 @@ def test_mamba2_prefill_matches_jax(dtype):
     assert caches["r0"]["ssm"]["ssm"].dtype == torch.float32
     assert caches["r0"]["ssm"]["conv_x"].dtype == DTYPE[dtype]
     with torch.no_grad():
-        logits, out = tlm.forward(model, torch.from_numpy(toks),
-                                  mode="prefill", caches=caches)
+        logits, out, _ = tlm.forward(model, torch.from_numpy(toks),
+                                     mode="prefill", caches=caches)
     assert out is caches and logits.dtype == DTYPE[dtype]
     assert logits.shape == (2, 40, tcfg.padded_vocab)
     if dtype == "float32":
@@ -352,9 +356,10 @@ def test_mamba2_decode_steps_match_jax_f32():
         jlogits = jlogits_of(params, jc, t_in)
         jtok, jc = jax.jit(jdec)(params, jc, t_in)
         with torch.no_grad():              # updates the caches in place
-            logits, layers = tlm.forward(model, ttok[:, None].long(),
-                                         mode="decode", caches=tc["layers"],
-                                         cache_len=tc["pos"])
+            logits, layers, _ = tlm.forward(model, ttok[:, None].long(),
+                                            mode="decode",
+                                            caches=tc["layers"],
+                                            cache_len=tc["pos"])
         np.testing.assert_allclose(logits.numpy(), np.asarray(jlogits),
                                    **TOL["float32"])
         ttok = logits[:, -1].argmax(-1).to(torch.int32)

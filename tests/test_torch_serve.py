@@ -1,11 +1,15 @@
 """The port's serving entry point against the JAX one on the CPU: `serve()`
 and a replica of the `repro.launch.serve.main` loop, given the same
 float32 weights (JAX `init_tree`, carried across by
-`models.lm.from_numpy`) and the same seed, on the reduced smollm-360m
-and the reduced mamba2-130m.  The generated tokens of every batch and
+`models.lm.from_numpy`) and the same seed, on the reduced smollm-360m,
+mamba2-130m, qwen2-moe-a2.7b, llama-3.2-vision-90b and
+seamless-m4t-medium.  The generated tokens of every batch and
 the elastic pool's `served`, `rerouted` and alive count must be equal.
 
-The replica grows only the attention caches to capacity.  The
+The replica grows only the self-attention caches to capacity (the
+port's cross caches hold the image tokens, or the capacity for an
+encoder's output; JAX's grow also pads seamless's cross cache, whose
+axis 2 equals the prompt length, which its `len` masks).  The
 reference's `grow` pads every cache leaf whose axis 2 equals the prompt
 length, which for mamba2 also catches the SSM state (G,B,H,P,N) when
 the prompt length equals the head count and the conv tails (G,B,W-1,.)
@@ -50,6 +54,10 @@ def _jax_serve(cfg, runcfg, params, *, requests, batch, prompt_len,
     pool.add_replicas(2)
     B, P, G = batch, prompt_len, gen_len
     rng = np.random.default_rng(seed)
+    # the reference makes its stubs bfloat16, its default run's dtype; at
+    # float32 its encoder's layer scan refuses bf16 frames (the carry
+    # changes dtype), so the replica makes them in the run's dtype
+    act = jnp.dtype(runcfg.activation_dtype)
     done, generated = 0, []
     while done < requests:
         n = min(B, requests - done)
@@ -57,7 +65,13 @@ def _jax_serve(cfg, runcfg, params, *, requests, batch, prompt_len,
         if pool.revoke_random(revoke_p):
             pool.route(0)
         toks = rng.integers(0, cfg.vocab_size, (B, P)).astype(np.int32)
-        tok, caches = prefill(params, {"tokens": jnp.asarray(toks)})
+        batch = {"tokens": jnp.asarray(toks)}
+        if cfg.family == "vlm":
+            batch["img_embeds"] = jnp.zeros(
+                (B, cfg.num_image_tokens, cfg.d_model), act)
+        if cfg.family == "audio_encdec":
+            batch["frames"] = jnp.zeros((B, P, cfg.d_model), act)
+        tok, caches = prefill(params, batch)
         grow = lambda x: jnp.pad(x, [(0, 0), (0, 0), (0, G), (0, 0), (0, 0)])
         caches = {"pos": caches["pos"], "layers": {
             r: dict(c, self=jax.tree.map(grow, c["self"])) if "self" in c
@@ -103,6 +117,18 @@ def test_serve_matches_the_jax_loop():
 @pytest.mark.parametrize("prompt_len", [16, 8])
 def test_mamba2_serve_matches_the_jax_loop(prompt_len):
     _check_serve("mamba2-130m", prompt_len)
+
+
+@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "llama-3.2-vision-90b",
+                                  "seamless-m4t-medium"])
+def test_10d_serve_matches_the_jax_loop(arch):
+    """The MoE, vision and encoder-decoder families, the context stubs
+    (zero image embeddings or frames) fed as the reference loop feeds
+    them.  With zero contexts the cross layers add nothing, so this
+    holds the loop, the MoE layers and the caches' lifetimes to JAX;
+    `test_torch_moe_cross.py` holds the cross and encoder paths with
+    seeded contexts and drawn gates."""
+    _check_serve(arch, 16)
 
 
 def test_main_cli(capsys):
