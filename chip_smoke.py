@@ -16,6 +16,8 @@
     python3 chip_smoke.py --phase16  # phases 1, 8 (without the long
                                      # shapes) and 16 (MoE, cross-
                                      # attention, encoder-decoder)
+    python3 chip_smoke.py --phase17  # phase 17 alone (the expert-
+                                     # parallel MoE; builds nothing)
 
 Phases, each fatal on failure:
 
@@ -210,9 +212,33 @@ Phases, each fatal on failure:
    all on the tensor-core route; tokens/s, prefill and decode ms and
    peak memory printed; then each model's sync-free check as in phase
    12;
-17. a `kernels` JSON line (with each kernel's launches in phase 15,
-   `launches_train`, and in phase 16(b) by model, `launches_10d`), the
-   card line, and the last line `{"ok": true, "device": {...}}`.
+17. the expert-parallel MoE (ROADMAP.md §1 item 10e): `moe_apply` on
+   DTensors over a (1, ep) ("data", "model") mesh of ep gloo ranks that
+   share the card (ep 4 and 8, spawned with a FileStore in a temporary
+   directory; gloo stages the CUDA tensors through the host; a rank
+   that raises, dies or runs past MOE_EP_TIMEOUT fails the phase), at
+   full width: qwen2-moe-a2.7b (D 2048, 60 experts padded to 64, top-4,
+   F 1408, shared experts 5632) and qwen3-moe-30b-a3b (128 experts,
+   top-8, F 768), in float32 and bfloat16, a prefill shape (B 8, S 512:
+   the a2a form) and a decode shape (B 8, S 1: the psum form); (a) at
+   capacity 8.0 the gathered output against the dense form on the card
+   from the same weights and tokens (float32 within 1e-4, bfloat16
+   gated by MOE_EP_BF16_SHARE and MOE_EP_BF16_MAX) and nothing dropped;
+   (b) at the configured 1.25, float32, each rank's body on the card
+   against the same body on the CPU over the same group: top-k ids,
+   bin positions and drop masks equal, any token whose top-k flipped
+   counted, printed and required to be a near-tie (MOE_EP_TIE), the
+   outputs within 1e-4 where routing agrees; (c) the bodies' rank-local
+   work (route, packing, expert products, combine) sync-free under
+   `torch.cuda.set_sync_debug_mode("error")`, the collectives outside
+   the check; (d) the wire bytes `launch.comm_stats` records for one
+   layer equal to the closed form (`moe_ep_wire_bytes`); per-rank layer
+   ms of each form and the dense form's are printed (host-staged
+   collectives on one card: not a speed of the method);
+18. a `kernels` JSON line (with each kernel's launches in phase 15,
+   `launches_train`, in phase 16(b) by model, `launches_10d`, and in
+   phase 17 by ep, `launches_moe_ep`: none of them is on that path),
+   the card line, and the last line `{"ok": true, "device": {...}}`.
 
 Exits non-zero, printing no result, without a CUDA device or outside a
 checkout of the repository.
@@ -3085,6 +3111,371 @@ def run_10d(dev, profile=False):
     return {"serve": served, "jamba": jamba}
 
 
+# --------------------------------------------------------------------- #
+# phase 17: the expert-parallel MoE on ranks sharing the card
+# --------------------------------------------------------------------- #
+MOE_EP_ARCHS = ("qwen2-moe-a2.7b", "qwen3-moe-30b-a3b")
+MOE_EP_RANKS = (4, 8)
+MOE_EP_SHAPES = {"a2a": (8, 512), "psum": (8, 1)}   # prefill, decode (B, S)
+MOE_EP_NO_DROP = 8.0           # the capacity factor at which nothing drops
+# (a) the ranks' gathered output against the dense form on the card: float32
+# within 1e-4 (rtol = atol); bfloat16 at most a share MOE_EP_BF16_SHARE of
+# the outputs outside 3e-2 and none past MOE_EP_BF16_MAX (PERF.md §6:
+# written before the first chip run)
+MOE_EP_F32_TOL = 1e-4
+MOE_EP_BF16_TOL = 3e-2
+MOE_EP_BF16_SHARE = 1e-3
+MOE_EP_BF16_MAX = 0.125
+# (b) a token whose top-k differs between the card and the CPU must be a
+# near-tie: the CPU's k-th and (k+1)-th probabilities within this
+MOE_EP_TIE = 1e-5
+MOE_EP_REPS = 3
+MOE_EP_SEED = 17
+MOE_EP_TIMEOUT = 420.0
+
+
+def moe_ep_wire_bytes(form, T, D, k, ep, cf, itemsize):
+    """One MoE layer's wire bytes per rank in closed form (comm_stats'
+    ring models): a2a sends (ep, cap, D) out and back and the (ep, cap)
+    int32 expert ids, each all-to-all (ep - 1)/ep of it; psum all-reduces
+    (T, D), 2 (ep - 1)/ep of it; both all-reduce the float32 aux.  T is
+    the rank's tokens."""
+    ring = (ep - 1) / ep
+    aux = 4 * 2 * ring
+    if form == "psum":
+        return int(T * D * itemsize * 2 * ring + aux)
+    cap = max(int(-(-T * k // ep) * cf), 1)
+    return int(2 * ep * cap * D * itemsize * ring + ep * cap * 4 * ring
+               + aux)
+
+
+def moe_ep_unaffected(ids_a, ids_b, bins_a, bins_b, k):
+    """Entries (T*k,) whose position in their bin cannot differ between
+    two routings: not of a token whose top-k differs, and before, in
+    token order, the first such token entering their bin on either
+    side.  Also returns the tokens whose top-k differs."""
+    import numpy as np
+    T = ids_a.shape[0]
+    flipped = (ids_a != ids_b).any(axis=1)
+    fe = np.repeat(flipped, k)
+    tok = np.repeat(np.arange(T), k)
+    ba, bb = bins_a.reshape(-1), bins_b.reshape(-1)
+    first = np.full(int(max(ba.max(), bb.max())) + 1, T)
+    np.minimum.at(first, ba[fe], tok[fe])
+    np.minimum.at(first, bb[fe], tok[fe])
+    return (~fe) & (tok < first[ba]), flipped
+
+
+def moe_ep_case(arch, dt, ep, rank, mesh, dev, reduced, check_sync):
+    """One model in one dtype on this rank: gates (a), (c), (d) at
+    MOE_EP_NO_DROP through `moe_apply` and the bodies, layer times, and
+    in float32 gate (b) at the configured capacity, card against CPU."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from repro_torch.configs import get_config
+    from repro_torch.launch import comm_stats
+    from repro_torch.models import moe
+    from repro_torch.models.common import init_tree
+    base = get_config(arch)
+    base = base.reduced() if reduced else base
+    cfg8 = dataclasses.replace(base, moe_capacity_factor=MOE_EP_NO_DROP)
+    dm, group = mesh.device_mesh, mesh.group("model")
+    rep, shard = [Replicate(), Replicate()], [Replicate(), Shard(0)]
+    full = init_tree(torch.Generator(device=dev).manual_seed(MOE_EP_SEED),
+                     moe.moe_params(base, dt))
+    E_loc = full["wg"].shape[0] // ep
+    sl = slice(rank * E_loc, (rank + 1) * E_loc)
+    p = {n: DTensor.from_local(v[sl].contiguous() if n in ("wg", "wu", "wd")
+                               else v, dm,
+                               shard if n in ("wg", "wu", "wd") else rep,
+                               run_check=False) for n, v in full.items()}
+    k, D = base.moe_top_k, base.d_model
+    res = {}
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    for form, (B, S) in MOE_EP_SHAPES.items():
+        gen = torch.Generator(device=dev).manual_seed(MOE_EP_SEED + S)
+        x = torch.randn((B, S, D), generator=gen, device=dev).to(dt)
+        xd = DTensor.from_local(x, dm, rep, run_check=False)
+        r = {}
+        with torch.no_grad():
+            # (d) the collectives of one layer, through the entry point
+            with comm_stats.CollectiveRecorder() as rec:
+                y, aux = moe.moe_apply(p, xd, cfg8, mesh)
+            T = B * S // ep if form == "a2a" else B * S
+            r["wire"] = comm_stats.total_collective_bytes(rec.records)
+            r["wire_want"] = moe_ep_wire_bytes(form, T, D, k, ep,
+                                               MOE_EP_NO_DROP, dt.itemsize)
+            r["kinds"] = [k_ for k_, _, _ in rec.records]
+            yf = moe_ep_gather(y)
+            times = []
+            for _ in range(MOE_EP_REPS):
+                torch.distributed.barrier()
+                sync()
+                t0 = time.perf_counter()
+                y2, _ = moe.moe_apply(p, xd, cfg8, mesh)
+                sync()
+                times.append((time.perf_counter() - t0) * 1e3)
+            r["ms"] = statistics.median(times)
+            del y2
+            # (a) the gathered output against the dense form, on rank 0
+            if rank == 0:
+                yd, auxd = moe.moe_apply_dense(full, x, cfg8)
+                diff = (yf.float() - yd.float()).abs()
+                tol = MOE_EP_F32_TOL if dt == torch.float32 \
+                    else MOE_EP_BF16_TOL
+                r["max_err"] = diff.max().item()
+                r["outside"] = (diff > tol * (1 + yd.float().abs())).sum(
+                    ).item() / diff.numel()
+                r["aux_err"] = abs(aux.full_tensor().item() - auxd.item())
+                times = []
+                for _ in range(MOE_EP_REPS):
+                    sync()
+                    t0 = time.perf_counter()
+                    moe.moe_apply_dense(full, x, cfg8)
+                    sync()
+                    times.append((time.perf_counter() - t0) * 1e3)
+                r["dense_ms"] = statistics.median(times)
+                del yd, diff
+            torch.distributed.barrier()
+            # (c) the rank-local work reads nothing on the host; the bodies'
+            # routing also counts what dropped
+            xl = x if form == "psum" else \
+                x[:, rank * (S // ep):(rank + 1) * (S // ep)]
+            body = moe._moe_local_a2a if form == "a2a" else \
+                moe._moe_local_psum
+            w = [full["router"]] + [full[n][sl] for n in ("wg", "wu", "wd")]
+            with moe_ep_sync_checked(check_sync):
+                _, _, route = body(xl, *w, cfg=cfg8, ep=ep, group=group)
+            if form == "a2a":
+                r["dropped"] = int((~route["keep"]).sum().item() + (
+                    (route["pos2"] >= 0) & ~route["keep2"]).sum().item())
+            else:
+                local = (route["ids"] // E_loc == rank).reshape(-1)
+                r["dropped"] = int((local & ~route["keep"]).sum().item())
+            # (b) card against CPU at the configured capacity, float32
+            if dt == torch.float32:
+                r.update(moe_ep_card_vs_cpu(body, xl, w, base, ep, group,
+                                            rank, E_loc))
+        res[form] = r
+        del x, xd, y, yf
+    return res
+
+
+def moe_ep_gather(y):
+    """The whole of a DTensor sharded on one mesh dim (or replicated), on
+    every rank, gathered on the host: gloo's all-gather of CUDA tensors,
+    which `full_tensor()` makes, crashed the rank on the card's torch
+    (PERF.md §6)."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import Shard
+    dims = [(i, pl.dim) for i, pl in enumerate(y.placements)
+            if isinstance(pl, Shard) and y.device_mesh.size(i) > 1]
+    local = y.to_local()
+    if not dims:
+        return local
+    (mesh_dim, dim), = dims
+    group = y.device_mesh.get_group(mesh_dim)
+    host = local.cpu()
+    parts = [torch.empty_like(host) for _ in range(group.size())]
+    dist.all_gather(parts, host, group=group)
+    return torch.cat(parts, dim=dim).to(local.device)
+
+
+@contextlib.contextmanager
+def moe_ep_sync_checked(on):
+    """`torch.cuda.set_sync_debug_mode("error")` over the bodies' rank-
+    local work: the route, the packing, the expert products and the
+    combine.  Each collective runs, and completes, with the check off."""
+    import torch
+    from repro_torch.models import moe
+    if not on:
+        yield
+        return
+    saved = moe._all_to_all, moe._psum
+
+    def unchecked(fn):
+        def call(*a, **kw):
+            torch.cuda.set_sync_debug_mode(0)
+            try:
+                out = fn(*a, **kw)       # waits for the collective
+                torch.cuda.synchronize()
+                return out
+            finally:
+                torch.cuda.set_sync_debug_mode("error")
+        return call
+
+    moe._all_to_all, moe._psum = (unchecked(f) for f in saved)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+        moe._all_to_all, moe._psum = saved
+
+
+def moe_ep_card_vs_cpu(body, xl, w, cfg, ep, group, rank, E_loc):
+    """Gate (b): the body on the card and on the CPU (the same gloo group)
+    from the same float32 inputs.  Returns the flips (tokens whose top-k
+    differs, each with the CPU's k-th / (k+1)-th probability gap), the
+    integer routing entries compared and those that differ, and the
+    largest output difference where routing agrees."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    k = cfg.moe_top_k
+    with torch.no_grad():
+        yc, _, rc = body(xl, *w, cfg=cfg, ep=ep, group=group)
+        xh, wh = xl.cpu(), [t.cpu() for t in w]
+        yh, _, rh = body(xh, *wh, cfg=cfg, ep=ep, group=group)
+        xf = xh.reshape(-1, xh.shape[-1]).float()
+        logits = xf @ wh[0]
+        logits[:, cfg.moe_num_experts:] = -1e30
+        probs = torch.sort(torch.softmax(logits, -1), -1,
+                           descending=True).values
+    rc = {n: v.cpu().numpy() for n, v in rc.items()}
+    rh = {n: v.numpy() for n, v in rh.items()}
+    ids_c, ids_h = rc["ids"], rh["ids"]
+    bins = (lambda ids: ids // E_loc) if "pos2" in rh else (
+        lambda ids: np.where(ids // E_loc == rank, ids % E_loc, E_loc))
+    ok, flipped = moe_ep_unaffected(ids_c, ids_h, bins(ids_c), bins(ids_h),
+                                    k)
+    n_flips = torch.tensor([int(flipped.sum())])
+    dist.all_reduce(n_flips, group=group)       # on the CPU: gloo
+    gaps = (probs[:, k - 1] - probs[:, k]).numpy()[flipped]
+    out = {"flips": int(flipped.sum()), "flip_gaps": gaps.tolist(),
+           "compared": 0, "differ": 0}
+    for n in ("pos", "keep"):
+        out["compared"] += int(ok.sum())
+        out["differ"] += int((rc[n][ok] != rh[n][ok]).sum())
+    out["ids_differ_unflipped"] = int(
+        (ids_c[~flipped] != ids_h[~flipped]).sum())
+    if "pos2" in rh and int(n_flips) == 0:
+        for n in ("pos2", "keep2"):
+            out["compared"] += rh[n].size
+            out["differ"] += int((rc[n] != rh[n]).sum())
+    tok_ok = ok.reshape(-1, k).all(axis=1)
+    if "pos2" not in rh:                 # psum: every rank's entries count
+        agree = torch.from_numpy(tok_ok.astype(np.int32))
+        dist.all_reduce(agree, op=dist.ReduceOp.MIN, group=group)
+        tok_ok = agree.numpy().astype(bool)
+    a = yc.cpu().reshape(-1, yc.shape[-1])[torch.from_numpy(tok_ok)]
+    b = yh.reshape(-1, yh.shape[-1])[torch.from_numpy(tok_ok)]
+    out["out_compared"] = int(tok_ok.sum())
+    out["out_err"] = float((a - b).abs().max()) if a.numel() else 0.0
+    out["out_outside"] = int(((a - b).abs() > MOE_EP_F32_TOL * (
+        1 + b.abs())).sum())
+    return out
+
+
+def moe_ep_rank(rank, world, dev_type, reduced):
+    """One rank of phase 17: the ("data", "model") = (1, world) mesh over
+    the ranks sharing device 0 (gloo: CUDA tensors staged through the
+    host), each model in float32 and bfloat16 (`moe_ep_case`)."""
+    import os
+    import torch
+    from repro_torch import kernels as K_
+    from repro_torch.launch.mesh import make_host_mesh
+    dev = torch.device(dev_type, 0) if dev_type == "cuda" else \
+        torch.device("cpu")
+    if dev.type == "cuda":
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_num_threads(max(1, (os.cpu_count() or world) // world))
+    mesh = make_host_mesh(model=world, device_type=dev_type)
+    K_.reset_launch_counts()
+    out = {"cases": {}}
+    for arch in MOE_EP_ARCHS:
+        for dt in (torch.float32, torch.bfloat16):
+            out["cases"][arch, dtype_name(dt)] = moe_ep_case(
+                arch, dt, world, rank, mesh, dev, reduced,
+                check_sync=dev.type == "cuda")
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+    out["launches"] = K_.launch_counts()
+    if dev.type == "cuda":
+        out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    return out
+
+
+def run_moe_ep(dev_type="cuda", reduced=False, ranks=MOE_EP_RANKS):
+    """Phase 17: the expert-parallel MoE (`models/moe.py`, ROADMAP.md §1
+    item 10e) at full published width on `ep` gloo ranks sharing the
+    card, spawned with a FileStore in a temporary directory
+    (`launch.local_ranks.run_ranks`: a rank that raises, dies or runs
+    past MOE_EP_TIMEOUT fails the phase).  Returns the kernel launches
+    counted over it, by ep (none of the port's kernels is on this path)."""
+    from repro_torch.launch.local_ranks import run_ranks
+    launches = {}
+    for ep in ranks:
+        t0 = time.perf_counter()
+        res = run_ranks(moe_ep_rank, ep, dev_type, reduced,
+                        timeout=MOE_EP_TIMEOUT)
+        log(f"phase 17: ep={ep} ranks on {dev_type} in "
+            f"{time.perf_counter() - t0:.1f} s"
+            + (f", peak {max(r['peak_gib'] for r in res):.1f} GiB a rank"
+               if "peak_gib" in res[0] else ""))
+        for (arch, dt), cases in res[0]["cases"].items():
+            for form, r0 in cases.items():
+                rs = [r["cases"][arch, dt][form] for r in res]
+                check_moe_ep(ep, arch, dt, form, r0, rs)
+        launches[ep] = res[0]["launches"]
+        if any(res[0]["launches"].values()):
+            raise AssertionError(f"phase 17 launched port kernels: "
+                                 f"{res[0]['launches']}")
+    return launches
+
+
+def check_moe_ep(ep, arch, dt, form, r0, rs):
+    """Print one (ep, model, dtype, form) row and apply gates (a)-(d)."""
+    tag = f"phase 17 ep={ep} {arch} {dt} {form}"
+    ms = statistics.median(r["ms"] for r in rs)
+    log(f"{tag}: vs dense max_err {r0['max_err']:.3g} (share outside "
+        f"{r0['outside']:.3g}), aux err {r0['aux_err']:.3g}; wire "
+        f"{rs[0]['wire']} B/rank (closed form {rs[0]['wire_want']}), "
+        f"{rs[0]['kinds']}; dropped {sum(r['dropped'] for r in rs)}; "
+        f"layer ms {ms:.3f} (ranks {[round(r['ms'], 3) for r in rs]}), "
+        f"dense {r0['dense_ms']:.3f} ms")
+    if dt == "float32":
+        if r0["outside"]:
+            raise AssertionError(f"{tag}: {r0['outside']:.3g} of the "
+                                 f"outputs outside {MOE_EP_F32_TOL}")
+    elif r0["outside"] > MOE_EP_BF16_SHARE or \
+            r0["max_err"] > MOE_EP_BF16_MAX:
+        raise AssertionError(f"{tag}: share {r0['outside']:.3g} outside "
+                             f"{MOE_EP_BF16_TOL}, max {r0['max_err']:.3g}")
+    for i, r in enumerate(rs):
+        if r["wire"] != r["wire_want"]:
+            raise AssertionError(f"{tag} rank {i}: {r['wire']} wire bytes, "
+                                 f"the closed form {r['wire_want']}")
+        if r["dropped"]:
+            raise AssertionError(f"{tag} rank {i}: {r['dropped']} entries "
+                                 f"dropped at {MOE_EP_NO_DROP}")
+    if dt != "float32":
+        return
+    flips = sum(r["flips"] for r in rs)
+    gaps = [g for r in rs for g in r["flip_gaps"]]
+    log(f"{tag} card vs CPU at the configured capacity: {flips} tokens "
+        f"whose top-k flipped (CPU gaps {gaps}); routing entries compared "
+        f"{sum(r['compared'] for r in rs)}, differing "
+        f"{sum(r['differ'] for r in rs)}; outputs compared on "
+        f"{sum(r['out_compared'] for r in rs)} tokens, max_err "
+        f"{max(r['out_err'] for r in rs):.3g}")
+    for i, r in enumerate(rs):
+        if r["differ"] or r["ids_differ_unflipped"] or r["out_outside"]:
+            raise AssertionError(f"{tag} rank {i}: card vs CPU {r}")
+        if any(g > MOE_EP_TIE for g in r["flip_gaps"]):
+            raise AssertionError(f"{tag} rank {i}: a top-k flip past a "
+                                 f"near-tie: {r['flip_gaps']}")
+
+
 def repeat_phase10(dev, n) -> int:
     """Phases 8-9 once, then phase 10's float32 smollm check `n` times in
     this process (ROADMAP.md §3 F4): each failure prints its diagnosis;
@@ -3121,6 +3512,10 @@ def main() -> int:
                     help="build the kernels, run phase 8 without its "
                     "long shapes and phase 16 (MoE, cross-attention, "
                     "encoder-decoder), and exit")
+    ap.add_argument("--phase17", action="store_true",
+                    help="run phase 17 (the expert-parallel MoE on ranks "
+                    "sharing the card) alone and exit: it runs none of "
+                    "the port's kernels, so nothing is built")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -3143,6 +3538,11 @@ def main() -> int:
     log(f"card: {card}")
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]}")
+    if args.phase17:
+        run_moe_ep()
+        log(f"phase 17 alone {time.perf_counter() - t_start:.1f} s")
+        log(card)
+        return 0
     t0 = time.perf_counter()
     libs = build.build()
     log(f"built {sorted(libs)} in {time.perf_counter() - t0:.1f} s")
@@ -3211,6 +3611,10 @@ def main() -> int:
     t0 = time.perf_counter()
     ten_d = run_10d(dev, args.profile)
     log(f"10d phase {time.perf_counter() - t0:.1f} s")
+    free_card()
+    t0 = time.perf_counter()
+    moe_ep = run_moe_ep()
+    log(f"expert-parallel MoE phase {time.perf_counter() - t0:.1f} s")
     if args.profile:
         b = sim.draws.epoch(10, sim.state, sim.cfg_c)
         run_profile("solo", SM.batch1(sim.state), sim.static_t,
@@ -3233,6 +3637,7 @@ def main() -> int:
             "library_ms": r["library_ms"],
             "launches_solo": solo_counts[name],
             "launches_train": train_counts[name], "floor_ms": floor,
+            "launches_moe_ep": {ep: c[name] for ep, c in moe_ep.items()},
             "launches_services": {run: c[name]
                                   for run, c in services.items()}}
         if "solo" in results[name]:
@@ -3261,6 +3666,7 @@ def main() -> int:
             "launches_tensor_core": serve_counts["routes"][name][
                 "tensor_core"],
             "launches_train": train_counts[name],
+            "launches_moe_ep": {ep: c[name] for ep, c in moe_ep.items()},
             "launches_10d": {a: c[name] for a, c in ten_d["serve"].items()},
             "launches_10d_tensor_core": {
                 a: c["routes"][name]["tensor_core"]
@@ -3286,6 +3692,7 @@ def main() -> int:
         "launches_tensor_core": mamba_counts["routes"]["ssd_scan"][
             "tensor_core"],
         "launches_train": train_counts["ssd_scan"],
+        "launches_moe_ep": {ep: c["ssd_scan"] for ep, c in moe_ep.items()},
         "launches_10d_jamba_check": ten_d["jamba"]["ssd_scan"],
         "ms_long": g["ms"],
         "plain_ms_long": g["plain_ms"], "library_ms_long": None,

@@ -6,7 +6,7 @@ JAX model on the CPU (ROADMAP.md §1 item 10d).
   for the reduced qwen2-moe (shared experts) and qwen3-moe (8 experts,
   top-2): outputs and aux loss within TOL, router ids exact, a zero
   token (a uniform router row, where `lax.top_k` takes the lowest ids)
-  included; an expert axis above 1 raises naming item 10e.
+  included (the expert-parallel forms: `tests/test_torch_moe_ep.py`).
 - Parameter and cache specs of the five 10d configs at full width
   (free: no tensor is made) equal JAX's leaf for leaf.
 - Reduced models, float32 unless stated: prefill logits and caches,
@@ -131,16 +131,6 @@ def test_moe_matches_jax(arch):
                                    **TOL["float32"])
         np.testing.assert_allclose(aux.item(), float(jaux),
                                    **TOL["float32"])
-
-
-def test_expert_parallel_moe_raises_naming_10e():
-    cfg = get_config("qwen2-moe-a2.7b").reduced()
-    p = tcommon.init_tree(torch.Generator().manual_seed(0),
-                          tmoe.moe_params(cfg, torch.float32))
-    mesh = types.SimpleNamespace(shape={"data": 1, "model": 2})
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 10e"):
-        tmoe.moe_apply(p, torch.zeros(1, 2, 64), cfg, mesh)
-    assert tlm.unported is tcommon.unported       # still importable
 
 
 # --------------------------------------------------------------------- #
