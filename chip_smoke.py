@@ -18,6 +18,10 @@
                                      # attention, encoder-decoder)
     python3 chip_smoke.py --phase17  # phase 17 alone (the expert-
                                      # parallel MoE; builds nothing)
+    python3 chip_smoke.py --phase18  # phases 1 and 18 (the LM forward
+                                     # on DTensors over 4 ranks)
+    python3 chip_smoke.py --probe-gloo  # which functional collectives
+                                     # gloo takes on CUDA tensors
 
 Phases, each fatal on failure:
 
@@ -235,10 +239,39 @@ Phases, each fatal on failure:
    layer equal to the closed form (`moe_ep_wire_bytes`); per-rank layer
    ms of each form and the dense form's are printed (host-staged
    collectives on one card: not a speed of the method);
-18. a `kernels` JSON line (with each kernel's launches in phase 15,
-   `launches_train`, in phase 16(b) by model, `launches_10d`, and in
-   phase 17 by ep, `launches_moe_ep`: none of them is on that path),
-   the card line, and the last line `{"ok": true, "device": {...}}`.
+18. the LM forward on DTensors (ROADMAP.md §1 item 10e part 2a): 4
+   gloo ranks sharing the card (every functional collective of CUDA
+   tensors staged through the host, `local_ranks.stage_through_host`,
+   since gloo's all-gather of them kills the rank), the ("data",
+   "model") host meshes 1 x 4 and 2 x 2, `make_prefill_step` /
+   `make_decode_step` with a mesh: llama3.2-1b at full width and depth
+   in float32 and bfloat16 (decode profile B 8, prompt 512, capacity
+   544; long profile B 1, prompt 2,048, capacity 2,080), qwen2-moe-a2.7b
+   cut to 2 layers (bf16, 1 x 4, capacity 8.0: the expert-parallel MoE
+   in the forward) and the reduced Jamba (f32, 1 x 4: `ssd_scan` on the
+   rank's heads), a prefill and LM_MESH_STEPS decode steps fed the
+   one-device run's greedy tokens and, layer by layer, its layer inputs
+   (random weights are chaotic: the first case also runs untapped and
+   prints how far it ends; not gated); (a) each rank's shard of every
+   logit and cache leaf against its slice of the one-device run on the
+   card from the same weights (float32 within LM_MESH_F32_TOL, bfloat16
+   by LM_MESH_BF16_SHARE and LM_MESH_BF16_MAX), each float32 layer by
+   LM_MESH_LAYER_SHARE and LAYER_F32_MAX, greedy tokens equal past the
+   one-device top-2 margin; (b) the first decode call's (o, lse) form
+   on the rank's cache shard against its twin and float64 as in phase
+   16(a), also with cache_len 0, 1, T_local - 1 and T_local on the
+   shards; (c) launches on every rank: flash once per attention layer a
+   prefill, decode once per attention layer a step, all in the (o, lse)
+   form, on the tensor cores for llama in bf16, `ssd_scan` once per SSD
+   layer a prefill; (d) the merge's collectives (`launch.comm_stats`)
+   of the closed form's bytes; ms a rank printed (host-staged: not a
+   speed of the method);
+19. a `kernels` JSON line (with each kernel's launches in phase 15,
+   `launches_train`, in phase 16(b) by model, `launches_10d`, in phase
+   17 by ep, `launches_moe_ep`: none of them is on that path, and in
+   phase 18 by case, `launches_lm_mesh`, and for decode
+   `launches_lm_mesh_lse`), the card line, and the last line `{"ok":
+   true, "device": {...}}`.
 
 Exits non-zero, printing no result, without a CUDA device or outside a
 checkout of the repository.
@@ -2035,8 +2068,9 @@ def decode_ticket_check(dev):
                              f"phase 10's first decode launch: {left}")
     orig = DK.decode_attention
 
-    def checked(q, k_cache, v_cache, cache_len, out, nsplit=None):
-        r = orig(q, k_cache, v_cache, cache_len, out, nsplit)
+    def checked(q, k_cache, v_cache, cache_len, out, nsplit=None,
+                lse=None):
+        r = orig(q, k_cache, v_cache, cache_len, out, nsplit, lse=lse)
         stats["launches"] += 1
         T, KV = k_cache.shape[1], k_cache.shape[2]
         B, hd = q.shape[0], q.shape[3]
@@ -3476,6 +3510,527 @@ def check_moe_ep(ep, arch, dt, form, r0, rs):
                                  f"near-tie: {r['flip_gaps']}")
 
 
+# --------------------------------------------------------------------- #
+# phase 18: the LM forward on DTensors over ranks sharing the card
+# --------------------------------------------------------------------- #
+GLOO_PROBE_BIG = 2 ** 22     # elements a rank: 16 MB, an activation's size
+
+
+def gloo_probe_rank(rank, world, name, staged, n):
+    """One functional collective of n float32 elements a rank, made by a
+    kernel on the current stream just before, over the default gloo
+    group, its result checked on the host; with `staged`, through
+    `local_ranks.stage_through_host`."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed import _functional_collectives as fc
+    from repro_torch.launch.local_ranks import stage_through_host
+    torch.cuda.set_device(0)
+    if staged:
+        stage_through_host()
+    g = dist.group.WORLD
+    base = torch.arange(n, dtype=torch.float32)
+    dev = torch.device("cuda")
+    x = torch.arange(n, dtype=torch.float32, device=dev) + 10 * rank
+    if name == "all_gather_into_tensor":
+        y = fc.all_gather_tensor(x, 0, g)
+        want = torch.cat([base + 10 * r for r in range(world)])
+    elif name == "all_reduce":
+        y = torch.cat([fc.all_reduce(x, "sum", g),
+                       fc.all_reduce(x, "max", g)])
+        want = torch.cat([world * base + 10 * sum(range(world)),
+                          base + 10 * (world - 1)])
+    elif name == "reduce_scatter_tensor":
+        xx = torch.arange(n * world, dtype=torch.float32, device=dev)
+        y = fc.reduce_scatter_tensor(xx, "sum", 0, g)
+        want = world * (torch.arange(n, dtype=torch.float32) + n * rank)
+    elif name == "all_to_all_single":
+        xx = torch.arange(n * world, dtype=torch.float32, device=dev) + \
+            1e7 * rank
+        y = fc.all_to_all_single(xx, None, None, g)
+        want = torch.cat([torch.arange(n * rank, n * rank + n,
+                                       dtype=torch.float32) + 1e7 * r
+                          for r in range(world)])
+    else:
+        y = fc.broadcast(x, 0, g)
+        want = base
+    y = fc.wait_tensor(y) if hasattr(fc, "wait_tensor") else y
+    y = y * 1.0                       # a kernel reading the result
+    torch.cuda.synchronize()
+    return bool(torch.equal(y.cpu(), want)), y.device.type
+
+
+def probe_gloo(world=4):
+    """Which functional collectives gloo takes on CUDA tensors of ranks
+    sharing the card, each in its own spawn (a crash fails that spawn
+    only): raw at 4 and GLOO_PROBE_BIG elements a rank, and staged
+    through the host at GLOO_PROBE_BIG.  Returns {name: {"raw",
+    "staged"}: "ok" | "wrong" | the failure's first line}."""
+    from repro_torch.launch.local_ranks import STAGED, run_ranks
+    out = {}
+    for name in STAGED:
+        out[name] = {}
+        for staged, n in ((False, 4), (False, GLOO_PROBE_BIG),
+                          (True, GLOO_PROBE_BIG)):
+            key = ("staged" if staged else "raw") + f" {n}"
+            try:
+                res = run_ranks(gloo_probe_rank, world, name, staged, n,
+                                timeout=120.0)
+                out[name][key] = "ok" if all(r[0] for r in res) else \
+                    f"wrong {res}"
+            except RuntimeError as exc:
+                lines = [ln for ln in str(exc).splitlines() if ln.strip()]
+                out[name][key] = " | ".join(lines[:1] + lines[-1:])
+            log(f"gloo probe {name} {key}: {out[name][key]}")
+    return out
+
+
+LM_MESH_SHAPES = {"1x4": 4, "2x2": 2}   # ("data", "model") over 4 ranks
+LM_MESH_WORLD = 4
+# (name, arch, dtypes, profile, B, prompt, capacity, meshes, layers):
+# llama3.2-1b at full width and depth, qwen2-moe-a2.7b at full width cut
+# to 2 of its 24 layers, the reduced Jamba
+LM_MESH_CASES = (
+    ("llama", "llama3.2-1b", ("float32", "bfloat16"), "decode", 8, 512,
+     544, ("1x4", "2x2"), None),
+    ("llama-long", "llama3.2-1b", ("float32", "bfloat16"), "long", 1, 2048,
+     2080, ("1x4", "2x2"), None),
+    ("qwen2-moe", "qwen2-moe-a2.7b", ("bfloat16",), "decode", 8, 512, 544,
+     ("1x4",), 2),
+    ("jamba", "jamba-1.5-large-398b", ("float32",), "decode", 8, 64, 96,
+     ("1x4",), "reduced"),
+)
+LM_MESH_STEPS = 8
+LM_MESH_SEED = 23
+# every functional collective of CUDA tensors is staged through the host
+# (`local_ranks.stage_through_host()`): on the card's torch (2.11)
+# gloo's all-gather of CUDA tensors kills the rank (its all-reduce,
+# reduce-scatter, all-to-all and broadcast are right at 4 and 2**22
+# elements: `python3 chip_smoke.py --probe-gloo`, PERF.md §6); one rule
+# for every op is simpler than a list of the ops that fail
+# (a) the mesh run, each layer fed the one-device run's input, against the
+# one-device run on the card from the same weights: the logits and the
+# caches in float32 within LM_MESH_F32_TOL (rtol = atol; PERF.md §6,
+# written before the first chip run); in bfloat16 at most a share
+# LM_MESH_BF16_SHARE outside LM_MESH_BF16_TOL and none past
+# LM_MESH_BF16_MAX (1 + |x|).  Without the taps the full-width runs end
+# O(1) apart (llama f32 logits 5.2 apart after 16 layers; a 1e-7
+# relative change of the embedding moves the 2-layer full-width llama's
+# logits by 2.9e-4 on the CPU): random weights, not the mesh
+LM_MESH_F32_TOL = 1e-4
+LM_MESH_BF16_TOL = 3e-2
+# ... and each layer: in float32 a share of at most LM_MESH_LAYER_SHARE
+# past LM_MESH_LAYER_TOL (1 + |x|) and none past LAYER_F32_MAX (1 + |x|),
+# as phase 16(a) holds a layer (a partial sum over the ranks cancels to
+# a value far smaller than its terms, random weights, and its rounding
+# then lies far from the one-device GEMM's in relative terms); in every
+# dtype ||mesh - one device|| / ||one-device output - input|| within
+# LM_MESH_LAYER_NORM (bfloat16: each rank's partial sum is rounded to
+# bf16 before the sum, as XLA's all-reduce of a bf16 dot does).
+# Each limit lies between the readings of this tree and of three mutants
+# on the card (PERF.md §6): f32 layer share 0.0039 here, >= 0.498 for
+# every mutant; bf16 logit and cache share 0.042, >= 0.756 for a wrong
+# merge or KV head (a wrong cache write: largest 40.3 (1 + |x|) against
+# 0.242 here); layer norm f32 2.2e-5 against >= 0.181, bf16 0.127
+# against >= 0.721 for a wrong merge or KV head
+LM_MESH_LAYER_TOL = 1e-3
+LM_MESH_LAYER_SHARE = 1e-2
+LM_MESH_LAYER_NORM = {"float32": 1e-3, "bfloat16": 0.3}
+LM_MESH_BF16_SHARE = 0.1
+LM_MESH_BF16_MAX = 0.5
+LM_MESH_TIMEOUT = 900.0
+LM_MESH_OPS = ("flash", "decode", "decode_lse", "ssd_scan")
+
+
+def lm_mesh_cfg(arch, layers):
+    import dataclasses
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    if layers == "reduced":
+        cfg = cfg.reduced()
+    elif layers:
+        cfg = cfg.with_layers(layers)
+    # an expert-parallel layer that drops nothing computes the dense form
+    return dataclasses.replace(cfg, moe_capacity_factor=MOE_EP_NO_DROP)
+
+
+def lm_mesh_compare(got, want, tol, base=None):
+    """(max |got - want|, share outside tol (1 + |want|), max |got -
+    want| / (1 + |want|)), on the card; with `base` (a layer's input)
+    also ||got - want|| / ||want - base||, the error against the layer's
+    own contribution to the residual stream."""
+    import torch
+    g, w = got.float(), want.float()
+    if not bool(torch.isfinite(g).all()):
+        return float("inf"), 1.0, float("inf"), float("inf")
+    d = (g - w).abs()
+    r = d / (1 + w.abs())
+    out = (d.max().item(), (r > tol).float().mean().item(), r.max().item())
+    if base is None:
+        return out
+    delta = torch.linalg.vector_norm(w - base.float()).item()
+    return out + (torch.linalg.vector_norm(g - w).item() / max(delta, 1e-30),)
+
+
+def lse_exact(q, k, clen):
+    """The log-sum-exp of a decode call's scaled scores over the keys
+    below cache_len, in float64: q (B,1,H,hd), k (B,T,KV,hd) -> (B,H)."""
+    import torch
+    from repro_torch.models import attention as A
+    q, k = q.double(), A.repeat_kv(k.double(), q.shape[2])
+    s = torch.einsum("bshk,bthk->bht", q, k) / q.shape[-1] ** 0.5
+    T = k.shape[1]
+    keep = torch.arange(T, device=q.device)[None] < clen.long()[:, None]
+    return torch.logsumexp(s.masked_fill(~keep[:, None], float("-inf")),
+                           dim=-1)
+
+
+def lm_mesh_twin_check(call, rank_seq, n_seq, dtype):
+    """Gate (b): the (o, lse) form on this rank's own cache shard against
+    its twin, with the run's cache_len and with each row's clamped from
+    global lengths that put 0, 1, T_local - 1 and T_local on the shards.
+    A row with no valid key must give o = 0 and lse = -inf from both;
+    the others are held as phase 16(a) holds the kernels on a run's
+    operands (`kernel_vs_twin`): o and lse against the call in float64,
+    within ATT_TOL (1 + |exact|) plus TWIN_SLACK times the twin's
+    distance.  Returns, by case, (max |kernel - twin|, the twin's and the
+    kernel's distance from float64) for o and for lse, and the local
+    cache_len values."""
+    import torch
+    from repro_torch.kernels.decode_attention import ops, ref
+    q, k, v, clen = call
+    Tl = k.shape[1]
+    T = Tl * n_seq
+    lens = [1, Tl - 1, Tl, Tl + 1, 2 * Tl - 1, T - Tl, T - 1, T]
+    B = max(q.shape[0], len(lens))
+    lens = torch.tensor([lens[i % len(lens)] for i in range(B)],
+                        dtype=torch.int32, device=q.device)
+    rows = torch.arange(B, device=q.device) % q.shape[0]   # B = 1: repeated
+    eq, ek, ev = q[rows].contiguous(), k[rows].contiguous(), \
+        v[rows].contiguous()
+    tol = ATT_TOL[dtype_name(dtype)]
+    out = {}
+    for tag, (q, k, v, c) in (
+            ("run", (q, k, v, clen)),
+            ("edges", (eq, ek, ev, (lens - rank_seq * Tl).clamp(0, Tl).to(
+                torch.int32)))):
+        o, lse = ops.decode_attention(q, k, v, c, with_lse=True)
+        ro, rlse = ref.decode_attention_ref(q, k, v, c, with_lse=True)
+        empty = c == 0
+        for name, got in (("kernel", (o, lse)), ("twin", (ro, rlse))):
+            if (got[0][empty] != 0).any() or \
+                    (got[1][empty] != -float("inf")).any():
+                raise AssertionError(f"decode (o, lse) {tag}: the {name} "
+                                     f"gives a row with no key o != 0 or "
+                                     f"lse != -inf")
+        live = ~empty
+        res = {"lens": sorted(set(c.tolist()))}
+        if live.any():
+            a = [t[live] for t in (q, k, v, c)]
+            res["o"], bad = kernel_vs_twin("decode_attention", a, {},
+                                           o[live], ro[live], dtype, tag)
+            x = lse_exact(a[0], a[1], a[3])
+            g, w = lse[live].double(), rlse[live].double()
+            t_err = (w - x).abs().max().item()
+            d = (g - x).abs()
+            bad += int((d > tol + tol * x.abs() + TWIN_SLACK * t_err).sum())
+            res["lse"] = ((g - w).abs().max().item(), t_err,
+                          d.max().item())
+            if bad:
+                raise AssertionError(f"decode (o, lse) {tag}: {bad} "
+                                     f"elements outside the gate: {res}")
+        out[tag] = res
+    out["T_local"] = Tl
+    return out
+
+
+def lm_mesh_case(name, arch, dt, profile, B, S, cap, mesh, layers, dev,
+                 rank, free=False):
+    """One case on one mesh, on this rank: the one-device run on the card,
+    then the mesh run from the same weights fed the one-device run's
+    greedy tokens and, layer by layer, its layer inputs (random-weight
+    models are chaotic: at full width two runs apart by float32 rounding
+    end O(1) apart after 16 layers, PERF.md §6), gates (a)-(d) measured.
+    With `free` the mesh run also runs once on its own first, and its
+    distance from the one-device logits is printed."""
+    import torch
+    from repro_torch import kernels as K_
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.launch import steps as TS
+    from repro_torch.launch.taps import Taps, serve
+    from repro_torch.models import lm
+    from repro_torch.models.common import DTYPES, tree_items
+    from repro_torch.sharding.axes import (local_part, resolve_rules,
+                                           shard_index, shard_lm)
+    cfg = lm_mesh_cfg(arch, layers)
+    rc = RunConfig(sharding_profile=profile, param_dtype=dt,
+                   activation_dtype=dt)
+    dtype = DTYPES[dt]
+    rules = resolve_rules(cfg, profile)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    gen = torch.Generator(device="cpu").manual_seed(LM_MESH_SEED + S)
+    tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=gen).to(dev)
+    tol = LM_MESH_F32_TOL if dt == "float32" else LM_MESH_BF16_TOL
+    ref = lm.init_lm(cfg, rc, seed=LM_MESH_SEED, device=dev)
+    c_ref = lm.alloc_caches(cfg, B, cap, dtype, dev)
+    # the one-device run feeds its own greedy tokens, the mesh run those
+    with Taps(on_layer=lambda i, h, y: (h, y)) as r_seen:
+        r_toks, _, r_pre, r_dec = serve(
+            ref, c_ref, tokens, TS.make_prefill_step(cfg, rc),
+            TS.make_decode_step(cfg, rc), LM_MESH_STEPS, sync=sync)
+    r_logits = r_seen.logits
+    del ref
+    free_card() if dev.type == "cuda" else None
+    model = shard_lm(lm.init_lm(cfg, rc, seed=LM_MESH_SEED, device=dev),
+                     rules, mesh)
+    free_card() if dev.type == "cuda" else None
+    res = {"logits": [], "caches": {}, "tokens_differ": 0,
+           "tokens_compared": 0}
+    prefill = TS.make_prefill_step(cfg, rc, mesh)
+    decode = TS.make_decode_step(cfg, rc, mesh)
+    if free:
+        fc = lm.alloc_caches(cfg, B, cap, dtype, dev, mesh=mesh, rules=rules)
+        with Taps() as f_seen:
+            serve(model, fc, tokens, prefill, decode, LM_MESH_STEPS,
+                  r_toks[:-1], sync)
+        res["free"] = [lm_mesh_compare(g.to_local(), local_part(
+            w, g.placements, mesh), tol)[0]
+            for g, w in zip(f_seen.logits, r_logits)]
+        del fc, f_seen
+    caches = lm.alloc_caches(cfg, B, cap, dtype, dev, mesh=mesh,
+                             rules=rules)
+    torch.distributed.barrier()
+    K_.reset_launch_counts()
+    layer_tol = LM_MESH_LAYER_TOL if dt == "float32" else tol
+
+    def on_layer(i, h, y):            # this rank's shard against the slice
+        return lm_mesh_compare(y.to_local(), local_part(
+            r_seen.layers[i][1], y.placements, mesh), layer_tol, h.to_local())
+
+    with Taps(mesh, feed=[h for h, _ in r_seen.layers],
+              on_layer=on_layer) as seen:
+        m_toks, m_caches, m_pre, m_dec = serve(
+            model, caches, tokens, prefill, decode, LM_MESH_STEPS,
+            r_toks[:-1], sync)
+    launches = K_.launch_counts()
+    routes = K_.route_counts()
+    from repro_torch.kernels.decode_attention.ops import \
+        decode_attention as dop
+    lse_launches = dop.lse_launches
+    # (a) each layer, the logits, tokens and caches of the tapped run,
+    # each rank's shard against its slice of the one-device run's
+    res["layers"] = seen.layers
+    for got, want in zip(seen.logits, r_logits):
+        res["logits"].append(lm_mesh_compare(
+            got.to_local(), local_part(want, got.placements, mesh), tol))
+    for i, (g, w) in enumerate(zip(m_toks, r_toks)):
+        top = torch.topk(r_logits[i][:, -1].float(), 2, dim=-1).values
+        ok = (top[:, 0] - top[:, 1]) > 2 * tol * (1 + top[:, 0].abs())
+        res["tokens_compared"] += int(ok.sum())
+        res["tokens_differ"] += int((g != w)[ok].sum())
+    ref_leaves = dict(tree_items(c_ref))
+    for path, a in tree_items(m_caches["layers"]):
+        res["caches"]["/".join(path)] = lm_mesh_compare(
+            a.to_local(), local_part(ref_leaves[path], a.placements, mesh),
+            tol)
+    # where the attention caches shard kv_seq
+    first = next(a for p, a in tree_items(m_caches["layers"])
+                 if p[-1] == "k")
+    res["cache_placements"] = str(first.placements)
+    si, sn = shard_index(first.placements, mesh, 2)
+    # (b) the (o, lse) form against its twin on this rank's shards
+    if seen.decode_call is not None:
+        res["twin"] = lm_mesh_twin_check(seen.decode_call, si, sn, dtype)
+    # (c) launches; (d) the merge's wire bytes against the closed form
+    from repro_torch.launch.comm_stats import total_collective_bytes
+    kinds = lm.layer_kinds(cfg)
+    G = cfg.num_layers // len(kinds)
+    n_attn = G * sum(k.mixer == "attn" for k in kinds)
+    n_ssd = G * sum(k.mixer == "ssd" for k in kinds)
+    res["launches"] = {"flash": launches["flash_attention"],
+                       "decode": launches["decode_attention"],
+                       "decode_lse": lse_launches,
+                       "ssd_scan": launches["ssd_scan"],
+                       "routes": routes, "all": launches,
+                       "want": {"flash": n_attn,
+                                "decode": n_attn * LM_MESH_STEPS,
+                                "ssd_scan": n_ssd}}
+    wire = want = 0
+    dm = mesh.device_mesh
+    seq_dims = [i for i, p in enumerate(first.placements)
+                if getattr(p, "dim", None) == 2 and dm.size(i) > 1]
+    H, hd = cfg.num_heads, cfg.head_dim
+    for o_shape, records in seen.merge:
+        wire += total_collective_bytes(records)
+        Bl = o_shape[0]
+        want += sum(2 * (dm.size(i) - 1) / dm.size(i) *
+                    (Bl * H * 4 + Bl * H * (hd + 1) * 4) for i in seq_dims)
+    res["wire"], res["wire_want"] = wire, int(want)
+    res["merges"] = len(seen.merge)
+    res.update(pre_ms=m_pre, dec_ms=statistics.median(m_dec),
+               ref_pre_ms=r_pre, ref_dec_ms=statistics.median(r_dec))
+    if rank == 0:       # as it ends, in case a later case stops the phase
+        log(f"phase 18 {name} {dt} {mesh.shape} rank 0: layers max_err "
+            f"{max(l[0] for l in res['layers']):.3g}, logits max_err "
+            f"{max(l[0] for l in res['logits']):.3g}, caches max_err "
+            f"{max(v[0] for v in res['caches'].values()):.3g}, tokens "
+            f"differ {res['tokens_differ']}, launches "
+            f"{ {k: res['launches'][k] for k in LM_MESH_OPS} },"
+            f" wire {wire} ({int(want)}), prefill {m_pre:.1f} ms, decode "
+            f"{res['dec_ms']:.1f} ms a step")
+    del model, caches, m_caches, c_ref, seen, r_seen, r_logits
+    return res
+
+
+def lm_mesh_rank(rank, world, dev_type, reduced):
+    """One rank of phase 18: every case on each host mesh over the 4
+    ranks sharing device 0, CUDA all-gathers staged through the host."""
+    import os
+    import torch
+    from repro_torch.launch.local_ranks import stage_through_host
+    from repro_torch.launch.mesh import make_host_mesh
+    dev = torch.device(dev_type, 0) if dev_type == "cuda" else \
+        torch.device("cpu")
+    staged = ()
+    if dev.type == "cuda":
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        staged = stage_through_host()
+    torch.set_num_threads(max(1, (os.cpu_count() or world) // world))
+    meshes = {n: make_host_mesh(model=m, device_type=dev_type)
+              for n, m in LM_MESH_SHAPES.items()}
+    out = {"staged": staged, "cases": {}}
+    free = True
+    for name, arch, dts, profile, B, S, cap, on, layers in LM_MESH_CASES:
+        if reduced:
+            layers, B, S, cap = "reduced", min(B, 4), min(S, 16), 24
+        for dt in dts:
+            for mname in on:
+                t0 = time.perf_counter()
+                r = lm_mesh_case(name, arch, dt, profile, B, S, cap,
+                                 meshes[mname], layers, dev, rank, free)
+                free = False
+                r["case_s"] = time.perf_counter() - t0
+                out["cases"][name, dt, mname] = r
+                if dev.type == "cuda":
+                    free_card()
+                    r["peak_gib"] = torch.cuda.max_memory_allocated() / \
+                        2 ** 30
+    return out
+
+
+def run_lm_mesh(dev_type="cuda", reduced=False):
+    """Phase 18: the LM forward on DTensors (ROADMAP.md §1 item 10e part
+    2a) on 4 gloo ranks sharing the card, the serving steps with a mesh
+    against the one-device steps on the card.  Returns the launches of
+    each kernel summed over the cases, from rank 0."""
+    from repro_torch.launch.local_ranks import run_ranks
+    t0 = time.perf_counter()
+    res = run_ranks(lm_mesh_rank, LM_MESH_WORLD, dev_type, reduced,
+                    timeout=LM_MESH_TIMEOUT)
+    log(f"phase 18: {LM_MESH_WORLD} ranks on {dev_type} in "
+        f"{time.perf_counter() - t0:.1f} s; collectives staged through "
+        f"the host: {res[0]['staged'] or 'none'}")
+    totals, failed = {}, []
+    for key in res[0]["cases"]:
+        rs = [r["cases"][key] for r in res]
+        try:
+            check_lm_mesh(key, rs)
+        except AssertionError as exc:
+            failed.append(str(exc))
+        L = rs[0]["launches"]
+        counts = dict(L["all"], decode_lse=L["decode_lse"], **{
+            op + "_tensor_core": L["routes"][op]["tensor_core"]
+            for op in ("flash_attention", "decode_attention")})
+        for op, n in counts.items():
+            totals.setdefault(op, {})[" ".join(key)] = n
+    if failed:
+        raise AssertionError("phase 18 failed: " + " | ".join(failed))
+    return totals
+
+
+def check_lm_mesh(key, rs):
+    """Print one (case, dtype, mesh) row and apply gates (a)-(d)."""
+    name, dt, mname = key
+    tag = f"phase 18 {name} {dt} {mname}"
+    r0 = rs[0]
+    lg = [max(l[0] for r in rs for l in [r["logits"][i]])
+          for i in range(len(r0["logits"]))]
+    share = max(l[1] for r in rs for l in r["logits"])
+    cmax = max(v[0] for r in rs for v in r["caches"].values())
+    cshare = max(v[1] for r in rs for v in r["caches"].values())
+    lmax = max(v[0] for r in rs for v in r["layers"])
+    lshare = max(v[1] for r in rs for v in r["layers"])
+    lrel = max(v[2] for r in rs for v in r["layers"])
+    lnorm = max(v[3] for r in rs for v in r["layers"])
+    rel = max(max(l[2] for r in rs for l in r["logits"]),
+              max(v[2] for r in rs for v in r["caches"].values()))
+    if "free" in r0:
+        log(f"{tag}: the mesh run on its own, logits max |mesh - one "
+            f"device| by step {[f'{max(r['free'][i] for r in rs):.3g}' for i in range(len(r0['free']))]} (not gated: random weights are chaotic)")
+    log(f"{tag}: each layer fed the one-device input: {len(r0['layers'])} "
+        f"layer calls, max_err {lmax:.3g} (relative {lrel:.3g}), share "
+        f"outside {LM_MESH_LAYER_TOL if dt == 'float32' else LM_MESH_BF16_TOL}"
+        f" {lshare:.3g}, largest ||mesh - one device|| / ||the layer's "
+        f"change|| {lnorm:.3g}; "
+        f"logits max_err by step {[f'{x:.3g}' for x in lg]}, share "
+        f"outside {share:.3g}; caches max_err {cmax:.3g} (share "
+        f"{cshare:.3g}); logits and caches largest relative {rel:.3g}; "
+        f"tokens differ {sum(r['tokens_differ'] for r in rs)}"
+        f" of {sum(r['tokens_compared'] for r in rs)} compared; cache "
+        f"{r0['cache_placements']}; launches {r0['launches']}; merge wire "
+        f"{r0['wire']} B/rank (closed form {r0['wire_want']}, "
+        f"{r0['merges']} merges); twin {r0.get('twin')}; prefill ms "
+        f"{[round(r['pre_ms'], 1) for r in rs]} (one device "
+        f"{r0['ref_pre_ms']:.1f}), decode ms a step "
+        f"{[round(r['dec_ms'], 1) for r in rs]} (one device "
+        f"{r0['ref_dec_ms']:.2f}); case {r0['case_s']:.1f} s"
+        + (f", peak {max(r['peak_gib'] for r in rs):.1f} GiB a rank"
+           if "peak_gib" in r0 else ""))
+    tol_bad = []
+    if dt == "float32":
+        if share or cshare:
+            tol_bad.append("float32 logits or caches outside the tolerance")
+        if lshare > LM_MESH_LAYER_SHARE or lrel > LAYER_F32_MAX:
+            tol_bad.append("float32 layers past the phase 16 layer gate")
+    elif max(share, cshare) > LM_MESH_BF16_SHARE or \
+            rel > LM_MESH_BF16_MAX:
+        tol_bad.append("bfloat16 share or max past the gate")
+    if lnorm > LM_MESH_LAYER_NORM[dt]:
+        tol_bad.append(f"{dt} layers past ||mesh - one device|| / ||the "
+                       f"layer's change|| {LM_MESH_LAYER_NORM[dt]}")
+    if any(r["tokens_differ"] for r in rs):
+        tol_bad.append("greedy tokens differ past the margin")
+    for i, r in enumerate(rs):
+        L = r["launches"]
+        w = L["want"]
+        if (L["flash"], L["decode"], L["ssd_scan"]) != \
+                (w["flash"], w["decode"], w["ssd_scan"]):
+            tol_bad.append(f"rank {i} launches {L}")
+        if L["decode_lse"] != L["decode"]:
+            tol_bad.append(f"rank {i}: decode launches not all (o, lse)")
+        if dt == "bfloat16" and name.startswith("llama") and (
+                L["routes"]["flash_attention"]["tensor_core"] != w["flash"]
+                or L["routes"]["decode_attention"]["tensor_core"] !=
+                w["decode"]):
+            tol_bad.append(f"rank {i} routes {L['routes']}")
+        if r["wire"] != r["wire_want"] or not r["merges"]:
+            tol_bad.append(f"rank {i} wire {r['wire']} vs {r['wire_want']}")
+        if "Shard(dim=2)" not in r["cache_placements"]:
+            tol_bad.append(f"rank {i}: the cache is not sharded on kv_seq")
+    Tl = r0["twin"]["T_local"]
+    seen_lens = {n for r in rs for n in r["twin"]["edges"]["lens"]}
+    if not {0, 1, Tl - 1, Tl} <= seen_lens:
+        tol_bad.append(f"gate (b) saw the local cache_len values "
+                       f"{sorted(seen_lens)} only")
+    if tol_bad:
+        raise AssertionError(f"{tag}: " + "; ".join(tol_bad))
+
+
 def repeat_phase10(dev, n) -> int:
     """Phases 8-9 once, then phase 10's float32 smollm check `n` times in
     this process (ROADMAP.md §3 F4): each failure prints its diagnosis;
@@ -3516,6 +4071,14 @@ def main() -> int:
                     help="run phase 17 (the expert-parallel MoE on ranks "
                     "sharing the card) alone and exit: it runs none of "
                     "the port's kernels, so nothing is built")
+    ap.add_argument("--phase18", action="store_true",
+                    help="build the kernels, run phase 18 (the LM forward "
+                    "on DTensors over ranks sharing the card) alone and "
+                    "exit")
+    ap.add_argument("--probe-gloo", action="store_true",
+                    help="report which functional collectives gloo takes "
+                    "on CUDA tensors of 4 ranks sharing the card, raw "
+                    "and staged through the host, and exit")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -3538,6 +4101,10 @@ def main() -> int:
     log(f"card: {card}")
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]}")
+    if args.probe_gloo:
+        probe_gloo()
+        log(card)
+        return 0
     if args.phase17:
         run_moe_ep()
         log(f"phase 17 alone {time.perf_counter() - t_start:.1f} s")
@@ -3563,6 +4130,11 @@ def main() -> int:
                                  f"{fn}")
     check_barrier_free(libs)
     dev = torch.device("cuda")
+    if args.phase18:
+        run_lm_mesh()
+        log(f"phase 18 alone {time.perf_counter() - t_start:.1f} s")
+        log(card)
+        return 0
     if args.phase10:
         return repeat_phase10(dev, args.phase10)
     if args.phase15:
@@ -3615,6 +4187,9 @@ def main() -> int:
     t0 = time.perf_counter()
     moe_ep = run_moe_ep()
     log(f"expert-parallel MoE phase {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    lm_mesh = run_lm_mesh()
+    log(f"LM mesh phase {time.perf_counter() - t0:.1f} s")
     if args.profile:
         b = sim.draws.epoch(10, sim.state, sim.cfg_c)
         run_profile("solo", SM.batch1(sim.state), sim.static_t,
@@ -3638,6 +4213,7 @@ def main() -> int:
             "launches_solo": solo_counts[name],
             "launches_train": train_counts[name], "floor_ms": floor,
             "launches_moe_ep": {ep: c[name] for ep, c in moe_ep.items()},
+            "launches_lm_mesh": lm_mesh[name],
             "launches_services": {run: c[name]
                                   for run, c in services.items()}}
         if "solo" in results[name]:
@@ -3667,10 +4243,14 @@ def main() -> int:
                 "tensor_core"],
             "launches_train": train_counts[name],
             "launches_moe_ep": {ep: c[name] for ep, c in moe_ep.items()},
+            "launches_lm_mesh": lm_mesh[name],
+            "launches_lm_mesh_tensor_core": lm_mesh[name + "_tensor_core"],
             "launches_10d": {a: c[name] for a, c in ten_d["serve"].items()},
             "launches_10d_tensor_core": {
                 a: c["routes"][name]["tensor_core"]
                 for a, c in ten_d["serve"].items()}}
+        if name == "decode_attention":
+            entry["launches_lm_mesh_lse"] = lm_mesh["decode_lse"]
         if "long" in a:
             g = a["long"]
             entry.update(
@@ -3693,6 +4273,7 @@ def main() -> int:
             "tensor_core"],
         "launches_train": train_counts["ssd_scan"],
         "launches_moe_ep": {ep: c["ssd_scan"] for ep, c in moe_ep.items()},
+        "launches_lm_mesh": lm_mesh["ssd_scan"],
         "launches_10d_jamba_check": ten_d["jamba"]["ssd_scan"],
         "ms_long": g["ms"],
         "plain_ms_long": g["plain_ms"], "library_ms_long": None,

@@ -64,6 +64,7 @@ def reset_launch_counts() -> None:
         fn.launches = 0
     for name in ROUTED:
         ops[name].route_launches = dict.fromkeys(ops[name].route_launches, 0)
+    ops["decode_attention"].lse_launches = 0
 
 
 @contextlib.contextmanager

@@ -14,6 +14,14 @@
 // kernel.  With no valid position the output is 0 (denominator clamped at
 // 1e-30), never NaN.
 //
+// The (o, lse) form, for a cache sharded over its sequence axis: with a
+// non-null `lse` (B, H) float32 the kernel also writes each row's
+// log-sum-exp of the scaled scores over its valid positions, lse = m +
+// log(l) from the running max m and sum l the combining block holds, and
+// writes out as float32 instead of q's dtype, so the shards' partial
+// softmaxes can be merged (models/attention.py).  A row with no valid
+// position gives lse = -inf and o = 0.
+//
 // Bound: bytes.  Each cache element is read once and used for 2 * G
 // operations, a few operations per byte against the H100's ridge of ~295,
 // so the 3.35 TB/s of HBM bounds it.  What reaches HBM is enough bytes in
@@ -101,13 +109,28 @@ __device__ __forceinline__ void store1(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16(x);
 }
 
+// element d of (row, head) `rh`'s output from the combined accumulator a,
+// sum l and max m (natural-log units): in T, or with lse in float32 and
+// its log-sum-exp beside it
+template <typename T, int HD>
+__device__ __forceinline__ void put(void* out, float* lse, size_t rh, int d,
+                                    float a, float l, float m) {
+  const float o = a / fmaxf(l, 1e-30f);
+  if (lse == nullptr) {
+    store1(static_cast<T*>(out) + rh * HD + d, o);
+    return;
+  }
+  static_cast<float*>(out)[rh * HD + d] = o;
+  if (d == 0) lse[rh] = m + logf(l);
+}
+
 template <typename T, int HD, int GP>
 __global__ void __launch_bounds__(NT)
     decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
                   const T* __restrict__ v, const int* __restrict__ len,
-                  T* __restrict__ out, float* __restrict__ part,
-                  int* __restrict__ counter, int Tn, int H, int KV,
-                  int nsplit, int chunk) {
+                  void* __restrict__ out_, float* __restrict__ lse,
+                  float* __restrict__ part, int* __restrict__ counter,
+                  int Tn, int H, int KV, int nsplit, int chunk) {
   constexpr int V = VecN<T>::N;
   constexpr int LPK = HD / V;          // lanes per key
   constexpr int KPW = 32 / LPK;        // keys per warp per load
@@ -246,8 +269,7 @@ __global__ void __launch_bounds__(NT)
     }
     if (nsplit == 1) {
       if (g < G)
-        store1(out + ((size_t)b * H + kvh * G + g) * HD + d,
-               a / fmaxf(lsum, 1e-30f));
+        put<T, HD>(out_, lse, (size_t)b * H + kvh * G + g, d, a, lsum, mx);
     } else {
       float* rec = pbase + split * pstride + (size_t)g * (HD + 2);
       if (d == 0) {
@@ -281,58 +303,57 @@ __global__ void __launch_bounds__(NT)
       lsum += __ldcg(rec + 1) * e;
       a += __ldcg(rec + 2 + d) * e;
     }
-    store1(out + ((size_t)b * H + kvh * G + g) * HD + d,
-           a / fmaxf(lsum, 1e-30f));
+    put<T, HD>(out_, lse, (size_t)b * H + kvh * G + g, d, a, lsum, mx);
   }
   if (threadIdx.x == 0) counter[b * KV + kvh] = 0;
 }
 
 template <typename T, int HD, int GP>
 int launch(const void* q, const void* k, const void* v, const int* len,
-           void* out, float* part, int* counter, int B, int Tn, int H,
-           int KV, int nsplit, cudaStream_t st) {
+           void* out, float* lse, float* part, int* counter, int B, int Tn,
+           int H, int KV, int nsplit, cudaStream_t st) {
   const int chunk = (Tn + nsplit - 1) / nsplit;
   const dim3 grid(nsplit, KV, B);
   decode_kernel<T, HD, GP><<<grid, NT, 0, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), len, static_cast<T*>(out), part, counter,
-      Tn, H, KV, nsplit, chunk);
+      static_cast<const T*>(v), len, out, lse, part, counter, Tn, H, KV,
+      nsplit, chunk);
   return (int)cudaGetLastError();
 }
 
 template <typename T, int HD>
 int dispatch_g(const void* q, const void* k, const void* v, const int* len,
-               void* out, float* part, int* counter, int B, int Tn, int H,
-               int KV, int nsplit, cudaStream_t st) {
+               void* out, float* lse, float* part, int* counter, int B,
+               int Tn, int H, int KV, int nsplit, cudaStream_t st) {
   const int G = H / KV;
   if (G <= 1)
-    return launch<T, HD, 1>(q, k, v, len, out, part, counter, B, Tn, H, KV,
-                            nsplit, st);
+    return launch<T, HD, 1>(q, k, v, len, out, lse, part, counter, B, Tn, H,
+                            KV, nsplit, st);
   if (G <= 2)
-    return launch<T, HD, 2>(q, k, v, len, out, part, counter, B, Tn, H, KV,
-                            nsplit, st);
+    return launch<T, HD, 2>(q, k, v, len, out, lse, part, counter, B, Tn, H,
+                            KV, nsplit, st);
   if (G <= 4)
-    return launch<T, HD, 4>(q, k, v, len, out, part, counter, B, Tn, H, KV,
-                            nsplit, st);
+    return launch<T, HD, 4>(q, k, v, len, out, lse, part, counter, B, Tn, H,
+                            KV, nsplit, st);
   if (G <= 8)
-    return launch<T, HD, 8>(q, k, v, len, out, part, counter, B, Tn, H, KV,
-                            nsplit, st);
+    return launch<T, HD, 8>(q, k, v, len, out, lse, part, counter, B, Tn, H,
+                            KV, nsplit, st);
   return (int)cudaErrorInvalidValue;
 }
 
 template <typename T>
 int dispatch_hd(const void* q, const void* k, const void* v, const int* len,
-                void* out, float* part, int* counter, int B, int Tn, int H,
-                int KV, int HD, int nsplit, cudaStream_t st) {
+                void* out, float* lse, float* part, int* counter, int B,
+                int Tn, int H, int KV, int HD, int nsplit, cudaStream_t st) {
   switch (HD) {
-    case 16: return dispatch_g<T, 16>(q, k, v, len, out, part, counter, B,
-                                      Tn, H, KV, nsplit, st);
-    case 32: return dispatch_g<T, 32>(q, k, v, len, out, part, counter, B,
-                                      Tn, H, KV, nsplit, st);
-    case 64: return dispatch_g<T, 64>(q, k, v, len, out, part, counter, B,
-                                      Tn, H, KV, nsplit, st);
-    case 128: return dispatch_g<T, 128>(q, k, v, len, out, part, counter, B,
-                                        Tn, H, KV, nsplit, st);
+    case 16: return dispatch_g<T, 16>(q, k, v, len, out, lse, part, counter,
+                                      B, Tn, H, KV, nsplit, st);
+    case 32: return dispatch_g<T, 32>(q, k, v, len, out, lse, part, counter,
+                                      B, Tn, H, KV, nsplit, st);
+    case 64: return dispatch_g<T, 64>(q, k, v, len, out, lse, part, counter,
+                                      B, Tn, H, KV, nsplit, st);
+    case 128: return dispatch_g<T, 128>(q, k, v, len, out, lse, part,
+                                        counter, B, Tn, H, KV, nsplit, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -414,6 +435,21 @@ __device__ __forceinline__ float rescale2(float m, float mx) {
   return (m == -INFINITY) ? 0.f : exp2f(m - mx);
 }
 
+// element d of (row, head) `rh`'s output from the combined accumulator a,
+// sum l and max m (log2 units): bf16, or with lse in float32 and its
+// log-sum-exp (natural units) beside it
+template <int HD>
+__device__ __forceinline__ void put(void* out, float* lse, size_t rh, int d,
+                                    float a, float l, float m) {
+  const float o = a / fmaxf(l, 1e-30f);
+  if (lse == nullptr) {
+    static_cast<__nv_bfloat16*>(out)[rh * HD + d] = __float2bfloat16(o);
+    return;
+  }
+  static_cast<float*>(out)[rh * HD + d] = o;
+  if (d == 0) lse[rh] = (m + log2f(l)) * 0.6931471805599453f;
+}
+
 // Fragment layout (lane l, g = l / 4): the scores of n-block nb are
 // s[nb][e] = (head g, key 8 nb + 2 (l % 4) + e); the output accumulator
 // o[nb][e] = (head g, dim 8 nb + 2 (l % 4) + e), o[nb][2..3] the zero rows.
@@ -422,8 +458,8 @@ __global__ void __launch_bounds__(NT)
     decode_tc_kernel(const __nv_bfloat16* __restrict__ q,
                      const __nv_bfloat16* __restrict__ k,
                      const __nv_bfloat16* __restrict__ v,
-                     const int* __restrict__ len,
-                     __nv_bfloat16* __restrict__ out, float* __restrict__ part,
+                     const int* __restrict__ len, void* __restrict__ out_,
+                     float* __restrict__ lse, float* __restrict__ part,
                      int* __restrict__ counter, int Tn, int H, int KV,
                      int nsplit, int chunk, float scale_log2) {
   using L = Layout<HD>;
@@ -593,8 +629,7 @@ __global__ void __launch_bounds__(NT)
       a += co[(i * GMAX + hg) * HD + d] * e;
     }
     if (nsplit == 1) {
-      out[((size_t)b * H + kvh * G + hg) * HD + d] =
-          __float2bfloat16(a / fmaxf(lsum, 1e-30f));
+      put<HD>(out_, lse, (size_t)b * H + kvh * G + hg, d, a, lsum, mx);
     } else {
       float* rec = pbase + split * pstride + (size_t)hg * (HD + 2);
       if (d == 0) {
@@ -628,8 +663,7 @@ __global__ void __launch_bounds__(NT)
       lsum += __ldcg(rec + 1) * e;
       a += __ldcg(rec + 2 + d) * e;
     }
-    out[((size_t)b * H + kvh * G + hg) * HD + d] =
-        __float2bfloat16(a / fmaxf(lsum, 1e-30f));
+    put<HD>(out_, lse, (size_t)b * H + kvh * G + hg, d, a, lsum, mx);
   }
   if (threadIdx.x == 0) counter[b * KV + kvh] = 0;
 }
@@ -649,8 +683,8 @@ bool Attr<HD>::done[MAX_DEVICES] = {};
 
 template <int HD>
 int launch(const void* q, const void* k, const void* v, const int* len,
-           void* out, float* part, int* counter, int B, int Tn, int H,
-           int KV, int nsplit, cudaStream_t st) {
+           void* out, float* lse, float* part, int* counter, int B, int Tn,
+           int H, int KV, int nsplit, cudaStream_t st) {
   const int e = prepare<HD>(Attr<HD>::done);
   if (e) return e;
   const int chunk = (Tn + nsplit - 1) / nsplit;
@@ -659,9 +693,8 @@ int launch(const void* q, const void* k, const void* v, const int* len,
   decode_tc_kernel<HD><<<grid, NT, Layout<HD>::SMEM, st>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), len,
-      static_cast<__nv_bfloat16*>(out), part, counter, Tn, H, KV, nsplit,
-      chunk, scale_log2);
+      static_cast<const __nv_bfloat16*>(v), len, out, lse, part, counter, Tn,
+      H, KV, nsplit, chunk, scale_log2);
   return (int)cudaGetLastError();
 }
 
@@ -677,53 +710,60 @@ int occupancy(int* blocks) {
 
 }  // namespace
 
-// The scalar route: dtype 0 float32, 1 bfloat16.  part / counter may be
-// null when nsplit == 1; otherwise part holds B * KV * nsplit * GP *
-// (hd + 2) floats (GP = H / KV rounded up to 1, 2, 4 or 8) and counter
-// B * KV zeroed ints, which the kernel leaves zeroed.  Returns the
-// launch's cudaError_t.
+// The scalar route: dtype 0 float32, 1 bfloat16.  lse null: out in the
+// input dtype; else out float32 and lse (B, H) float32 (the (o, lse)
+// form).  part / counter may be null when nsplit == 1; otherwise part
+// holds B * KV * nsplit * GP * (hd + 2) floats (GP = H / KV rounded up to
+// 1, 2, 4 or 8) and counter B * KV zeroed ints, which the kernel leaves
+// zeroed.  Returns the launch's cudaError_t.
 extern "C" int decode_attention(const void* q, const void* k, const void* v,
-                                const void* cache_len, void* out, void* part,
-                                void* counter, int B, int T, int H, int KV,
-                                int HD, int dtype, int nsplit, void* stream) {
+                                const void* cache_len, void* out, void* lse,
+                                void* part, void* counter, int B, int T, int H,
+                                int KV, int HD, int dtype, int nsplit,
+                                void* stream) {
   if (B <= 0 || H <= 0 || KV <= 0 || H % KV || nsplit <= 0 ||
       (nsplit > 1 && (part == nullptr || counter == nullptr))) {
     return (int)cudaErrorInvalidValue;
   }
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int* len = static_cast<const int*>(cache_len);
+  float* ls = static_cast<float*>(lse);
   float* p = static_cast<float*>(part);
   int* c = static_cast<int*>(counter);
   if (dtype == 0)
-    return scalar::dispatch_hd<float>(q, k, v, len, out, p, c, B, T, H, KV,
-                                      HD, nsplit, st);
+    return scalar::dispatch_hd<float>(q, k, v, len, out, ls, p, c, B, T, H,
+                                      KV, HD, nsplit, st);
   if (dtype == 1)
-    return scalar::dispatch_hd<__nv_bfloat16>(q, k, v, len, out, p, c, B, T,
-                                              H, KV, HD, nsplit, st);
+    return scalar::dispatch_hd<__nv_bfloat16>(q, k, v, len, out, ls, p, c, B,
+                                              T, H, KV, HD, nsplit, st);
   return (int)cudaErrorInvalidValue;
 }
 
 // The tensor-core route: bfloat16, head_dim 64 or 128, H / KV <= 8.
+// lse as for the scalar route (null: out bf16; else out and lse float32);
 // part / counter as for the scalar route but with records of G = H / KV
 // heads: B * KV * nsplit * G * (hd + 2) floats.  Returns the launch's
 // cudaError_t.
 extern "C" int decode_attention_tc(const void* q, const void* k,
                                    const void* v, const void* cache_len,
-                                   void* out, void* part, void* counter, int B,
-                                   int T, int H, int KV, int HD, int nsplit,
-                                   void* stream) {
+                                   void* out, void* lse, void* part,
+                                   void* counter, int B, int T, int H, int KV,
+                                   int HD, int nsplit, void* stream) {
   if (B <= 0 || H <= 0 || KV <= 0 || H % KV || H / KV > tc::GMAX ||
       nsplit <= 0 || (nsplit > 1 && (part == nullptr || counter == nullptr))) {
     return (int)cudaErrorInvalidValue;
   }
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int* len = static_cast<const int*>(cache_len);
+  float* ls = static_cast<float*>(lse);
   float* p = static_cast<float*>(part);
   int* c = static_cast<int*>(counter);
   if (HD == 64)
-    return tc::launch<64>(q, k, v, len, out, p, c, B, T, H, KV, nsplit, st);
+    return tc::launch<64>(q, k, v, len, out, ls, p, c, B, T, H, KV, nsplit,
+                          st);
   if (HD == 128)
-    return tc::launch<128>(q, k, v, len, out, p, c, B, T, H, KV, nsplit, st);
+    return tc::launch<128>(q, k, v, len, out, ls, p, c, B, T, H, KV, nsplit,
+                           st);
   return (int)cudaErrorInvalidValue;
 }
 

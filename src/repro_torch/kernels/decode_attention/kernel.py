@@ -9,7 +9,9 @@ Two routes, chosen by `route` before the launch as for flash attention:
 ``"tensor_core"`` (bfloat16 at head_dim 64 or 128; cp.async ring,
 mma.sync scores and P.V) and ``"scalar"`` (float32, bfloat16 at
 head_dim 16 or 32); both take their cache splits from
-`n_splits`.  The design notes are in the CUDA source.
+`n_splits`.  Given an `lse` tensor, either route also writes each
+row's log-sum-exp and `out` in float32 (the (o, lse) form of a
+sequence-sharded cache).  The design notes are in the CUDA source.
 """
 from __future__ import annotations
 
@@ -34,8 +36,8 @@ _SCRATCH = {}            # (device, stream) -> (part, counter)
 def _fn(name: str):
     if name not in _FNS:
         lib = build.load("decode_attention")
-        _FNS["scalar"] = build.bind(lib, "decode_attention", 7, 7)
-        _FNS["tensor_core"] = build.bind(lib, "decode_attention_tc", 7, 6)
+        _FNS["scalar"] = build.bind(lib, "decode_attention", 8, 7)
+        _FNS["tensor_core"] = build.bind(lib, "decode_attention_tc", 8, 6)
         occ = lib.decode_attention_tc_occupancy
         occ.argtypes = [ctypes.c_int, ctypes.c_void_p]
         occ.restype = ctypes.c_int
@@ -115,10 +117,11 @@ def _scratch(dev, stream, n_part: int, n_ctr: int):
 
 
 def decode_attention(q, k_cache, v_cache, cache_len, out,
-                     nsplit: int = None) -> str:
+                     nsplit: int = None, lse=None) -> str:
     """q, out: (B,1,H,hd); caches (B,T,KV,hd); cache_len (B,) int32;
-    checked by the op.  `nsplit` overrides the split choice (timing
-    only).  Returns the route it launched."""
+    checked by the op.  With `lse` (B,H) float32, `out` is float32 and
+    takes the (o, lse) form.  `nsplit` overrides the split choice
+    (timing only).  Returns the route it launched."""
     B, _, H, hd = q.shape
     T, KV = k_cache.shape[1], k_cache.shape[2]
     dev = q.device
@@ -138,7 +141,8 @@ def decode_attention(q, k_cache, v_cache, cache_len, out,
         else:
             p_part = p_ctr = None
         args = (q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-                cache_len.data_ptr(), out.data_ptr(), p_part, p_ctr,
+                cache_len.data_ptr(), out.data_ptr(),
+                None if lse is None else lse.data_ptr(), p_part, p_ctr,
                 B, T, H, KV, hd)
         if r == "tensor_core":
             rc = _fn(r)(*args, ns, stream)

@@ -11,7 +11,10 @@ A CPU tensor runs the twin in `ref.py`; a CUDA tensor launches the
 kernel in `csrc/decode_attention.cu` after the operands are checked,
 else the op raises.  Every launch adds one to
 `decode_attention.launches` and one to
-`decode_attention.route_launches[route]` (`kernel.route`).
+`decode_attention.route_launches[route]` (`kernel.route`); a launch of
+the (o, lse) form (`with_lse=True`, for a cache sharded over its
+sequence axis, `models/attention.py`) also adds one to
+`decode_attention.lse_launches`.
 """
 from __future__ import annotations
 
@@ -23,10 +26,15 @@ from repro_torch.kernels.decode_attention import ref
 from repro_torch.kernels.flash_attention.ops import check_attention_operands
 
 
-def decode_attention(q, k_cache, v_cache, cache_len):
-    """Flash-decode of one token.  Returns (B,1,H,hd) in q's dtype."""
+def decode_attention(q, k_cache, v_cache, cache_len, *,
+                     with_lse: bool = False):
+    """Flash-decode of one token.  Returns (B,1,H,hd) in q's dtype; with
+    `with_lse`, (o (B,1,H,hd) float32, lse (B,H) float32), lse the
+    log-sum-exp of each row's scaled scores over its valid positions
+    (-inf, with o = 0, where cache_len is 0)."""
     if on_cpu(q, "decode_attention"):
-        return ref.decode_attention_ref(q, k_cache, v_cache, cache_len)
+        return ref.decode_attention_ref(q, k_cache, v_cache, cache_len,
+                                        with_lse=with_lse)
     check_attention_operands("decode_attention", q, k_cache, v_cache,
                              q_len=1)
     B, _, H, _ = q.shape
@@ -35,14 +43,22 @@ def decode_attention(q, k_cache, v_cache, cache_len):
                          f"heads per KV head, at most {K.MAX_GROUP}")
     check("decode_attention", "cache_len", cache_len, torch.int32, (B,),
           q.device)
-    out = torch.empty_like(q)
+    if with_lse:
+        out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+        lse = torch.empty((B, H), dtype=torch.float32, device=q.device)
+    else:
+        out, lse = torch.empty_like(q), None
     if q.numel() == 0:
-        return out
-    r = K.decode_attention(q, k_cache, v_cache, cache_len, out)
+        return (out, lse) if with_lse else out
+    r = K.decode_attention(q, k_cache, v_cache, cache_len, out, lse=lse)
     decode_attention.launches += 1
     decode_attention.route_launches[r] += 1
+    if with_lse:
+        decode_attention.lse_launches += 1
+        return out, lse
     return out
 
 
 decode_attention.launches = 0
 decode_attention.route_launches = dict.fromkeys(K.ROUTES, 0)
+decode_attention.lse_launches = 0

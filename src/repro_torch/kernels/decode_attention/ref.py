@@ -13,9 +13,12 @@ import torch
 from repro_torch.kernels.flash_attention.ref import masked_softmax_av
 
 
-def decode_attention_ref(q, k_cache, v_cache, cache_len):
+def decode_attention_ref(q, k_cache, v_cache, cache_len, *,
+                         with_lse: bool = False):
     """q: (B,1,H,hd); caches: (B,T,KV,hd); cache_len: (B,) int.  Returns
-    (B,1,H,hd) in q's dtype."""
+    (B,1,H,hd) in q's dtype; with `with_lse`, (o (B,1,H,hd) float32, lse
+    (B,H) float32), lse the log-sum-exp of the scaled scores over the
+    valid positions (-inf, with o = 0, where there are none)."""
     B, _, H, hd = q.shape
     T, KV = k_cache.shape[1], k_cache.shape[2]
     G = H // KV
@@ -25,5 +28,10 @@ def decode_attention_ref(q, k_cache, v_cache, cache_len):
     s = (qf @ kf.transpose(-1, -2)) / (hd ** 0.5)         # (B,KV,G,1,T)
     valid = (torch.arange(T, device=q.device)[None, :] <
              cache_len.to(q.device).long()[:, None])      # (B,T)
-    o = masked_softmax_av(s, valid[:, None, None, None, :], vf)
-    return o.permute(0, 3, 1, 2, 4).reshape(B, 1, H, hd).to(q.dtype)
+    mask = valid[:, None, None, None, :]
+    o = masked_softmax_av(s, mask, vf)
+    o = o.permute(0, 3, 1, 2, 4).reshape(B, 1, H, hd)
+    if not with_lse:
+        return o.to(q.dtype)
+    lse = torch.logsumexp(s.masked_fill(~mask, float("-inf")), dim=-1)
+    return o, lse.reshape(B, H)

@@ -10,6 +10,15 @@ card can join it, where NCCL refuses two ranks on one GPU), calls
 rank that raises, dies or does not finish within `timeout` fails the
 run: every rank is stopped and `RuntimeError` raised, naming the rank.
 `fn` and its arguments are pickled (spawn), so `fn` must be importable.
+
+`stage_through_host()` makes the functional collectives
+(`torch.ops._c10d_functional.*`, what DTensor's redistributions and the
+port's explicit collectives call) run on CUDA tensors by copying them to
+the host, running gloo's CPU collective and copying the result back:
+for ranks sharing one card, where gloo's all-gather of CUDA tensors
+kills the rank (PERF.md §6).  The compute stays on the card; only the
+collective's operand and result cross.  It is process-wide and used
+only in such ranks.
 """
 from __future__ import annotations
 
@@ -37,6 +46,34 @@ def _rank_main(rank, world, store_path, timeout, fn, args, out):
     except BaseException:
         out.put((rank, False, traceback.format_exc()))
         raise
+
+
+#: the functional collectives `stage_through_host` stages
+STAGED = ("all_gather_into_tensor", "all_reduce", "reduce_scatter_tensor",
+          "all_to_all_single", "broadcast")
+_LIB: list = []
+
+
+def stage_through_host() -> tuple:
+    """Register, for CUDA tensors, a kernel of each functional collective
+    of STAGED that runs it on a host copy of the operand (gloo's CPU
+    path, which waits for it) and returns the result on the operand's
+    card (once a process).  Returns STAGED."""
+    import torch
+
+    if _LIB:
+        return STAGED
+    _LIB.append(torch.library.Library("_c10d_functional", "IMPL"))
+    ops = torch.ops._c10d_functional
+    for name in STAGED:
+        op = getattr(ops, name).default
+
+        def staged(x, *args, _op=op):
+            y = ops.wait_tensor.default(_op(x.cpu(), *args))
+            return y.to(x.device)
+
+        _LIB[0].impl(name, staged, "CUDA")
+    return STAGED
 
 
 def run_ranks(fn, world: int, *args, timeout: float = 300.0):

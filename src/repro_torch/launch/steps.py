@@ -2,15 +2,20 @@
 `make_prefill_step` and `make_decode_step`, plus the spec trees and the
 train-state layout they share with the entry points.
 
-One card, so there is no mesh, no sharding rules and no constrainer.
-The steps take the port's `models.lm.LM` where the JAX steps take the
-parameter tree.  The serving steps run without autograd and write the
-caches in place (the JAX decode step donates them).  The train step's
-state is `{"params": LM (trainable), "opt": AdamW state}`, updated in
-place (the JAX step donates it); `state_tree` gives it the JAX train
-state's layout, `{"params", "opt": {"m", "v", "step"}}` with stacked
-blocks, which a checkpoint stores, and `load_state_tree` copies such a
-tree back in.
+The serving steps take an optional mesh (`launch.mesh.Mesh`): on a
+mesh of more than one rank `lm.forward` resolves the sharding rules
+from `runcfg.sharding_profile`, as JAX's steps do, and runs on DTensors
+(the model placed by `sharding.axes.shard_lm`, the caches by
+`lm.alloc_caches(..., mesh=)`); tokens, positions and the greedy next
+tokens are tensors every rank holds whole.  Without a mesh they are the
+one-card steps.  The train step takes no mesh.  The steps take the
+port's `models.lm.LM` where the JAX steps take the parameter tree.  The
+serving steps run without autograd and write the caches in place (the
+JAX decode step donates them).  The train step's state is `{"params":
+LM (trainable), "opt": AdamW state}`, updated in place (the JAX step
+donates it); `state_tree` gives it the JAX train state's layout,
+`{"params", "opt": {"m", "v", "step"}}` with stacked blocks, which a
+checkpoint stores, and `load_state_tree` copies such a tree back in.
 """
 from __future__ import annotations
 
@@ -21,6 +26,7 @@ import torch
 from repro_torch.configs.base import ModelConfig, RunConfig, ShapeConfig
 from repro_torch.models import lm
 from repro_torch.models.common import DTYPES, ParamSpec
+from repro_torch.sharding.axes import all_reduce, is_dtensor
 from repro_torch.optim import adamw
 
 
@@ -137,7 +143,55 @@ def make_train_step(cfg: ModelConfig, runcfg: RunConfig):
     return train_step
 
 
-def make_prefill_step(cfg: ModelConfig, runcfg: RunConfig):
+def next_tokens(logits):
+    """Greedy tokens from the last position: argmax over the vocabulary
+    of logits[:, -1], the lowest index among equal maxima, as
+    `torch.argmax` -> (B,) int32.  With DTensor logits (B,S,Vp) each
+    rank takes its vocabulary shard's argmax, then all-reduces the max
+    and the least index reaching it over the vocabulary's axes (the last
+    position comes from the rank holding it where the sequence is
+    sharded, the rows from their ranks where the batch is); every rank
+    gets the whole (B,)."""
+    if not is_dtensor(logits):
+        return torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+    from torch.distributed.tensor import Replicate
+
+    from repro_torch.sharding.axes import shard_dims, shard_index
+    dm = logits.device_mesh
+    if any(p.is_partial() for p in logits.placements):
+        logits = logits.redistribute(dm, [
+            Replicate() if p.is_partial() else p for p in logits.placements])
+    pl = logits.placements
+    loc = logits.to_local()
+
+    def groups(dim):
+        return [dm.get_group(i) for i in shard_dims(pl, dim)
+                if dm.size(i) > 1]
+
+    last = loc[:, -1].float()
+    si, sn = shard_index(pl, dm, 1)
+    if sn > 1:
+        last = all_reduce(last if si == sn - 1 else torch.zeros_like(last),
+                           "sum", groups(1))
+    idx = torch.argmax(last, dim=-1)
+    val = last.gather(-1, idx[:, None])[:, 0]
+    idx = idx + shard_index(pl, dm, 2)[0] * loc.shape[2]
+    vg = groups(2)
+    if vg:
+        top = all_reduce(val, "max", vg)
+        idx = all_reduce(torch.where(val == top, idx, logits.shape[2]),
+                          "min", vg)
+    bi, bn = shard_index(pl, dm, 0)
+    if bn > 1:
+        Bl = loc.shape[0]
+        whole = torch.zeros(logits.shape[0], dtype=idx.dtype,
+                            device=idx.device)
+        whole[bi * Bl:(bi + 1) * Bl] = idx
+        idx = all_reduce(whole, "sum", groups(0))
+    return idx.to(torch.int32)
+
+
+def make_prefill_step(cfg: ModelConfig, runcfg: RunConfig, mesh=None):
     @torch.no_grad()
     def prefill_step(model, batch, layers):
         """batch["tokens"]: (B,S), and the context of a model with cross
@@ -149,18 +203,18 @@ def make_prefill_step(cfg: ModelConfig, runcfg: RunConfig):
         tokens = batch["tokens"]
         logits, layer_caches, _ = lm.forward(
             model, tokens, mode="prefill", caches=layers, runcfg=runcfg,
-            img_embeds=batch.get("img_embeds"), frames=batch.get("frames"))
+            img_embeds=batch.get("img_embeds"), frames=batch.get("frames"),
+            mesh=mesh)
         B, S = tokens.shape
         caches = {"pos": torch.full((B,), S, dtype=torch.int32,
                                     device=tokens.device),
                   "layers": layer_caches}
-        next_tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
-        return next_tok, caches
+        return next_tokens(logits), caches
 
     return prefill_step
 
 
-def make_decode_step(cfg: ModelConfig, runcfg: RunConfig):
+def make_decode_step(cfg: ModelConfig, runcfg: RunConfig, mesh=None):
     @torch.no_grad()
     def decode_step(model, caches, tokens):
         """tokens: (B,1) int.  Returns (next_token, new_caches); the
@@ -168,9 +222,9 @@ def make_decode_step(cfg: ModelConfig, runcfg: RunConfig):
         pos = caches["pos"]
         logits, new_layers, _ = lm.forward(model, tokens, mode="decode",
                                            caches=caches["layers"],
-                                           cache_len=pos, runcfg=runcfg)
-        next_tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
-        return next_tok, {"pos": pos + 1, "layers": new_layers}
+                                           cache_len=pos, runcfg=runcfg,
+                                           mesh=mesh)
+        return next_tokens(logits), {"pos": pos + 1, "layers": new_layers}
 
     return decode_step
 

@@ -20,8 +20,27 @@ the key chunks wholly in their future (a skipped chunk is an exact no-op
 of the update), and score/exp intermediates in `acc_dtype`.  It is not
 the flash kernel's twin: JAX cannot differentiate its Pallas kernel
 either, so training never reaches a kernel.  The JAX forms' `unroll`
-(the roofline variant) and `cn` (a sharding constrainer) have no meaning
-on one card and are dropped.
+(the roofline variant) is dropped.
+
+On a mesh (DESIGN.md §4) q, K/V and the caches are DTensors, and each
+kernel runs on the rank's local shard under a sharding rule of its own:
+
+* flash (`causal_attention`): q as placed (batch, and heads over
+  "model"; under the `long` profile the sequence over ("data",
+  "model")); K/V gathered over the sequence and, where `kv_heads`
+  divides the head shards, sharded like the heads, else whole, with the
+  rank's query heads [h0, h0 + H_l) reading KV head h0 // G (or the
+  repeated K/V sliced where a shard's heads span groups unevenly); a
+  rank holding query block r of S_l runs the kernel against keys [0,
+  (r+1) S_l), whose causal mask the kernel aligns to the bottom right;
+* decode (`decode_attention`): `cn` pins the cache to (batch, kv_seq,
+  whole heads, head_dim), JAX's two constraint sites; q gathered to the
+  cache's batch placement; each rank runs the (o, lse) form on its
+  `kv_seq` shard with cache_len clamped to the shard (cache_len -
+  offset in [0, T_local]), and `merge_partials` combines the shards:
+  an all-reduce of the max log-sum-exp, then one of the weighted
+  outputs and weights, over each mesh axis that shards `kv_seq` in turn
+  (one axis, or ("data", "model") under `long`).
 
 The non-causal forms, the encoder's self-attention and the
 cross-attention of a prefill or a training step, are plain torch ops as
@@ -39,6 +58,7 @@ from repro_torch.kernels.decode_attention.ops import \
 from repro_torch.kernels.flash_attention.ops import \
     flash_attention as _flash_op
 from repro_torch.models.common import ParamSpec, apply_rope, rms_norm, upcast
+from repro_torch.sharding.axes import is_dtensor
 
 NEG_INF = -1e30
 PAD_POS = 2 ** 30          # position of a padded key slot: never attended
@@ -98,14 +118,104 @@ def repeat_kv(k, num_heads: int):
 
 def causal_attention(q, k, v):
     """Causal self-attention over aligned q/k (prefill): q (B,S,H,hd),
-    k, v (B,S,KV,hd) -> (B,S,H,hd), on the flash-attention kernel."""
+    k, v (B,S,KV,hd) -> (B,S,H,hd), on the flash-attention kernel (on a
+    mesh, the rank's local shard of it: the module docstring)."""
+    if is_dtensor(q):
+        return _flash_sharded(q, k, v)
     return _flash_op(q, k, v, causal=True)
 
 
-def decode_attention(q, k_cache, v_cache, cache_len):
+def _flash_sharded(q, k, v):
+    from torch.distributed.tensor import Replicate, Shard
+
+    from repro_torch.sharding.axes import from_local, shard_index
+
+    dm, qp = q.device_mesh, q.placements
+    H, KV = q.shape[2], k.shape[2]
+    G = H // KV
+    hi, hn = shard_index(qp, dm, 2)
+    kv_split = hn > 1 and KV % hn == 0
+    kp = [Shard(0) if isinstance(p, Shard) and p.dim == 0 else
+          Shard(2) if isinstance(p, Shard) and p.dim == 2 and kv_split else
+          Replicate() for p in qp]
+    kl = k.redistribute(dm, kp).to_local()
+    vl = v.redistribute(dm, kp).to_local()
+    ql = q.to_local()
+    Hl = ql.shape[2]
+    if hn > 1 and not kv_split:
+        h0 = hi * Hl
+        if G % Hl == 0:               # the shard's heads share one KV head
+            kl = kl[:, :, h0 // G:h0 // G + 1]
+            vl = vl[:, :, h0 // G:h0 // G + 1]
+        else:                         # heads span KV groups unevenly
+            kl = repeat_kv(kl, H)[:, :, h0:h0 + Hl]
+            vl = repeat_kv(vl, H)[:, :, h0:h0 + Hl]
+    si, sn = shard_index(qp, dm, 1)
+    if sn > 1:                        # query block si sees keys up to its end
+        kl = kl[:, :(si + 1) * ql.shape[1]]
+        vl = vl[:, :(si + 1) * ql.shape[1]]
+    o = _flash_op(ql.contiguous(), kl.contiguous(), vl.contiguous(),
+                  causal=True)
+    return from_local(o.contiguous(), qp, dm, q.shape)
+
+
+def decode_attention(q, k_cache, v_cache, cache_len, cn=None):
     """q: (B,1,H,hd); caches: (B,T,KV,hd); positions < cache_len[b]
-    attended.  On the decode-attention kernel."""
-    return _decode_op(q, k_cache, v_cache, cache_len.to(torch.int32))
+    attended.  On the decode-attention kernel; with DTensor caches, on
+    each rank's shard of them (the module docstring), `cn` pinning them
+    (JAX's `cn` sites) and `cache_len` a (B,) tensor every rank holds
+    whole."""
+    if not is_dtensor(k_cache):
+        return _decode_op(q, k_cache, v_cache, cache_len.to(torch.int32))
+    if cn is not None:
+        k_cache = cn(k_cache, "batch", "kv_seq", None, "head_dim")
+        v_cache = cn(v_cache, "batch", "kv_seq", None, "head_dim")
+    return _decode_sharded(q, k_cache, v_cache, cache_len)
+
+
+def _decode_sharded(q, k, v, cache_len):
+    from torch.distributed.tensor import Replicate, Shard
+
+    from repro_torch.sharding.axes import (all_reduce, from_local,
+                                           shard_dims, shard_index)
+
+    dm, kp = k.device_mesh, k.placements
+    # q to the cache's batch placement, whole elsewhere (cn keeps the
+    # cache's heads whole)
+    qp = [p if isinstance(p, Shard) and p.dim == 0 else Replicate()
+          for p in kp]
+    ql = q.redistribute(dm, qp).to_local()
+    kl, vl = k.to_local(), v.to_local()
+    bi, _ = shard_index(kp, dm, 0)
+    Bl, Tl = kl.shape[:2]
+    if is_dtensor(cache_len):
+        cache_len = cache_len.full_tensor()
+    si, sn = shard_index(kp, dm, 1)
+    clen = cache_len[bi * Bl:(bi + 1) * Bl].to(torch.int32)
+    if sn == 1:
+        o = _decode_op(ql.contiguous(), kl, vl, clen)
+        return from_local(o.contiguous(), qp, dm, q.shape)
+    clen = (clen - si * Tl).clamp(0, Tl).to(torch.int32)
+    o, lse = _decode_op(ql.contiguous(), kl, vl, clen, with_lse=True)
+    groups = [dm.get_group(i) for i in shard_dims(kp, 1) if dm.size(i) > 1]
+    o = merge_partials(o, lse, lambda x, op: all_reduce(x, op, groups))
+    return from_local(o.to(q.dtype), qp, dm, q.shape)
+
+
+def merge_partials(o, lse, reduce):
+    """Combine the shards' partial softmaxes: o (..., 1, H, hd) float32
+    and lse (..., H) of this rank's shard -> the whole cache's (..., 1,
+    H, hd) float32, `reduce(x, op)` reducing over the shards ("max",
+    "sum").  One reduction of the max lse, then one of [exp(lse - max) o,
+    exp(lse - max)] (..., H, hd+1), divided out.  A shard with no valid
+    key (lse -inf) weighs 0; a row with none on any shard gives 0, never
+    NaN."""
+    m = reduce(lse, "max")
+    w = torch.where(torch.isfinite(m), torch.exp(lse - m),
+                    torch.zeros_like(lse))
+    acc = reduce(torch.cat([o[..., 0, :, :] * w[..., None], w[..., None]],
+                           dim=-1), "sum")
+    return (acc[..., :-1] / acc[..., -1:].clamp_min(1e-30)).unsqueeze(-3)
 
 
 def full_attention(q, k, v, *, q_pos=None, k_pos=None, causal=True):

@@ -81,11 +81,15 @@ def zeros_tree(tree, device) -> Dict:
                                           device=device), tree)
 
 
-def unported(what: str, item: str) -> NotImplementedError:
-    """The error a branch that is not ported yet raises, naming its
-    ROADMAP item (tests match on the message)."""
-    return NotImplementedError(f"{what} is not ported yet "
-                               f"(ROADMAP.md §1 item {item})")
+def assign(dst, src) -> None:
+    """dst.copy_(src) in place; for a DTensor `dst`, `src` redistributed
+    to its placements first and the rank's shards copied."""
+    from repro_torch.sharding.axes import is_dtensor
+    if is_dtensor(dst):
+        src = src.redistribute(dst.device_mesh, dst.placements)
+        dst.to_local().copy_(src.to_local())
+    else:
+        dst.copy_(src)
 
 
 def param_count(tree) -> int:

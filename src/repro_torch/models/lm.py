@@ -26,8 +26,19 @@ and the cross-attention prefill are non-causal and plain torch ops
 (`attention.full_attention`, or `chunked_attention` past S·T = 2**22);
 the decoder's causal self-attention and every decode attention, the
 cross layers' included, run on the kernels.  MoE layers run
-`moe.moe_apply` (the dense path on one card) and add their Switch aux
-loss, which `loss_fn` weighs by 0.01.
+`moe.moe_apply` (the dense path on one card, expert-parallel on a mesh)
+and add their Switch aux loss, which `loss_fn` weighs by 0.01.
+
+On a mesh (`forward(..., mesh=)`; DESIGN.md §4) the parameters
+and caches are DTensors (`sharding.axes.shard_lm`, `alloc_caches(...,
+mesh=)`), the activations follow DTensor's sharding propagation, and
+`cn` (`sharding.axes.make_constrainer`) redistributes them at JAX's
+constraint sites; the kernels run on each rank's shard
+(`models/attention.py`, `models/ssd.py`).  Each rank writes the cache
+positions it holds: prefill from the K/V gathered over the sequence,
+decode at cache_len[b] on the rank that owns it.  A mesh serves prefill
+and decode of the decoder-only stacks; training, cross layers and the
+encoder on a mesh raise.
 
 Training (`forward(mode="train")`, `loss_fn`) runs the same layers with
 no caches under autograd, attention through
@@ -55,10 +66,11 @@ from repro_torch.configs.base import RunConfig
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssd as ssd_mod
-from repro_torch.models.common import (DTYPES, ParamSpec, cross_entropy,
-                                       init_tree, rms_norm, swiglu,
-                                       tree_items, tree_map, zeros_tree)
-from repro_torch.models.common import unported  # noqa: F401 (lm.unported)
+from repro_torch.models.common import (DTYPES, ParamSpec, assign,
+                                       cross_entropy, init_tree, rms_norm,
+                                       swiglu, tree_items, tree_map,
+                                       zeros_tree)
+from repro_torch.sharding.axes import is_dtensor
 
 
 class LayerKind(NamedTuple):
@@ -184,10 +196,39 @@ def cache_specs(cfg, batch: int, cache_cap: int, dtype=torch.bfloat16):
     return out
 
 
-def alloc_caches(cfg, batch: int, cache_cap: int, dtype, device):
+def alloc_caches(cfg, batch: int, cache_cap: int, dtype, device, *,
+                 mesh=None, rules=None):
     """Zeroed decode caches at capacity, allocated once; prefill and
-    decode then write into them in place."""
-    return zeros_tree(cache_specs(cfg, batch, cache_cap, dtype), device)
+    decode then write into them in place.  On a mesh (of more than one
+    rank) each leaf is a DTensor placed as `tree_shardings` places
+    `cache_specs` under `rules`, each rank allocating its own shard:
+    under the decode profile K/V shard on `kv_seq` and SSD states on
+    `ssm_heads`."""
+    specs = cache_specs(cfg, batch, cache_cap, dtype)
+    if not on_mesh(mesh):
+        return zeros_tree(specs, device)
+    from repro_torch.sharding.axes import (from_local, local_part,
+                                           placements, tree_shardings)
+    shard = tree_shardings(specs, rules, mesh)
+    out: Dict[str, Any] = {}
+    for path, p in tree_items(specs):
+        spec = shard
+        for k in path:
+            spec = spec[k]
+        pl = placements(spec, mesh)
+        local = local_part(torch.empty(p.shape, device="meta"), pl, mesh)
+        node = out
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = from_local(
+            torch.zeros(local.shape, dtype=p.dtype, device=device), pl,
+            mesh, p.shape)
+    return out
+
+
+def on_mesh(mesh) -> bool:
+    """A mesh of more than one rank (a 1 x 1 host mesh is one card)."""
+    return mesh is not None and getattr(mesh, "device_mesh", None) is not None
 
 
 # ---------------------------------------------------------------------------
@@ -260,14 +301,16 @@ def init_lm(cfg, runcfg, *, seed: int = 0, device=None,
 
 
 def from_numpy(params_np, cfg, runcfg, device=None,
-               trainable: bool = False) -> LM:
+               trainable: bool = False, *, mesh=None) -> LM:
     """The JAX parameter tree (`repro.models.common.init_tree` of
     `param_specs`) as numpy arrays -> the port's `LM` on `device`.
     bfloat16 leaves come as their uint16 bits (`a.view(np.uint16)`),
     since `torch.from_numpy` takes no bfloat16.  Every leaf is copied
     (JAX's numpy views are read-only).  The model-side
     counterpart of `core/state.from_numpy`.  `device` None means the
-    card, as for `init_lm`."""
+    card, as for `init_lm`.  On a mesh every parameter is then placed as
+    a DTensor under `runcfg.sharding_profile`'s rules
+    (`sharding.axes.shard_lm`)."""
     device = resolve_device(device)
     specs = build_param_specs(cfg, DTYPES[runcfg.param_dtype])
     tree: Dict[str, Any] = {}
@@ -290,7 +333,11 @@ def from_numpy(params_np, cfg, runcfg, device=None,
         for k in path[:-1]:
             out = out.setdefault(k, {})
         out[path[-1]] = t.to(device)
-    return LM(cfg, tree, trainable)
+    model = LM(cfg, tree, trainable)
+    if on_mesh(mesh):
+        from repro_torch.sharding.axes import resolve_rules, shard_lm
+        shard_lm(model, resolve_rules(cfg, runcfg.sharding_profile), mesh)
+    return model
 
 
 def _stacked(path: Tuple[str, ...]) -> bool:
@@ -380,19 +427,81 @@ def _noncausal_attention(q, k, v, cfg, runcfg):
         acc_dtype=DTYPES[runcfg.attn_acc_dtype])
 
 
+def _no_cn(x, *axes):
+    return x
+
+
+def _write_prefix(cache, new):
+    """cache[:, :S] = new (B,S,KV,hd).  With a DTensor cache each rank
+    writes the positions its shard holds, from `new` gathered over the
+    sequence."""
+    S = new.shape[1]
+    if not is_dtensor(cache):
+        cache[:, :S] = new
+        return
+    from torch.distributed.tensor import Replicate, Shard
+
+    from repro_torch.sharding.axes import shard_index
+    dm, cp = cache.device_mesh, cache.placements
+    newl = new.redistribute(dm, [
+        p if isinstance(p, Shard) and p.dim in (0, 2) else Replicate()
+        for p in cp]).to_local()
+    cl = cache.to_local()
+    Tl = cl.shape[1]
+    lo = shard_index(cp, dm, 1)[0] * Tl
+    n = max(0, min(S - lo, Tl))
+    if n:
+        cl[:, :n] = newl[:, lo:lo + n].to(cl.dtype)
+
+
+def _write_at(cache, new, cache_len):
+    """cache[b, cache_len[b]] = new[b, 0] for every row b (new (B,1,KV,hd),
+    cache_len (B,) < T).  On one card an indexed write in place (the JAX
+    step writes with a one-hot select over the whole cache, elementwise,
+    so that a sequence-sharded cache never sees a scatter; the cache
+    comes out the same).  With a DTensor cache the rank whose shard holds
+    position cache_len[b] writes it; the others write back what they
+    hold, so no rank reads anything on the host."""
+    B = new.shape[0]
+    if not is_dtensor(cache):
+        rows = torch.arange(B, device=cache.device)
+        cache[rows, cache_len.long()] = new[:, 0].to(cache.dtype)
+        return
+    from torch.distributed.tensor import Replicate, Shard
+
+    from repro_torch.sharding.axes import shard_index
+    dm, cp = cache.device_mesh, cache.placements
+    newl = new.redistribute(dm, [
+        p if isinstance(p, Shard) and p.dim in (0, 2) else Replicate()
+        for p in cp]).to_local()
+    cl = cache.to_local()
+    Bl, Tl = cl.shape[:2]
+    bi, _ = shard_index(cp, dm, 0)
+    pos = cache_len[bi * Bl:(bi + 1) * Bl].long() - \
+        shard_index(cp, dm, 1)[0] * Tl
+    own = (pos >= 0) & (pos < Tl)
+    pos = pos.clamp(0, Tl - 1)
+    rows = torch.arange(Bl, device=cl.device)
+    cl[rows, pos] = torch.where(own[:, None, None], newl[:, 0].to(cl.dtype),
+                                cl[rows, pos])
+
+
 def _attn_mixer(p, h, cfg, *, mode, cache, positions, cache_len=None,
-                runcfg=None, ctx=None, causal=True, rope=True, gate=None):
+                runcfg=None, ctx=None, causal=True, rope=True, gate=None,
+                cn=_no_cn):
     """Attention mixer.  Causal self-attention: in prefill and decode it
     writes this layer's K/V into `cache` (a cache at capacity) in place,
     in training it takes no cache.  `causal=False` (the encoder's
     self-attention; cross-attention, with K/V projected from `ctx` and
     `rope=False`) takes no cache in any mode.  With `gate` the output is
-    scaled by tanh(gate).  Returns its output."""
+    scaled by tanh(gate).  `cn` constrains q and the output to JAX's
+    placements on a mesh.  Returns its output."""
     B, S, _ = h.shape
     x = rms_norm(h, p["pre_norm"], cfg.norm_eps)
     src = x if ctx is None else ctx
     q, k, v = attn_mod._project_qkv(p, x, src, cfg, positions, positions,
                                     rope=rope)
+    q = cn(q, "batch", "seq", "heads", "head_dim")
     if not causal:
         o = _noncausal_attention(q, k, v, cfg, runcfg)
     elif mode == "train":
@@ -407,21 +516,16 @@ def _attn_mixer(p, h, cfg, *, mode, cache, positions, cache_len=None,
             chunk_q=runcfg.attn_chunk_q, chunk_k=runcfg.attn_chunk_k,
             acc_dtype=DTYPES[runcfg.attn_acc_dtype])
     elif mode == "decode":
-        # The JAX step writes position cache_len[b] with a one-hot select
-        # over the whole cache (elementwise, so a sequence-sharded cache
-        # never sees a scatter).  On one card an indexed write in place
-        # gives the same cache and moves one row per batch entry.  It
-        # needs cache_len < T, as the serve loop's capacity P + G ensures.
-        ck, cv = cache["k"], cache["v"]
-        rows = torch.arange(B, device=h.device)
-        pos = cache_len.long()
-        ck[rows, pos] = k[:, 0].to(ck.dtype)
-        cv[rows, pos] = v[:, 0].to(cv.dtype)
-        o = attn_mod.decode_attention(q, ck, cv, cache_len + 1)
+        # needs cache_len < T, as the serve loop's capacity P + G ensures
+        _write_at(cache["k"], k, cache_len)
+        _write_at(cache["v"], v, cache_len)
+        o = attn_mod.decode_attention(q, cache["k"], cache["v"],
+                                      cache_len + 1, cn=cn)
     else:
         o = attn_mod.causal_attention(q, k, v)
-        cache["k"][:, :S] = k
-        cache["v"][:, :S] = v
+        _write_prefix(cache["k"], k)
+        _write_prefix(cache["v"], v)
+    o = cn(o, "batch", "seq", "heads", "head_dim")
     out = _out_proj(o, p["wo"])
     if gate is not None:
         out = out * torch.tanh(gate).to(out.dtype)
@@ -458,7 +562,7 @@ def _cross_mixer(p, gate, h, cfg, *, mode, cache, ctx, runcfg):
     return o
 
 
-def _ssd_mixer(p, h, cfg, *, mode, cache):
+def _ssd_mixer(p, h, cfg, *, mode, cache, cn=_no_cn):
     """SSD mixer: prefill scans the prompt from a zero state (any state in
     `cache` is ignored, as in the JAX model) and copies the final state
     into `cache`; decode updates `cache` in place; training runs the
@@ -469,41 +573,46 @@ def _ssd_mixer(p, h, cfg, *, mode, cache):
         return ssd_mod.ssd_chunked(p, x, cfg)
     if mode == "decode":
         return ssd_mod.ssd_decode(p, x, cache, cfg)[0]
-    o, state = ssd_mod.ssd_apply(p, x, cfg)
+    o, state = ssd_mod.ssd_apply(p, x, cfg, cn=cn)
     for k, v in state.items():
-        cache[k].copy_(v)
+        assign(cache[k], v)
     return o
 
 
 def apply_block(block: Block, h, cfg, *, mode, cache, positions,
-                cache_len=None, runcfg=None, ctx=None):
+                cache_len=None, runcfg=None, ctx=None, mesh=None,
+                cn=_no_cn):
     """One layer; `cache` is its slice of the caches ({"self": {"k",
     "v"}} or {"ssm": {...}}, and {"cross": {...}} for a cross layer),
-    None in training; `ctx` the cross layers' context (B,T,D).  Returns
-    (h, the MoE aux loss, None without an MoE MLP)."""
+    None in training; `ctx` the cross layers' context (B,T,D); `mesh`
+    and `cn` the mesh and constrainer of a forward on one.  Returns (h,
+    the MoE aux loss, None without an MoE MLP)."""
     kind = block.kind
     if kind.mixer == "attn":
         h = h + _attn_mixer(block.attn, h, cfg, mode=mode,
                             cache=cache["self"] if cache else None,
                             positions=positions, cache_len=cache_len,
-                            runcfg=runcfg)
+                            runcfg=runcfg, cn=cn)
     else:
         h = h + _ssd_mixer(block.ssd, h, cfg, mode=mode,
-                           cache=cache["ssm"] if cache else None)
+                           cache=cache["ssm"] if cache else None, cn=cn)
+    h = cn(h, "batch", "seq", "embed_tp")
     if kind.cross:
         h = h + _cross_mixer(block.xattn, block.xattn_gate, h, cfg,
                              mode=mode, cache=cache["cross"] if cache
                              else None, ctx=ctx, runcfg=runcfg)
+        h = cn(h, "batch", "seq", "embed_tp")
     aux = None
     if kind.ffn == "mlp":
         p = block.mlp
         x = rms_norm(h, p["pre_norm"], cfg.norm_eps)
-        h = h + swiglu(x, p["wg"], p["wu"], p["wd"])
+        h = cn(h + swiglu(x, p["wg"], p["wu"], p["wd"]), "batch", "seq",
+               "embed_tp")
     elif kind.ffn == "moe":
         p = block.moe
         x = rms_norm(h, p["pre_norm"], cfg.norm_eps)
-        y, aux = moe_mod.moe_apply(p, x, cfg)
-        h = h + y
+        y, aux = moe_mod.moe_apply(p, x, cfg, mesh)
+        h = cn(h + y, "batch", "seq", "embed_tp")
     return h, aux
 
 
@@ -529,8 +638,26 @@ def _train_period(model: LM, g: int, h, positions, runcfg, ctx):
     return h, aux
 
 
+def _layer(a, g: int):
+    """Layer g's slice of a cache leaf with a leading G: a view (of the
+    rank's shard, for a DTensor leaf), so writes land in the leaf."""
+    if not is_dtensor(a):
+        return a[g]
+    from torch.distributed.tensor import Shard
+
+    from repro_torch.sharding.axes import from_local
+    pl = []
+    for p in a.placements:
+        if isinstance(p, Shard):
+            if p.dim == 0:
+                raise ValueError("a cache leaf sharded on its layer axis")
+            p = Shard(p.dim - 1)
+        pl.append(p)
+    return from_local(a.to_local()[g], pl, a.device_mesh, a.shape[1:])
+
+
 def run_stack(model: LM, h, *, mode, caches, positions, cache_len=None,
-              runcfg=None, ctx=None):
+              runcfg=None, ctx=None, mesh=None, cn=_no_cn):
     """All num_layers layers, layer g*P + r in order, each writing its
     slice of `caches` (the JAX tree with leading G) in place; training
     takes no caches and, with `runcfg.remat`, recomputes each period of
@@ -552,10 +679,10 @@ def run_stack(model: LM, h, *, mode, caches, positions, cache_len=None,
     for g in range(G):
         for r in range(P):
             h, a = apply_block(model.blocks[g * P + r], h, cfg, mode=mode,
-                               cache=tree_map(lambda a: a[g],
+                               cache=tree_map(lambda a: _layer(a, g),
                                               caches[f"r{r}"]),
                                positions=positions, cache_len=cache_len,
-                               runcfg=runcfg, ctx=ctx)
+                               runcfg=runcfg, ctx=ctx, mesh=mesh, cn=cn)
             aux = _add_aux(aux, a)
     return h, aux
 
@@ -564,14 +691,18 @@ def run_stack(model: LM, h, *, mode, caches, positions, cache_len=None,
 # Whole-model forward
 # ---------------------------------------------------------------------------
 
-def _embed(model: LM, tokens):
-    return model.embed[tokens.long()]
+def _embed(model: LM, tokens, cn=_no_cn):
+    if is_dtensor(model.embed):
+        h = torch.nn.functional.embedding(tokens.long(), model.embed)
+    else:
+        h = model.embed[tokens.long()]
+    return cn(h, "batch", "seq", "embed_tp")
 
 
-def _unembed(model: LM, h):
+def _unembed(model: LM, h, cn=_no_cn):
     h = rms_norm(h, model.final_norm, model.cfg.norm_eps)
     head = model.embed.T if model.cfg.tie_embeddings else model.head
-    return h @ head
+    return cn(h @ head, "batch", "seq", "vocab")
 
 
 def _encoder_block(block: Block, h, cfg, positions, runcfg):
@@ -599,7 +730,7 @@ def encode(model: LM, frames, runcfg, *, remat: bool = False):
 
 
 def forward(model: LM, tokens, *, mode: str, caches=None, cache_len=None,
-            runcfg=None, img_embeds=None, frames=None):
+            runcfg=None, img_embeds=None, frames=None, mesh=None):
     """tokens: (B,S) int.  mode "prefill" (positions 0..S-1, K/V into
     cache positions 0..S-1, SSD states after token S-1, the cross caches
     from the context) or "decode" (S = 1 at positions cache_len) write
@@ -609,10 +740,40 @@ def forward(model: LM, tokens, *, mode: str, caches=None, cache_len=None,
     `frames` (B,S',D) for the encoder; cast to the parameters' dtype.
     `runcfg` (attention chunks and dtype, remat) defaults to
     `RunConfig()`.  Returns (logits (B,S,Vp), caches, the summed MoE aux
-    loss: float32, 0 without MoE layers), as the JAX forward does."""
+    loss: float32, 0 without MoE layers), as the JAX forward does.
+
+    On a mesh of more than one rank (`launch.mesh.Mesh`) the model's
+    parameters and the caches are DTensors on it (`shard_lm`,
+    `alloc_caches(..., mesh=)`), the rules are
+    `runcfg.sharding_profile`'s, tokens and `cache_len` are tensors
+    every rank holds whole, and the logits come out a DTensor placed
+    (batch, seq, vocab); prefill and decode only, of a decoder-only
+    stack."""
     if mode not in ("prefill", "decode", "train"):
         raise ValueError(f"mode={mode!r}")
     runcfg = runcfg or RunConfig()
+    if on_mesh(mesh):
+        from torch.distributed.tensor.experimental import \
+            implicit_replication
+
+        from repro_torch.sharding.axes import make_constrainer, resolve_rules
+        if mode == "train" or model.encoder is not None or \
+                any(k.cross for k in model.kinds):
+            raise ValueError(f"{model.cfg.name}: a forward on a mesh serves "
+                             f"prefill and decode of a decoder-only stack "
+                             f"(mode {mode!r})")
+        rules = resolve_rules(model.cfg, runcfg.sharding_profile)
+        with implicit_replication():
+            return _forward(model, tokens, mode=mode, caches=caches,
+                            cache_len=cache_len, runcfg=runcfg, mesh=mesh,
+                            cn=make_constrainer(rules, mesh))
+    return _forward(model, tokens, mode=mode, caches=caches,
+                    cache_len=cache_len, runcfg=runcfg,
+                    img_embeds=img_embeds, frames=frames)
+
+
+def _forward(model: LM, tokens, *, mode, caches, cache_len, runcfg,
+             img_embeds=None, frames=None, mesh=None, cn=_no_cn):
     B, S = tokens.shape
     ctx = None
     if mode != "decode":
@@ -626,13 +787,13 @@ def forward(model: LM, tokens, *, mode: str, caches=None, cache_len=None,
         positions = cache_len[:, None]
     else:
         positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
-    h = _embed(model, tokens)
+    h = _embed(model, tokens, cn)
     h, aux = run_stack(model, h, mode=mode, caches=caches,
                        positions=positions, cache_len=cache_len,
-                       runcfg=runcfg, ctx=ctx)
+                       runcfg=runcfg, ctx=ctx, mesh=mesh, cn=cn)
     if aux is None:
         aux = torch.zeros((), dtype=torch.float32, device=h.device)
-    return _unembed(model, h), caches, aux
+    return _unembed(model, h, cn), caches, aux
 
 
 def loss_fn(model: LM, batch, runcfg):

@@ -14,8 +14,12 @@ float32 the two agree to rounding, in bfloat16 by one bf16 rounding.
 ops under autograd, its roundings to the activation dtype included: the
 JAX package trains through that jnp code, not through a kernel.
 The JAX forms' `unroll` (a Python loop over chunks for the roofline
-path) and `cn` (a sharding constrainer) have no meaning on one card and
-are dropped.
+path) is dropped.  On a mesh (DESIGN.md §4) `ssd_apply`'s `cn` shards
+x and dt over the SSD heads (JAX's constraint sites; the third, on the
+within-chunk cumsum, is inside the kernel), the scan runs on each
+rank's local heads with B and C whole, and `_gate_out`'s norm over the
+whole inner dimension, sharded over "model" with the heads, takes its
+mean square through DTensor's reduction over that axis.
 
 Parameters keep the JAX names and shapes.  The decode state is the JAX
 cache, {"ssm" (B,H,P,N) float32, "conv_x" (B,W-1,DI), "conv_B",
@@ -28,7 +32,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.ssd_scan.ops import ssd_scan
-from repro_torch.models.common import ParamSpec, rms_norm
+from repro_torch.models.common import ParamSpec, assign, rms_norm
+from repro_torch.sharding.axes import is_dtensor
 
 
 def ssd_params(cfg, dtype=torch.bfloat16):
@@ -59,13 +64,30 @@ def ssd_params(cfg, dtype=torch.bfloat16):
     }
 
 
+def _pad_time(t, before: int, after: int):
+    """Zeros before and after dim 1 of a (B,S,...) tensor.  A DTensor is
+    padded shard by shard (its dim 1 made whole first): the card's torch
+    has no working DTensor rule for `pad`."""
+    pad = (0, 0) * (t.dim() - 2) + (before, after)
+    if not is_dtensor(t):
+        return F.pad(t, pad)
+    from torch.distributed.tensor import Replicate, Shard
+
+    from repro_torch.sharding.axes import from_local
+    pl = [Replicate() if isinstance(p, Shard) and p.dim == 1 else p
+          for p in t.placements]
+    t = t.redistribute(t.device_mesh, pl)
+    shape = (t.shape[0], t.shape[1] + before + after) + tuple(t.shape[2:])
+    return from_local(F.pad(t.to_local(), pad), pl, t.device_mesh, shape)
+
+
 def _causal_conv(x, w, state=None):
     """Depthwise causal conv. x:(B,S,C), w:(W,C). state:(B,W-1,C) or None
     (zero padding).  Returns (y, new_state), new_state the last W-1
     inputs."""
     W = w.shape[0]
     if state is None:
-        xp = F.pad(x, (0, 0, W - 1, 0))
+        xp = _pad_time(x, W - 1, 0)
     else:
         xp = torch.cat([state.to(x.dtype), x], dim=1)
     y = sum(xp[:, i:i + x.shape[1], :] * w[i] for i in range(W))
@@ -92,11 +114,41 @@ def _gate_out(p, y, z, x_dtype, cfg):
     return y.to(x_dtype) @ p["out_proj"]
 
 
-def ssd_apply(p, x, cfg):
+def _scan(xh, Bc, Cc, dtc, A):
+    """The `ssd_scan` op, y in float32; with DTensor operands on each
+    rank's local heads (x and dt as placed, B and C whole over the head
+    axes), y placed as x and the state (B,H,P,N) over the same axes."""
+    if not is_dtensor(xh):
+        return ssd_scan(xh, Bc.contiguous(), Cc.contiguous(),
+                        dtc.contiguous(), A, out_dtype=torch.float32)
+    from torch.distributed.tensor import Replicate, Shard
+
+    from repro_torch.sharding.axes import from_local
+    dm, xp = xh.device_mesh, xh.placements
+    bc = [p if isinstance(p, Shard) and p.dim == 0 else Replicate()
+          for p in xp]
+    hp = [Shard(0) if isinstance(p, Shard) and p.dim == 3 else Replicate()
+          for p in xp]
+    y, h = ssd_scan(xh.to_local().contiguous(),
+                    Bc.redistribute(dm, bc).to_local().contiguous(),
+                    Cc.redistribute(dm, bc).to_local().contiguous(),
+                    dtc.redistribute(dm, xp[:]).to_local().contiguous(),
+                    A.redistribute(dm, hp).to_local().contiguous(),
+                    out_dtype=torch.float32)
+    sp = [Shard(1) if isinstance(p, Shard) and p.dim == 3 else p for p in xp]
+    B, _, _, H, P = xh.shape
+    return (from_local(y.contiguous(), xp, dm, xh.shape),
+            from_local(h.contiguous(), sp, dm, (B, H, P, h.shape[-1])))
+
+
+def ssd_apply(p, x, cfg, cn=None):
     """Prefill path from a zero state. x:(B,S,D) -> (y:(B,S,D), final
     state {"ssm", "conv_x", "conv_B", "conv_C"}).  A tail that does not
     fill a chunk is padded after the projection with dt = 0, so the
-    padded steps are exact no-ops and the state is the state at S."""
+    padded steps are exact no-ops and the state is the state at S.
+    `cn`, on a mesh, places x and dt over the SSD heads."""
+    if cn is None:
+        cn = lambda t, *a: t
     B, S, _ = x.shape
     H, P, N = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
     Q = min(cfg.ssm_chunk, S)
@@ -108,16 +160,16 @@ def ssd_apply(p, x, cfg):
     Cm, conv_C_st = _causal_conv(Cm, p["conv_C"])
     xs, Bm, Cm = (_silu(t, x.dtype) for t in (xs, Bm, Cm))
     if S_pad != S:
-        pad = (0, 0, 0, S_pad - S)
-        xs, Bm, Cm, dt = (F.pad(t, pad) for t in (xs, Bm, Cm, dt))
+        xs, Bm, Cm, dt = (_pad_time(t, 0, S_pad - S)
+                          for t in (xs, Bm, Cm, dt))
     nc = S_pad // Q
 
-    xh = xs.reshape(B, nc, Q, H, P)
+    xh = cn(xs.reshape(B, nc, Q, H, P), "batch", None, None, "ssm_heads",
+            None)
+    dtc = cn(dt.reshape(B, nc, Q, H), "batch", None, None, "ssm_heads")
     A = -torch.exp(p["A_log"])
-    y, h_last = ssd_scan(xh, Bm.reshape(B, nc, Q, N).contiguous(),
-                         Cm.reshape(B, nc, Q, N).contiguous(),
-                         dt.reshape(B, nc, Q, H).contiguous(), A,
-                         out_dtype=torch.float32)
+    y, h_last = _scan(xh, Bm.reshape(B, nc, Q, N), Cm.reshape(B, nc, Q, N),
+                      dtc, A)
     y = y + xh.float() * p["D_skip"][:, None]
     y = y.reshape(B, S_pad, H * P)[:, :S]
     out = _gate_out(p, y, z, x.dtype, cfg)
@@ -216,10 +268,10 @@ def ssd_decode(p, x, cache, cfg):
     y = torch.einsum("bhpn,bn->bhp", h, Cm)
     y = y + xh * p["D_skip"][None, :, None]
     out = _gate_out(p, y.reshape(B, 1, H * P), z, x.dtype, cfg)
-    cache["ssm"].copy_(h)
-    cache["conv_x"].copy_(cx)
-    cache["conv_B"].copy_(cb)
-    cache["conv_C"].copy_(cc)
+    assign(cache["ssm"], h)
+    assign(cache["conv_x"], cx)
+    assign(cache["conv_B"], cb)
+    assign(cache["conv_C"], cc)
     return out, cache
 
 

@@ -15,6 +15,15 @@ the mesh's dim order (`launch.mesh.Mesh`); `placements` turns a spec
 into DTensor placements over the mesh's `DeviceMesh`, and `constrain`
 redistributes a DTensor to them (the port's
 `with_sharding_constraint`).
+
+`distribute` places a whole tensor that every rank holds as a DTensor
+of a spec, each rank keeping its own shard and no rank communicating
+(JAX's `device_put` of a host array); `shard_lm` does so for every
+parameter of an `LM`, to `tree_shardings` of its parameter specs, and
+`shard_index` says which shard of a tensor dim this rank holds.
+`all_reduce` reduces a plain tensor over the process groups of mesh
+axes, one after another (the decode merge, greedy decoding over a
+sharded vocabulary).
 """
 from __future__ import annotations
 
@@ -193,10 +202,14 @@ def placements(spec: Spec, mesh) -> list:
     names, `Replicate()` on the others.  A tensor dim split over several
     mesh axes takes them in the spec tuple's order, major to minor, which
     is the order DTensor shards in: the mesh's own dim order, so a tuple
-    against it is refused."""
+    against it is refused.  A mesh dim of size 1 stays `Replicate()`: a
+    shard over it is the whole dim, and DTensor cannot merge a dim
+    sharded even over one rank with its neighbours (a view)."""
     from torch.distributed.tensor import Replicate, Shard
 
     names = _dim_names(mesh)
+    sizes = mesh.shape if isinstance(mesh.shape, Mapping) else \
+        dict(zip(names, mesh.shape))
     out = [Replicate() for _ in names]
     for d, entry in enumerate(spec):
         if entry is None:
@@ -206,12 +219,13 @@ def placements(spec: Spec, mesh) -> list:
         if idx != sorted(idx):
             raise ValueError(f"spec {spec}: dim {d} takes {axes} against "
                              f"the mesh's order {names}")
-        for i in idx:
-            out[i] = Shard(d)
+        for i, a in zip(idx, axes):
+            if sizes[a] > 1:
+                out[i] = Shard(d)
     return out
 
 
-def _is_dtensor(x) -> bool:
+def is_dtensor(x) -> bool:
     from torch.distributed.tensor import DTensor
     return isinstance(x, DTensor)
 
@@ -221,10 +235,113 @@ def constrain(x, logical_axes, rules, mesh):
     to the spec's placements; a plain tensor, or any tensor on a mesh of
     one device, unchanged."""
     if mesh is None or _mesh_extent(mesh, tuple(mesh.shape)) == 1 or \
-            not _is_dtensor(x):
+            not is_dtensor(x):
         return x
     spec = logical_to_spec(logical_axes, x.shape, rules, mesh)
     return x.redistribute(x.device_mesh, placements(spec, mesh))
+
+
+def shard_index(pl, mesh, dim: int) -> Tuple[int, int]:
+    """(index, count) of this rank's shard of tensor dim `dim` under the
+    placements `pl` on `mesh`: the mesh dims that shard it, major to
+    minor in mesh order, as DTensor splits them; (0, 1) when none
+    does."""
+    from torch.distributed.tensor import Shard
+
+    dm = device_mesh(mesh)
+    coord = dm.get_coordinate() if dm is not None else None
+    idx, n = 0, 1
+    for i, p in enumerate(pl):
+        if isinstance(p, Shard) and p.dim == dim:
+            size = dm.size(i)
+            idx, n = idx * size + coord[i], n * size
+    return idx, n
+
+
+def device_mesh(mesh):
+    """The `DeviceMesh` of a `launch.mesh.Mesh`, or `mesh` itself."""
+    return getattr(mesh, "device_mesh", mesh)
+
+
+def shard_dims(pl, dim: int) -> Tuple[int, ...]:
+    """The mesh dims whose placement in `pl` shards tensor dim `dim`."""
+    from torch.distributed.tensor import Shard
+    return tuple(i for i, p in enumerate(pl)
+                 if isinstance(p, Shard) and p.dim == dim)
+
+
+def local_part(t, pl, mesh):
+    """This rank's shard of the whole tensor `t` under placements `pl`
+    on `mesh` (a `Mesh` or a `DeviceMesh`; every sharded dim divides
+    evenly, as `logical_to_spec` ensures): a view of `t`."""
+    for d in range(t.dim()):
+        i, n = shard_index(pl, mesh, d)
+        if n > 1:
+            if t.shape[d] % n:
+                raise ValueError(f"dim {d} of {tuple(t.shape)} does not "
+                                 f"split {n} ways")
+            w = t.shape[d] // n
+            t = t.narrow(d, i * w, w)
+    return t
+
+
+def from_local(local, pl, mesh, shape):
+    """The DTensor of global `shape` whose shard on this rank is `local`
+    (no check, no communication)."""
+    import torch
+    from torch.distributed.tensor import DTensor
+    stride = torch.empty(tuple(shape), device="meta").stride()
+    return DTensor.from_local(local, device_mesh(mesh), pl, run_check=False,
+                              shape=tuple(shape), stride=stride)
+
+
+def distribute(t, spec: Spec, mesh):
+    """A whole tensor held by every rank -> the DTensor of `spec` on
+    `mesh`, each rank keeping a contiguous copy of its own shard."""
+    pl = placements(spec, mesh)
+    return from_local(local_part(t, pl, mesh).contiguous(), pl, mesh,
+                      t.shape)
+
+
+def shard_lm(model, rules, mesh):
+    """Replace every parameter of the port's `models.lm.LM` in place by a
+    DTensor on `mesh`, sharded as `tree_shardings` places the JAX
+    parameter tree under `rules` (a stacked block leaf's spec without its
+    "layers" entry), each rank keeping its own shard of the weights it
+    holds whole.  Returns the model."""
+    from torch import nn
+
+    from repro_torch.models import lm
+
+    specs = tree_shardings(lm.build_param_specs(model.cfg), rules, mesh)
+    for path, names in lm.leaf_names(model):
+        spec = specs
+        for k in path:
+            spec = spec[k]
+        if lm._stacked(path):
+            spec = spec[1:]
+        for name in names:
+            owner, _, attr = name.rpartition(".")
+            mod = model.get_submodule(owner) if owner else model
+            p = getattr(mod, attr) if not isinstance(mod, nn.ParameterDict) \
+                else mod[attr]
+            d = nn.Parameter(distribute(p.detach(), spec, mesh),
+                             requires_grad=p.requires_grad)
+            if isinstance(mod, nn.ParameterDict):
+                mod[attr] = d
+            else:
+                setattr(mod, attr, d)
+    return model
+
+
+def all_reduce(x, op: str, groups):
+    """x reduced with `op` ("sum", "max", "min") over each process group
+    of `groups` in turn (one mesh axis after another)."""
+    from torch.distributed._functional_collectives import all_reduce as ar
+    from torch.distributed._functional_collectives import wait_tensor
+    for g in groups:
+        x = wait_tensor(ar(x.contiguous(), op, g))
+    return x
 
 
 def make_constrainer(rules, mesh):

@@ -531,6 +531,36 @@ def test_decode_attention(B, T, H, KV, hd, dtype):
     assert torch.equal(zero.cpu(), torch.zeros_like(zero.cpu()))
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,T,H,KV,hd", [
+    (8, 136, 32, 8, 64), (9, 520, 32, 8, 64), (4, 77, 16, 2, 128),
+    (2, 33, 8, 4, 16), (8, 4096, 15, 5, 64)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_lse_form(B, T, H, KV, hd, dtype):
+    """The (o, lse) form of a `kv_seq` shard: o and lse float32 against
+    the twin's, cache_len 0 giving o = 0 and lse = -inf, and the launch
+    counted in `lse_launches` as well."""
+    _need_cuda()
+    from repro_torch.kernels.decode_attention import ops as da
+    rng = np.random.default_rng(B * T + H + 1)
+    q, k, v = (_att(rng, (B, 1, H, hd), dtype), _att(rng, (B, T, KV, hd), dtype),
+               _att(rng, (B, T, KV, hd), dtype))
+    clen = torch.as_tensor(rng.integers(1, T + 1, B).astype(np.int32))
+    clen[0], clen[1] = 0, T
+    n0, l0 = da.decode_attention.launches, da.decode_attention.lse_launches
+    o, lse = da.decode_attention(q.cuda(), k.cuda(), v.cuda(), clen.cuda(),
+                                 with_lse=True)
+    torch.cuda.synchronize()
+    assert (da.decode_attention.launches, da.decode_attention.lse_launches) \
+        == (n0 + 1, l0 + 1)
+    assert o.dtype == lse.dtype == torch.float32 and lse.shape == (B, H)
+    wo, wlse = da.decode_attention(q, k, v, clen, with_lse=True)
+    _close(wo, o, dtype)
+    assert torch.equal(o[0].cpu(), torch.zeros_like(o[0].cpu()))
+    assert torch.isneginf(lse[0]).all()
+    _close(wlse[1:], lse[1:], dtype)
+
+
 # the routes' tile edges: 64-row warpgroups and 128-row blocks of the
 # tensor-core flash kernel, its 64-key tiles, the decode kernel's 64-row
 # cache tiles; G = 1, 3, 8 at hd 64 and 128, bf16 (tensor cores) and f32

@@ -3,8 +3,10 @@ checks: a rank that raises, or one that hangs past the time limit,
 fails the run and every rank is stopped.
 
 This module imports torch and the port only, so the ranks that
-`tests/test_torch_moe_ep.py` spawns import it, and not JAX: their
-side of the expert-parallel MoE checks (`moe_ep_ranks`) lives here.
+`tests/test_torch_moe_ep.py` and `tests/test_torch_lm_mesh.py` spawn
+import it, and not JAX: their side of the expert-parallel MoE checks
+(`moe_ep_ranks`) and of the LM forward on DTensors (`lm_mesh_ranks`)
+lives here.
 """
 from __future__ import annotations
 
@@ -111,6 +113,117 @@ def moe_ep_ranks(rank, world, weights, tokens, cases):
     groups = {4: dist.group.WORLD, 2: pairs[rank // 2]}
     return (_run_cases(rank, weights, tokens, cases, groups),
             _run_apply(weights, tokens))
+
+
+# --------------------------------------------------------------------- #
+# the LM forward on DTensors (tests/test_torch_lm_mesh.py)
+# --------------------------------------------------------------------- #
+MESH_CAPACITY = 8.0                # MoE capacity at which nothing drops
+
+
+def mesh_cfg(arch):
+    """The reduced config of the mesh checks: an expert-parallel MoE layer
+    drops nothing at MESH_CAPACITY, so it computes the dense form's
+    function."""
+    return dataclasses.replace(get_config(arch).reduced(),
+                               moe_capacity_factor=MESH_CAPACITY)
+
+
+def mesh_runcfg(profile):
+    from repro_torch.configs.base import RunConfig
+    return RunConfig(sharding_profile=profile, remat=False,
+                     param_dtype="float32", activation_dtype="float32")
+
+
+def _gather(t):
+    return _np(t.full_tensor() if hasattr(t, "full_tensor") else t)
+
+
+def _mesh_serve(case, weights, feed, mesh, taps=None):
+    """One case's prefill and decode steps on the mesh: the steps' greedy
+    tokens, every forward's logits, the kernels' operand shapes and the
+    merge's collectives (`launch.taps.Taps`), every cache leaf gathered
+    with its placements, and with `taps` (the one-device run's layer
+    inputs) each layer fed its input and its output gathered."""
+    from repro_torch.launch import steps as TS
+    from repro_torch.launch.taps import Taps, serve
+    from repro_torch.models import lm as tlm
+    from repro_torch.models.common import tree_items
+    from repro_torch.sharding.axes import resolve_rules
+    arch, profile, B, S, cap = case
+    cfg, rc = mesh_cfg(arch), mesh_runcfg(profile)
+    model = tlm.from_numpy(weights, cfg, rc, "cpu", mesh=mesh)
+    layers = tlm.alloc_caches(cfg, B, cap, torch.float32, "cpu", mesh=mesh,
+                              rules=resolve_rules(cfg, profile))
+    fed = [torch.from_numpy(t) for t in feed["fed"]]
+    seen = Taps(mesh, feed=None if taps is None else
+                [torch.from_numpy(t) for t in taps],
+                on_layer=None if taps is None else
+                lambda i, h, y: _gather(y))
+    with seen:
+        toks, caches, _, _ = serve(
+            model, layers, torch.from_numpy(feed["tokens"]),
+            TS.make_prefill_step(cfg, rc, mesh),
+            TS.make_decode_step(cfg, rc, mesh), len(fed), fed)
+    leaves = {"/".join(p): (_gather(a), str(a.placements))
+              for p, a in tree_items(caches["layers"])}
+    return {"tokens": [_np(t) for t in toks],
+            "logits": [_gather(g) for g in seen.logits], "caches": leaves,
+            "flash": seen.flash, "decode": seen.decode, "ssd": seen.ssd,
+            "merge": seen.merge, "layers": seen.layers,
+            "pos": _np(caches["pos"])}
+
+
+def one_device_serve(case, weights, feed, tap=False):
+    """The port's steps on one device, as `_mesh_serve` runs them on a
+    mesh: every forward's logits, each step's greedy tokens, the caches,
+    and with `tap` each layer call's input ("taps") and output."""
+    from repro_torch.launch import steps as TS
+    from repro_torch.launch.taps import Taps, serve
+    from repro_torch.models import lm as tlm
+    from repro_torch.models.common import tree_items
+    arch, profile, B, S, cap = case
+    cfg, rc = mesh_cfg(arch), mesh_runcfg(profile)
+    model = tlm.from_numpy(weights, cfg, rc, "cpu")
+    layers = tlm.alloc_caches(cfg, B, cap, torch.float32, "cpu")
+    fed = [torch.from_numpy(t) for t in feed["fed"]]
+    seen = Taps(on_layer=(lambda i, h, y: (_np(h), _np(y))) if tap else None)
+    with seen:
+        toks, caches, _, _ = serve(
+            model, layers, torch.from_numpy(feed["tokens"]),
+            TS.make_prefill_step(cfg, rc), TS.make_decode_step(cfg, rc),
+            len(fed), fed)
+    return {"tokens": [_np(t) for t in toks],
+            "logits": [_np(g) for g in seen.logits],
+            "caches": {"/".join(p): _np(a)
+                       for p, a in tree_items(caches["layers"])},
+            "taps": [h for h, _ in seen.layers] if tap else None,
+            "layers": [y for _, y in seen.layers]}
+
+
+def lm_mesh_ranks(rank, world, meshes, cases, weights, feeds, taps):
+    """A rank of `tests/test_torch_lm_mesh.py`: every case on each
+    ("data", "model") = (world / m, m) host mesh of `meshes` {name: m},
+    and for the cases named in `taps` once more with each layer fed the
+    input of the one-device run (`one_device_serve`).  Rank 0 returns
+    the results by mesh (every rank computes them: the gathers are
+    collectives)."""
+    from repro_torch.launch.mesh import make_host_mesh
+    torch.set_num_threads(1)          # four ranks share the host's cores
+    out, taps_in = {}, {}
+    for name, m in meshes.items():
+        mesh = make_host_mesh(model=m, device_type="cpu")
+        res = out[name] = {}
+        for key, case in cases.items():
+            res[key] = _mesh_serve(case, weights[case[0]], feeds[key], mesh)
+            if key in taps:
+                if key not in taps_in:
+                    taps_in[key] = one_device_serve(
+                        case, weights[case[0]], feeds[key], tap=True)["taps"]
+                res[key, "taps"] = _mesh_serve(case, weights[case[0]],
+                                               feeds[key], mesh,
+                                               taps_in[key])
+    return out if rank == 0 else None
 
 
 # --------------------------------------------------------------------- #
