@@ -20,6 +20,9 @@
                                      # parallel MoE; builds nothing)
     python3 chip_smoke.py --phase18  # phases 1 and 18 (the LM forward
                                      # on DTensors over 4 ranks)
+    python3 chip_smoke.py --phase19  # phases 1 and 19 (the train step on
+                                     # DTensors, seamless serving on a
+                                     # mesh, over 4 ranks)
     python3 chip_smoke.py --probe-gloo  # which functional collectives
                                      # gloo takes on CUDA tensors
 
@@ -266,12 +269,39 @@ Phases, each fatal on failure:
    layer a prefill; (d) the merge's collectives (`launch.comm_stats`)
    of the closed form's bytes; ms a rank printed (host-staged: not a
    speed of the method);
-19. a `kernels` JSON line (with each kernel's launches in phase 15,
+19. the train step on DTensors and the cross layers and the encoder on
+   a mesh (ROADMAP.md §1 item 10e part 2c), 4 gloo ranks sharing the
+   card as in 18: `make_train_step` with a mesh (TRAIN_MESH_CASES) for
+   llama3.2-1b at full width and depth (f32, and bf16 parameters with
+   f32 moments; B 8, S 256, 2 microbatches, remat "period", 2 steps; 2
+   x 2 with ZeRO-3 at use and 1 x 4), seamless-m4t-medium at full
+   width (12 + 12 layers; one step on 2 x 2) and qwen2-moe-a2.7b cut
+   to 2 layers (f32, B 4, S 128, one step on 1 x 4: the
+   expert-parallel MoE and its gradient), each against the one-device
+   train step on the card from the same weights and batches (made by
+   rank 0 and read by every rank from a file), each layer fed the
+   one-device run's input and the gradient reaching its output
+   (`launch.taps.TrainTaps`): loss, aux and grad_norm, each gradient's
+   ||mesh - one device|| / ||one device||, the parameters after the
+   steps, the ranks' grad_norms equal, the wire bytes of ZeRO-3's
+   gathers, of the vocabulary-parallel cross entropy and of
+   `global_norm` equal to the closed form (the gradient reductions
+   printed), no kernel launched; then seamless serving on 1 x 4
+   (TRAIN_MESH_SERVE: B 8, 128 seeded frames, 8 decode steps, gates
+   drawn), layer by layer against the one-device run, its cross cache
+   sharded on the KV heads and the cross decode on the rank's heads,
+   launches (flash, decode (o, lse), decode plain) and the merge's
+   bytes; step ms and peak memory a rank printed (host-staged: not a
+   speed of the method);
+20. a `kernels` JSON line (with each kernel's launches in phase 15,
    `launches_train`, in phase 16(b) by model, `launches_10d`, in phase
-   17 by ep, `launches_moe_ep`: none of them is on that path, and in
-   phase 18 by case, `launches_lm_mesh`, and for decode
-   `launches_lm_mesh_lse`), the card line, and the last line `{"ok":
-   true, "device": {...}}`.
+   17 by ep, `launches_moe_ep`: none of them is on that path, in phase
+   18 by case, `launches_lm_mesh`, and for decode
+   `launches_lm_mesh_lse`, in phase 19's serving `launches_train_mesh`
+   and `launches_train_mesh_lse`; for decode also the (o, lse) form's
+   phase-8 times `ms_lse`, `plain_ms_lse`, `bound_ms_lse` and their
+   `_long`), the card line, and the last line `{"ok": true, "device":
+   {...}}`.
 
 Exits non-zero, printing no result, without a CUDA device or outside a
 checkout of the repository.
@@ -1821,6 +1851,25 @@ def run_attention_checks(dev, long_shapes=True):
             res[name][tag].update(n_splits=ns, ms_one_split=ms1)
             extra = (f"; {ns} splits per (batch row, KV head), one split "
                      f"(no combine) {ms1 * 1e3:.2f} us")
+            # the (o, lse) form of a kv_seq-sharded cache (the mesh's
+            # self decode): o in float32 and lse (B, H) written instead of
+            # o in the input's dtype
+            o_l, l_l = da.decode_attention(*a0[:4], with_lse=True)
+            r_o, r_l = da_ref.decode_attention_ref(*a0[:4], with_lse=True)
+            att_compare(f"{name} (o, lse)", o_l, r_o, dt, tag)
+            att_compare(f"{name} lse", l_l, r_l, dt, tag)
+            ms_lse = device_ms(lambda: da.decode_attention(
+                *nxt()[:4], with_lse=True), reps, 4_000_000)
+            plain_lse = device_ms(lambda: da_ref.decode_attention_ref(
+                *a0[:4], with_lse=True), 5 if tag == "long" else 20,
+                40_000_000)
+            lse_bytes = nbytes + q.numel() * 2 + B * H * 4
+            res[name][tag].update(ms_lse=ms_lse, plain_ms_lse=plain_lse,
+                                  bound_ms_lse=att_bound_ms(lse_bytes, flops,
+                                                            dt))
+            extra += (f"; the (o, lse) form {ms_lse * 1e3:.2f} us (twin "
+                      f"{plain_lse * 1e3:.2f} us, bound "
+                      f"{att_bound_ms(lse_bytes, flops, dt) * 1e3:.2f} us)")
         log(f"kernel {name} [{tag}, B={B}, {'S' if S > 1 else 'T'}={T}, "
             f"H={H}, KV={KV}, hd={hd}, bf16]: {ms * 1e3:.2f} us (twin "
             f"{plain_ms * 1e3:.2f} us, library {lib_ms * 1e3:.2f} us on "
@@ -4031,6 +4080,535 @@ def check_lm_mesh(key, rs):
         raise AssertionError(f"{tag}: " + "; ".join(tol_bad))
 
 
+# --------------------------------------------------------------------- #
+# phase 19: the train step on DTensors, the cross layers and the encoder
+# on a mesh (ROADMAP.md §1 item 10e part 2c)
+# --------------------------------------------------------------------- #
+TRAIN_MESH_WORLD = 4
+TRAIN_MESH_SEED = 29
+# (group, arch, dtype, layers, B, S, microbatches, steps, meshes): the
+# one-device reference of a (group, dtype) serves each of its meshes;
+# llama3.2-1b at full width and depth, seamless-m4t-medium at full width
+# (12 + 12 layers), qwen2-moe-a2.7b cut to 2 of its 24 layers (its
+# expert-parallel MoE at capacity 8.0, where nothing drops; in float32:
+# in bfloat16 its router's gradient read 0.0926 apart (PERF.md §6):
+# a sum over every token whose terms cancel, so bf16 rounding of the
+# expert outputs moves it far more than any other weight's)
+TRAIN_MESH_CASES = (
+    ("llama", "llama3.2-1b", "float32", None, 8, 256, 2, 2, ("2x2", "1x4")),
+    ("llama", "llama3.2-1b", "bfloat16", None, 8, 256, 2, 2, ("2x2", "1x4")),
+    ("seamless", "seamless-m4t-medium", "float32", None, 8, 256, 2, 1,
+     ("2x2",)),
+    ("qwen2-moe", "qwen2-moe-a2.7b", "float32", 2, 4, 128, 1, 1, ("1x4",)),
+)
+# (arch, dtype, mesh, B, prompt, capacity, decode steps): seamless serving
+# on 1 x 4, frames drawn from a seed, gates drawn
+TRAIN_MESH_SERVE = ("seamless-m4t-medium", "float32", "1x4", 8, 128, 136, 8)
+# gates (PERF.md §6, written before the first chip run): with each
+# layer fed the one-device run's input and the gradient reaching its
+# output, against the one-device train step on the card from the same
+# weights and batches: loss, aux and grad_norm within TRAIN_MESH_METRIC
+# (relative); each parameter's gradient ||mesh - one device|| / ||one
+# device|| within TRAIN_MESH_GRAD; the parameters after the steps as
+# tests/test_torch_train.py holds them (a share of at most
+# TRAIN_MESH_PARAM_SHARE past TRAIN_MESH_PARAM_TOL, none past 4 lr; in
+# bfloat16 within 6 (lr + one bf16 rounding)); every wire-byte count equal
+# to its closed form; no kernel launched by training.  Serving: logits and
+# caches of each rank's shard, fed layer by layer, at most a share
+# TRAIN_MESH_SERVE_SHARE outside LM_MESH_F32_TOL (1 + |x|), none past
+# TRAIN_MESH_SERVE_MAX
+TRAIN_MESH_METRIC = {"float32": 1e-4, "bfloat16": 1e-2}
+TRAIN_MESH_GRAD = {"float32": 1e-3, "bfloat16": 5e-2}
+TRAIN_MESH_PARAM_TOL = 2e-5
+TRAIN_MESH_PARAM_SHARE = 1e-3
+TRAIN_MESH_SERVE_SHARE = 1e-3
+TRAIN_MESH_SERVE_MAX = 1e-2
+TRAIN_MESH_TIMEOUT = 700.0
+
+
+def train_mesh_batches(cfg, B, S, steps, dev):
+    """Seeded token batches (and frames for the encoder-decoder), made on
+    the CPU and moved to the card."""
+    import torch
+    from repro_torch.launch.serve import seeded_context
+    gen = torch.Generator(device="cpu").manual_seed(TRAIN_MESH_SEED)
+    out = []
+    for i in range(steps):
+        b = {k: torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                              dtype=torch.int32) for k in ("tokens", "labels")}
+        b.update(seeded_context(cfg, B, S, TRAIN_MESH_SEED + i))
+        out.append({k: v.to(dev) for k, v in b.items()})
+    return out
+
+
+def train_mesh_model(cfg, rc, dev):
+    from repro_torch.launch.serve import draw_gates
+    from repro_torch.models import lm
+    return draw_gates(lm.init_lm(cfg, rc, seed=TRAIN_MESH_SEED, device=dev,
+                                 trainable=True), TRAIN_MESH_SEED)
+
+
+def train_mesh_reference(group, arch, dt, layers, B, S, M, steps, shape,
+                         dev, path):
+    """The one-device train steps on the card (rank 0), saved to `path`
+    for every rank (four one-device states would not fit the card): the
+    metrics, the first step's gradients, the parameters after the steps,
+    the layer taps, step ms and peak GiB."""
+    import contextlib
+
+    import torch
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.launch import steps as TS
+    from repro_torch.launch.taps import TrainTaps, mesh_aux
+    cfg = lm_mesh_cfg(arch, layers)
+    rc = RunConfig(param_dtype=dt, activation_dtype=dt, num_microbatches=M)
+    batches = train_mesh_batches(cfg, B, S, steps, dev)
+    model = train_mesh_model(cfg, rc, dev)
+    state = TS.init_train_state(model)
+    step = TS.make_train_step(cfg, rc)
+    torch.cuda.reset_peak_memory_stats()
+    aux = mesh_aux(*shape) if cfg.moe_num_experts else contextlib.nullcontext()
+    mets, ms = [], []
+    with aux, TrainTaps() as taps:
+        for b in batches:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            mets.append({k: float(v) for k, v in step(state, b)[1].items()})
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+    cpu = lambda d: {k: v.detach().cpu() for k, v in d.items()}
+    torch.save({"metrics": mets, "grads": cpu(taps.updates[0]),
+                "params": cpu(dict(model.named_parameters())),
+                "feed": (cpu(taps.inputs), cpu(taps.grads)), "ms": ms,
+                "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30},
+               path)
+    del model, state, taps
+    free_card()
+
+
+def gather_wire_want(cfg, rc, mesh, calls):
+    """The closed form of ZeRO-3's gathers: each weight of a layer stored
+    sharded over "data" all-gathered to its use placements, its result
+    the use placements' local bytes, (n - 1) / n of it on the wire, per
+    layer call."""
+    from repro_torch.models import lm
+    from repro_torch.models.common import DTYPES, tree_items
+    from repro_torch.sharding.axes import (logical_to_spec, resolve_rules,
+                                           use_rules)
+    rules = resolve_rules(cfg, rc.sharding_profile)
+    n = mesh.shape["data"]
+    if n == 1:
+        return 0
+    kinds = lm.layer_kinds(cfg)
+    total = 0
+    for i in range(cfg.num_layers):
+        for _, p in tree_items(lm.block_params(cfg, kinds[i % len(kinds)],
+                                               DTYPES[rc.param_dtype])):
+            store = logical_to_spec(p.axes, p.shape, rules, mesh)
+            use = logical_to_spec(p.axes, p.shape, use_rules(rules), mesh)
+            if "data" not in store or "data" in use:
+                continue
+            b = math.prod(p.shape) * p.dtype.itemsize
+            for spec in use:
+                for a in (spec if isinstance(spec, tuple) else (spec,)):
+                    b //= mesh.shape[a] if a else 1
+            total += b * (n - 1) // n
+    return total * calls
+
+
+def train_mesh_case(group, arch, dt, layers, B, S, M, steps, mesh, mname,
+                    dev, rank, path):
+    """One case on one mesh, on this rank: the mesh's train steps fed the
+    one-device reference's layer taps, compared shard by shard."""
+    import torch
+    from repro_torch import kernels as K_
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.launch import steps as TS
+    from repro_torch.launch.comm_stats import total_collective_bytes
+    from repro_torch.launch.taps import TrainTaps
+    from repro_torch.sharding.axes import local_part, resolve_rules, shard_lm
+    cfg = lm_mesh_cfg(arch, layers)
+    rc = RunConfig(param_dtype=dt, activation_dtype=dt, num_microbatches=M,
+                   zero3_at_use=True)
+    ref = torch.load(path, mmap=True, weights_only=False)
+    batches = train_mesh_batches(cfg, B, S, steps, dev)
+    model = shard_lm(train_mesh_model(cfg, rc, dev),
+                     resolve_rules(cfg, rc.sharding_profile), mesh)
+    free_card()
+    state = TS.init_train_state(model)
+    step = TS.make_train_step(cfg, rc, mesh)
+    torch.distributed.barrier()
+    torch.cuda.reset_peak_memory_stats()
+    K_.reset_launch_counts()
+    mets, ms = [], []
+    with TrainTaps(mesh, feed=ref["feed"]) as taps:
+        for b in batches:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            mets.append({k: float(v) for k, v in step(state, b)[1].items()})
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+    launches = K_.launch_counts()
+    lr = rc.learning_rate
+    res = {"metrics": mets, "ref_metrics": ref["metrics"], "ms": ms,
+           "ref_ms": ref["ms"], "ref_peak_gib": ref["peak_gib"],
+           "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "launches": {k: launches[k] for k in ("flash_attention",
+                                                 "decode_attention",
+                                                 "ssd_scan")},
+           "grads": {}, "params": {}}
+    params = dict(model.named_parameters())
+    dm = mesh.device_mesh
+    for n, p in params.items():
+        reps = math.prod(dm.size(i) for i, q in enumerate(p.placements)
+                         if not q.is_shard())
+        g = taps.updates[0][n].to_local().float()
+        w = local_part(ref["grads"][n], p.placements, mesh).to(dev).float()
+        res["grads"][n] = (((g - w) ** 2).sum().item() / reps,
+                           (w ** 2).sum().item() / reps)
+        got = p.detach().to_local().float()
+        want = local_part(ref["params"][n], p.placements, mesh).to(
+            dev).float()
+        d = (got - want).abs()
+        if dt == "float32":
+            past = int((d > TRAIN_MESH_PARAM_TOL).sum())
+            bound = 4 * lr
+        else:
+            past = int((d > 6 * (lr + 2 ** -8 * want.abs())).sum())
+            bound = float("inf")
+        res["params"][n] = (past, d.numel(), d.max().item(), bound)
+    # wire bytes: the gathers, the cross entropy, the norm, the reductions
+    wire = {k: sum(total_collective_bytes(r) for r in v)
+            for k, v in taps.collectives.items()}
+    calls = 2 * M * steps                      # forward and the recompute
+    dn = mesh.shape["data"]
+    vn = mesh.shape["model"]
+    Bm = B // M
+    b_n = dn if Bm % dn == 0 else 1
+    rows = Bm // b_n * S * 4
+    xent = (3 * 2 * (vn - 1) / vn * rows if vn > 1 else 0) + \
+        (2 * (b_n - 1) / b_n * 4 if b_n > 1 else 0)
+    norm = sum(2 * (k - 1) / k * 4 for k in (dn, vn) if k > 1)
+    res["wire"] = wire
+    res["wire_want"] = {"gather": gather_wire_want(cfg, rc, mesh, calls),
+                        "xent": int(xent) * M * steps,
+                        "norm": int(norm) * steps}
+    res["counts"] = {k: len(v) for k, v in taps.collectives.items()}
+    if rank == 0:
+        log(f"phase 19 train {group} {dt} {mname} rank 0: loss "
+            f"{[m['loss'] for m in mets]} (one device "
+            f"{[m['loss'] for m in ref['metrics']]}), grad_norm "
+            f"{[m['grad_norm'] for m in mets]} (one device "
+            f"{[m['grad_norm'] for m in ref['metrics']]}), step ms "
+            f"{[round(x, 1) for x in ms]}, wire {wire}")
+    del model, state, taps, ref
+    free_card()
+    return res
+
+
+def serve_mesh_case(arch, dt, mname, B, P, cap, steps, mesh, dev, rank,
+                    layers=None):
+    """Seamless serving on the mesh: a prefill of seeded frames and decode
+    steps, each layer (encoder and decoder) fed the one-device run's
+    input, each rank's shard of the logits and caches against the
+    one-device run on the card; the kernels' launches and routes, the
+    merge's wire bytes, and the first cross decode call on the rank's
+    heads."""
+    import torch
+    from repro_torch import kernels as K_
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.launch import steps as TS
+    from repro_torch.launch.comm_stats import total_collective_bytes
+    from repro_torch.launch.serve import draw_gates, seeded_context
+    from repro_torch.launch.taps import Taps, TrainTaps, serve
+    from repro_torch.models import lm
+    from repro_torch.models.common import DTYPES, tree_items
+    from repro_torch.sharding.axes import local_part, resolve_rules, shard_lm
+    cfg = lm_mesh_cfg(arch, layers)
+    rc = RunConfig(sharding_profile="decode", param_dtype=dt,
+                   activation_dtype=dt)
+    dtype = DTYPES[dt]
+    rules = resolve_rules(cfg, "decode")
+
+    def sync():
+        torch.cuda.synchronize()
+
+    gen = torch.Generator(device="cpu").manual_seed(TRAIN_MESH_SEED + P)
+    tokens = torch.randint(0, cfg.vocab_size, (B, P), generator=gen).to(dev)
+    ctx = {k: v.to(dev) for k, v in seeded_context(
+        cfg, B, P, TRAIN_MESH_SEED, dtype).items()}
+
+    def model_on(mesh=None):
+        m = draw_gates(lm.init_lm(cfg, rc, seed=TRAIN_MESH_SEED, device=dev),
+                       TRAIN_MESH_SEED)
+        return shard_lm(m, rules, mesh) if mesh is not None else m
+
+    ref = model_on()
+    c_ref = lm.alloc_caches(cfg, B, cap, dtype, dev)
+    with Taps() as r_seen, TrainTaps() as r_taps:
+        r_toks, _, r_pre, r_dec = serve(
+            ref, c_ref, tokens, TS.make_prefill_step(cfg, rc),
+            TS.make_decode_step(cfg, rc), steps, sync=sync, context=ctx)
+    del ref
+    free_card()
+    model = model_on(mesh)
+    free_card()
+    caches = lm.alloc_caches(cfg, B, cap, dtype, dev, mesh=mesh, rules=rules)
+    torch.distributed.barrier()
+    K_.reset_launch_counts()
+    with Taps(mesh) as seen, TrainTaps(mesh, feed=(r_taps.inputs, {})):
+        m_toks, m_caches, m_pre, m_dec = serve(
+            model, caches, tokens, TS.make_prefill_step(cfg, rc, mesh),
+            TS.make_decode_step(cfg, rc, mesh), steps, r_toks[:-1], sync,
+            context=ctx)
+    launches = K_.launch_counts()
+    routes = K_.route_counts()
+    from repro_torch.kernels.decode_attention.ops import \
+        decode_attention as dop
+    res = {"logits": [lm_mesh_compare(g.to_local(), local_part(
+        w, g.placements, mesh), LM_MESH_F32_TOL)
+        for g, w in zip(seen.logits, r_seen.logits)], "caches": {}}
+    ref_leaves = dict(tree_items(c_ref))
+    for path_, a in tree_items(m_caches["layers"]):
+        res["caches"]["/".join(path_)] = lm_mesh_compare(
+            a.to_local(), local_part(ref_leaves[path_], a.placements, mesh),
+            LM_MESH_F32_TOL) + (str(a.placements),)
+    kinds = lm.layer_kinds(cfg)
+    G = cfg.num_layers // len(kinds)
+    n_attn = G * sum(k.mixer == "attn" for k in kinds)
+    n_cross = G * sum(k.cross for k in kinds)
+    res["launches"] = {"flash": launches["flash_attention"],
+                       "decode": launches["decode_attention"],
+                       "decode_lse": dop.lse_launches, "routes": routes,
+                       "want": {"flash": n_attn,
+                                "decode_lse": n_attn * steps,
+                                "decode": (n_attn + n_cross) * steps}}
+    res["cross_calls"] = [d for d in seen.decode if not d[2]][:1]
+    # the cross decode on the rank's heads of a cache sharded on its KV
+    # heads: H / model query heads against KV / model cache heads
+    n = mesh.shape["model"] if cfg.num_kv_heads % mesh.shape["model"] == 0 \
+        else 1
+    res["cross_ok"] = bool(res["cross_calls"]) and all(
+        q[2] == cfg.num_heads // n and k[2] == cfg.num_kv_heads // n and
+        k[1] == cap for q, k, _ in res["cross_calls"])
+    dm = mesh.device_mesh
+    first = next(a for p_, a in tree_items(m_caches["layers"])
+                 if p_[-2:] == ("self", "k"))
+    seq_dims = [i for i, p in enumerate(first.placements)
+                if getattr(p, "dim", None) == 2 and dm.size(i) > 1]
+    H, hd = cfg.num_heads, cfg.head_dim
+    wire = want = 0
+    for o_shape, records in seen.merge:
+        wire += total_collective_bytes(records)
+        want += sum(2 * (dm.size(i) - 1) / dm.size(i) *
+                    (o_shape[0] * H * 4 + o_shape[0] * H * (hd + 1) * 4)
+                    for i in seq_dims)
+    res.update(wire=wire, wire_want=int(want), merges=len(seen.merge),
+               pre_ms=m_pre, dec_ms=statistics.median(m_dec),
+               ref_pre_ms=r_pre, ref_dec_ms=statistics.median(r_dec),
+               tokens_equal=all(torch.equal(a, b)
+                                for a, b in zip(m_toks, r_toks)))
+    if rank == 0:
+        log(f"phase 19 serve {arch} {dt} {mname} rank 0: logits max_err "
+            f"{max(l[0] for l in res['logits']):.3g}, caches max_err "
+            f"{max(v[0] for v in res['caches'].values()):.3g}, launches "
+            f"{ {k: v for k, v in res['launches'].items() if k != 'routes'} }"
+            f", wire {wire} ({int(want)})")
+    del model, caches, m_caches, c_ref, seen, r_seen, r_taps
+    free_card()
+    return res
+
+
+def train_mesh_rank(rank, world, dev_type, reduced, tmp):
+    """One rank of phase 19: per (group, dtype) rank 0 makes the
+    one-device reference while the others wait, then every mesh case of
+    it; then seamless serving on 1 x 4."""
+    import os
+
+    import torch
+    from repro_torch.launch.local_ranks import stage_through_host
+    from repro_torch.launch.mesh import make_host_mesh
+    dev = torch.device(dev_type, 0) if dev_type == "cuda" else \
+        torch.device("cpu")
+    staged = ()
+    if dev.type == "cuda":
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        staged = stage_through_host()
+    torch.set_num_threads(max(1, (os.cpu_count() or world) // world))
+    meshes = {n: make_host_mesh(model=m, device_type=dev_type)
+              for n, m in LM_MESH_SHAPES.items()}
+    out = {"staged": staged, "train": {}, "serve": {}}
+    for i, (group, arch, dt, layers, B, S, M, steps, on) in enumerate(
+            TRAIN_MESH_CASES):
+        if reduced:
+            layers, S = "reduced", 24
+            B = 4
+        path = os.path.join(tmp, f"ref{i}.pt")
+        shape = (meshes[on[0]].shape["data"], meshes[on[0]].shape["model"])
+        t0 = time.perf_counter()
+        if rank == 0:
+            train_mesh_reference(group, arch, dt, layers, B, S, M, steps,
+                                 shape, dev, path)
+        torch.distributed.barrier()
+        ref_s = time.perf_counter() - t0
+        for mname in on:
+            r = train_mesh_case(group, arch, dt, layers, B, S, M, steps,
+                                meshes[mname], mname, dev, rank, path)
+            r["case_s"] = time.perf_counter() - t0
+            r["ref_s"] = ref_s
+            out["train"][group, dt, mname] = r
+            t0 = time.perf_counter()
+        torch.distributed.barrier()
+        if rank == 0:
+            os.remove(path)
+    arch, dt, mname, B, P, cap, steps = TRAIN_MESH_SERVE
+    if reduced:       # 2 x 2: the reduced model's 2 KV heads divide there
+        mname, B, P, cap = "2x2", 4, 16, 24
+    t0 = time.perf_counter()
+    r = serve_mesh_case(arch, dt, mname, B, P, cap, steps, meshes[mname], dev,
+                        rank, "reduced" if reduced else None)
+    r["case_s"] = time.perf_counter() - t0
+    out["serve"][arch, dt, mname] = r
+    return out
+
+
+def run_train_mesh(dev_type="cuda", reduced=False):
+    """Phase 19: the train step on DTensors and seamless serving on a
+    mesh (ROADMAP.md §1 item 10e part 2c) on 4 gloo ranks sharing the
+    card.  Returns the serve case's launches from rank 0."""
+    import tempfile
+
+    from repro_torch.launch.local_ranks import run_ranks
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        res = run_ranks(train_mesh_rank, TRAIN_MESH_WORLD, dev_type, reduced,
+                        tmp, timeout=TRAIN_MESH_TIMEOUT)
+    log(f"phase 19: {TRAIN_MESH_WORLD} ranks on {dev_type} in "
+        f"{time.perf_counter() - t0:.1f} s; collectives staged through "
+        f"the host: {res[0]['staged'] or 'none'}")
+    failed = []
+    for key in res[0]["train"]:
+        try:
+            check_train_mesh(key, [r["train"][key] for r in res])
+        except AssertionError as exc:
+            failed.append(str(exc))
+    for key in res[0]["serve"]:
+        try:
+            check_serve_mesh(key, [r["serve"][key] for r in res])
+        except AssertionError as exc:
+            failed.append(str(exc))
+    if failed:
+        raise AssertionError("phase 19 failed: " + " | ".join(failed))
+    return {k: v["launches"] for k, v in res[0]["serve"].items()}
+
+
+def check_train_mesh(key, rs):
+    """Print one train case and apply its gates."""
+    group, dt, mname = key
+    tag = f"phase 19 train {group} {dt} {mname}"
+    r0 = rs[0]
+    rel = lambda a, b: abs(a - b) / max(abs(b), 1e-30)
+    metric = max(rel(m[k], w[k]) if (m[k] or w[k]) else 0.0
+                 for r in rs for m, w in zip(r["metrics"], r["ref_metrics"])
+                 for k in ("loss", "aux", "grad_norm"))
+    norms_equal = len({tuple(m["grad_norm"] for m in r["metrics"])
+                       for r in rs}) == 1
+    grads = {}
+    for n in r0["grads"]:
+        d2 = sum(r["grads"][n][0] for r in rs)
+        w2 = sum(r["grads"][n][1] for r in rs)
+        grads[n] = math.sqrt(d2) / max(math.sqrt(w2), 1e-30)
+    worst = sorted(grads.items(), key=lambda kv: -kv[1])[:3]
+    past = sum(r["params"][n][0] for r in rs for n in r0["params"])
+    elems = sum(r["params"][n][1] for r in rs for n in r0["params"])
+    pmax = max(r["params"][n][2] for r in rs for n in r0["params"])
+    leaf_share = max(sum(r["params"][n][0] for r in rs) /
+                     sum(r["params"][n][1] for r in rs)
+                     for n in r0["params"])
+    bound = r0["params"][next(iter(r0["params"]))][3]
+    log(f"{tag}: loss {[m['loss'] for m in r0['metrics']]} (one device "
+        f"{[m['loss'] for m in r0['ref_metrics']]}), aux "
+        f"{[m['aux'] for m in r0['metrics']]} "
+        f"({[m['aux'] for m in r0['ref_metrics']]}), grad_norm "
+        f"{[m['grad_norm'] for m in r0['metrics']]} "
+        f"({[m['grad_norm'] for m in r0['ref_metrics']]}); largest relative "
+        f"metric difference {metric:.3g}; grad_norm equal on every rank "
+        f"{norms_equal}; gradients ||mesh - one device|| / ||one device||: "
+        f"largest {worst[0][1]:.3g} ({', '.join(f'{n} {v:.3g}' for n, v in worst)}), "
+        f"median {statistics.median(grads.values()):.3g}; parameters past "
+        f"the limit {past} of {elems} (largest leaf share {leaf_share:.3g}), "
+        f"max |mesh - one device| {pmax:.3g}; wire B/rank {r0['wire']} "
+        f"(closed form {r0['wire_want']}), collective calls {r0['counts']}; "
+        f"kernel launches {r0['launches']}; step ms "
+        f"{[[round(x, 1) for x in r['ms']] for r in rs]} (one device "
+        f"{[round(x, 1) for x in r0['ref_ms']]}); peak "
+        f"{max(r['peak_gib'] for r in rs):.1f} GiB a rank (one device "
+        f"{r0['ref_peak_gib']:.1f}); case {r0['case_s']:.1f} s (the "
+        f"one-device reference and its file {r0['ref_s']:.1f} s)")
+    bad = []
+    if metric > TRAIN_MESH_METRIC[dt]:
+        bad.append(f"loss, aux or grad_norm {metric:.3g} apart")
+    if not norms_equal:
+        bad.append("the ranks' grad_norms differ")
+    if worst[0][1] > TRAIN_MESH_GRAD[dt]:
+        bad.append(f"gradient {worst[0][0]} {worst[0][1]:.3g} apart")
+    if leaf_share > TRAIN_MESH_PARAM_SHARE or pmax > bound:
+        bad.append(f"parameters: leaf share {leaf_share:.3g}, max {pmax:.3g}")
+    for r in rs:
+        for k in ("gather", "xent", "norm"):
+            if r["wire"][k] != r["wire_want"][k]:
+                bad.append(f"{k} wire {r['wire'][k]} vs {r['wire_want'][k]}")
+        if any(r["launches"].values()):
+            bad.append(f"training launched kernels {r['launches']}")
+    if mname == "2x2" and not r0["wire"]["gather"]:
+        bad.append("no ZeRO-3 gather")
+    if bad:
+        raise AssertionError(f"{tag}: " + "; ".join(sorted(set(bad))))
+
+
+def check_serve_mesh(key, rs):
+    arch, dt, mname = key
+    tag = f"phase 19 serve {arch} {dt} {mname}"
+    r0 = rs[0]
+    lg = [max(r["logits"][i][0] for r in rs)
+          for i in range(len(r0["logits"]))]
+    share = max(max(l[1] for r in rs for l in r["logits"]),
+                max(v[1] for r in rs for v in r["caches"].values()))
+    rel = max(max(l[2] for r in rs for l in r["logits"]),
+              max(v[2] for r in rs for v in r["caches"].values()))
+    xk = {n: v for n, v in r0["caches"].items() if "/cross/k" in n}
+    log(f"{tag}: each layer fed the one-device input: logits max_err by "
+        f"step {[f'{x:.3g}' for x in lg]}, logits and caches share outside "
+        f"{LM_MESH_F32_TOL} {share:.3g}, largest relative {rel:.3g}; cross "
+        f"cache {next(iter(xk.values()))[3] if xk else None}, first cross "
+        f"decode call (q, k) {r0['cross_calls']}; tokens equal "
+        f"{all(r['tokens_equal'] for r in rs)}; launches {r0['launches']}; "
+        f"merge wire {r0['wire']} B/rank (closed form {r0['wire_want']}, "
+        f"{r0['merges']} merges); prefill ms "
+        f"{[round(r['pre_ms'], 1) for r in rs]} (one device "
+        f"{r0['ref_pre_ms']:.1f}), decode ms a step "
+        f"{[round(r['dec_ms'], 1) for r in rs]} (one device "
+        f"{r0['ref_dec_ms']:.2f}); case {r0['case_s']:.1f} s")
+    bad = []
+    if share > TRAIN_MESH_SERVE_SHARE or rel > TRAIN_MESH_SERVE_MAX:
+        bad.append(f"logits or caches: share {share:.3g}, max {rel:.3g}")
+    for i, r in enumerate(rs):
+        L = r["launches"]
+        w = L["want"]
+        if (L["flash"], L["decode"], L["decode_lse"]) != \
+                (w["flash"], w["decode"], w["decode_lse"]):
+            bad.append(f"rank {i} launches {L}")
+        if r["wire"] != r["wire_want"] or not r["merges"]:
+            bad.append(f"rank {i} wire {r['wire']} vs {r['wire_want']}")
+        if not r["cross_ok"]:
+            bad.append(f"rank {i} cross decode call {r['cross_calls']}")
+    if not any("Shard(dim=3)" in v[3] for v in xk.values()):
+        bad.append("the cross cache is not sharded on its KV heads")
+    if bad:
+        raise AssertionError(f"{tag}: " + "; ".join(bad))
+
+
 def repeat_phase10(dev, n) -> int:
     """Phases 8-9 once, then phase 10's float32 smollm check `n` times in
     this process (ROADMAP.md §3 F4): each failure prints its diagnosis;
@@ -4074,6 +4652,10 @@ def main() -> int:
     ap.add_argument("--phase18", action="store_true",
                     help="build the kernels, run phase 18 (the LM forward "
                     "on DTensors over ranks sharing the card) alone and "
+                    "exit")
+    ap.add_argument("--phase19", action="store_true",
+                    help="build the kernels, run phase 19 (the train step "
+                    "on DTensors, seamless serving on a mesh) alone and "
                     "exit")
     ap.add_argument("--probe-gloo", action="store_true",
                     help="report which functional collectives gloo takes "
@@ -4135,6 +4717,11 @@ def main() -> int:
         log(f"phase 18 alone {time.perf_counter() - t_start:.1f} s")
         log(card)
         return 0
+    if args.phase19:
+        run_train_mesh()
+        log(f"phase 19 alone {time.perf_counter() - t_start:.1f} s")
+        log(card)
+        return 0
     if args.phase10:
         return repeat_phase10(dev, args.phase10)
     if args.phase15:
@@ -4190,6 +4777,9 @@ def main() -> int:
     t0 = time.perf_counter()
     lm_mesh = run_lm_mesh()
     log(f"LM mesh phase {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    train_mesh = next(iter(run_train_mesh().values()))
+    log(f"train mesh phase {time.perf_counter() - t0:.1f} s")
     if args.profile:
         b = sim.draws.epoch(10, sim.state, sim.cfg_c)
         run_profile("solo", SM.batch1(sim.state), sim.static_t,
@@ -4251,6 +4841,12 @@ def main() -> int:
                 for a, c in ten_d["serve"].items()}}
         if name == "decode_attention":
             entry["launches_lm_mesh_lse"] = lm_mesh["decode_lse"]
+            entry["launches_train_mesh_lse"] = train_mesh["decode_lse"]
+            for k in ("ms_lse", "plain_ms_lse", "bound_ms_lse"):
+                entry[k] = r[k]
+                entry[k + "_long"] = a["long"][k] if "long" in a else None
+        entry["launches_train_mesh"] = train_mesh[
+            "flash" if name == "flash_attention" else "decode"]
         if "long" in a:
             g = a["long"]
             entry.update(

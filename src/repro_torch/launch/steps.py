@@ -1,14 +1,16 @@
 """Step builders (the port of `repro.launch.steps`): `make_train_step`,
-`make_prefill_step` and `make_decode_step`, plus the spec trees and the
-train-state layout they share with the entry points.
+`make_prefill_step` and `make_decode_step`, plus the spec trees, the
+train-state layout they share with the entry points and
+`default_runcfg`.
 
-The serving steps take an optional mesh (`launch.mesh.Mesh`): on a
-mesh of more than one rank `lm.forward` resolves the sharding rules
-from `runcfg.sharding_profile`, as JAX's steps do, and runs on DTensors
-(the model placed by `sharding.axes.shard_lm`, the caches by
-`lm.alloc_caches(..., mesh=)`); tokens, positions and the greedy next
-tokens are tensors every rank holds whole.  Without a mesh they are the
-one-card steps.  The train step takes no mesh.  The steps take the
+Every step takes an optional mesh (`launch.mesh.Mesh`): on a mesh of
+more than one rank `lm.forward` resolves the sharding rules from
+`runcfg.sharding_profile`, as JAX's steps do, and runs on DTensors (the
+model placed by `sharding.axes.shard_lm`, the caches by
+`lm.alloc_caches(..., mesh=)`, the AdamW moments as their parameters by
+`init_train_state`); tokens, labels, the context, positions and the
+greedy next tokens are tensors every rank holds whole.  Without a mesh
+they are the one-card steps.  The steps take the
 port's `models.lm.LM` where the JAX steps take the parameter tree.  The
 serving steps run without autograd and write the caches in place (the
 JAX decode step donates them).  The train step's state is `{"params":
@@ -98,18 +100,37 @@ def decode_state_specs(cfg: ModelConfig, shape: ShapeConfig,
             "layers": layers}
 
 
-def make_train_step(cfg: ModelConfig, runcfg: RunConfig):
+def _backward_on(mesh):
+    """The context of a backward pass: on a mesh, the plain tensors the
+    forward saved (rope tables, masks, positions) meet DTensors again,
+    as replicated ones (`implicit_replication`, as in `lm.forward`)."""
+    import contextlib
+    if not lm.on_mesh(mesh):
+        return contextlib.nullcontext()
+    from torch.distributed.tensor.experimental import implicit_replication
+    return implicit_replication()
+
+
+def make_train_step(cfg: ModelConfig, runcfg: RunConfig, mesh=None):
     """train_step(state, batch) -> (state, metrics): loss and gradients
     by autograd, then AdamW in place.  With `num_microbatches` M > 1 the
     batch splits into M slices of rows; their float32 gradients
     accumulate in slice order from zero, then divide by M, and the loss
     is the slices' mean, as in the JAX scan.  Metrics: `loss`, `aux`,
-    `grad_norm`, device scalars."""
+    `grad_norm`, device scalars.  On a mesh the state's parameters and
+    moments are DTensors, each rank slices its microbatches from the
+    whole batch it holds, each gradient is brought to its parameter's
+    placements as it is taken (the reductions over "data") and
+    accumulates on the rank's shard, and the metrics are the replicated
+    values."""
     M = runcfg.num_microbatches
 
     def grads_of(model, names, plist, batch):
-        total, (loss, aux) = lm.loss_fn(model, batch, runcfg)
-        gs = torch.autograd.grad(total, plist)
+        total, (loss, aux) = lm.loss_fn(model, batch, runcfg, mesh=mesh)
+        with _backward_on(mesh):
+            gs = torch.autograd.grad(total, plist)
+        gs = [g.redistribute(p.device_mesh, p.placements)
+              if is_dtensor(g) else g for g, p in zip(gs, plist)]
         return dict(zip(names, gs)), loss.detach(), aux.detach()
 
     def train_step(state, batch):
@@ -118,9 +139,7 @@ def make_train_step(cfg: ModelConfig, runcfg: RunConfig):
         names, plist = list(params), list(params.values())
         if M > 1:
             B = batch["tokens"].shape[0]
-            grads = {n: torch.zeros(p.shape, dtype=torch.float32,
-                                    device=p.device)
-                     for n, p in params.items()}
+            grads = {n: adamw.zeros_as(p) for n, p in params.items()}
             lsum = torch.zeros((), dtype=torch.float32,
                                device=batch["tokens"].device)
             for i in range(M):
@@ -229,11 +248,32 @@ def make_decode_step(cfg: ModelConfig, runcfg: RunConfig, mesh=None):
     return decode_step
 
 
-def make_step(cfg, runcfg, kind: str):
+def make_step(cfg, runcfg, kind: str, mesh=None):
     if kind == "train":
-        return make_train_step(cfg, runcfg)
+        return make_train_step(cfg, runcfg, mesh)
     if kind == "prefill":
-        return make_prefill_step(cfg, runcfg)
+        return make_prefill_step(cfg, runcfg, mesh)
     if kind == "decode":
-        return make_decode_step(cfg, runcfg)
+        return make_decode_step(cfg, runcfg, mesh)
     raise ValueError(kind)
+
+
+def default_runcfg(cfg: ModelConfig, shape: ShapeConfig, **overrides):
+    """Shape-appropriate RunConfig (profile, remat) for an arch, as JAX's
+    `default_runcfg`: a train shape takes the train profile with 8
+    microbatches at d_model >= 8192, else 4; a prefill shape the train
+    profile without remat; a decode shape the long profile at batch 1,
+    else the decode profile, without remat.  The config's
+    `run_overrides` come over that, the caller's `overrides` last."""
+    kw: Dict = {}
+    if shape.kind == "train":
+        mb = 8 if cfg.d_model >= 8192 else 4
+        kw.update(sharding_profile="train", num_microbatches=mb)
+    elif shape.kind == "prefill":
+        kw.update(sharding_profile="train", remat=False)
+    else:
+        prof = "long" if shape.global_batch == 1 else "decode"
+        kw.update(sharding_profile=prof, remat=False)
+    kw.update(dict(cfg.run_overrides))
+    kw.update(overrides)
+    return RunConfig(**kw)

@@ -35,7 +35,8 @@ kernel runs on the rank's local shard under a sharding rule of its own:
   (r+1) S_l), whose causal mask the kernel aligns to the bottom right;
 * decode (`decode_attention`): `cn` pins the cache to (batch, kv_seq,
   whole heads, head_dim), JAX's two constraint sites; q gathered to the
-  cache's batch placement; each rank runs the (o, lse) form on its
+  cache's batch placement (and heads, for a head-sharded cross
+  cache); each rank runs the (o, lse) form on its
   `kv_seq` shard with cache_len clamped to the shard (cache_len -
   offset in [0, T_local]), and `merge_partials` combines the shards:
   an all-reduce of the max log-sum-exp, then one of the weighted
@@ -47,6 +48,14 @@ cross-attention of a prefill or a training step, are plain torch ops as
 in JAX, which computes them outside any Pallas kernel: `full_attention`
 (the (B,H,S,T) scores materialized), or `chunked_attention` with
 `causal=False` where S·T > 2**22 (`models/lm._attn_mixer`).
+
+On a mesh the training attention and the non-causal forms run, like
+flash, on the rank's share (`local_attention`: q as placed, K/V
+gathered over the sequence onto q's rows and heads), under autograd;
+a query block of a sequence-sharded profile passes its offset to
+`causal_blocked_attention`.  A cross cache keeps its sequence whole and
+shards its KV heads, so `decode_attention` runs the plain form on the
+rank's heads there.
 """
 from __future__ import annotations
 
@@ -126,9 +135,34 @@ def causal_attention(q, k, v):
 
 
 def _flash_sharded(q, k, v):
+    def flash(ql, kl, vl, offset):
+        # query block offset // S_l sees the keys up to its end
+        kl, vl = kl[:, :offset + ql.shape[1]], vl[:, :offset + ql.shape[1]]
+        return _flash_op(ql.contiguous(), kl.contiguous(), vl.contiguous(),
+                         causal=True)
+    return local_attention(flash, q, k, v)
+
+
+def local_attention(fn, q, k, v):
+    """`fn(q_l, k_l, v_l, offset)` on this rank's share of DTensors q
+    (B,S,H,hd) and k, v (B,T,KV,hd), as a DTensor placed as q: q_l is
+    the rank's shard of q as placed (its batch rows, its heads, or under
+    a sequence-sharding profile its query block, which starts at
+    position `offset`); k_l, v_l are K/V gathered over the sequence, on
+    q's batch rows and, where the heads are sharded, on the rank's heads'
+    KV heads: sharded like the heads where `kv_heads` divides the head
+    shards, else whole, then the one KV head the rank's heads share, or
+    the repeated K/V sliced where its heads span groups unevenly.  So
+    k_l, v_l hold KV_l heads with H_l % KV_l == 0, and query head h of
+    the shard reads KV head h // (H_l // KV_l).  Differentiable: a
+    rank's part of a K/V it holds whole is a partial gradient
+    (`sharding.axes.local_for`).  Plain tensors (one device) are the
+    rank's share whole: `fn(q, k, v, 0)`."""
+    if not is_dtensor(q):
+        return fn(q, k, v, 0)
     from torch.distributed.tensor import Replicate, Shard
 
-    from repro_torch.sharding.axes import from_local, shard_index
+    from repro_torch.sharding.axes import from_local, local_for, shard_index
 
     dm, qp = q.device_mesh, q.placements
     H, KV = q.shape[2], k.shape[2]
@@ -138,8 +172,7 @@ def _flash_sharded(q, k, v):
     kp = [Shard(0) if isinstance(p, Shard) and p.dim == 0 else
           Shard(2) if isinstance(p, Shard) and p.dim == 2 and kv_split else
           Replicate() for p in qp]
-    kl = k.redistribute(dm, kp).to_local()
-    vl = v.redistribute(dm, kp).to_local()
+    kl, vl = local_for(k, kp, qp), local_for(v, kp, qp)
     ql = q.to_local()
     Hl = ql.shape[2]
     if hn > 1 and not kv_split:
@@ -150,12 +183,8 @@ def _flash_sharded(q, k, v):
         else:                         # heads span KV groups unevenly
             kl = repeat_kv(kl, H)[:, :, h0:h0 + Hl]
             vl = repeat_kv(vl, H)[:, :, h0:h0 + Hl]
-    si, sn = shard_index(qp, dm, 1)
-    if sn > 1:                        # query block si sees keys up to its end
-        kl = kl[:, :(si + 1) * ql.shape[1]]
-        vl = vl[:, :(si + 1) * ql.shape[1]]
-    o = _flash_op(ql.contiguous(), kl.contiguous(), vl.contiguous(),
-                  causal=True)
+    si, _ = shard_index(qp, dm, 1)
+    o = fn(ql, kl, vl, si * ql.shape[1])
     return from_local(o.contiguous(), qp, dm, q.shape)
 
 
@@ -180,9 +209,10 @@ def _decode_sharded(q, k, v, cache_len):
                                            shard_dims, shard_index)
 
     dm, kp = k.device_mesh, k.placements
-    # q to the cache's batch placement, whole elsewhere (cn keeps the
-    # cache's heads whole)
-    qp = [p if isinstance(p, Shard) and p.dim == 0 else Replicate()
+    # q to the cache's batch placement and, where the cache shards its
+    # KV heads (a cross cache), to the rank's heads; whole elsewhere (cn
+    # keeps a self cache's heads whole)
+    qp = [p if isinstance(p, Shard) and p.dim in (0, 2) else Replicate()
           for p in kp]
     ql = q.redistribute(dm, qp).to_local()
     kl, vl = k.to_local(), v.to_local()
@@ -306,19 +336,25 @@ def chunked_attention(q, k, v, *, q_pos, k_pos, causal=True,
 
 
 def causal_blocked_attention(q, k, v, *, chunk_q=2048, chunk_k=2048,
-                             acc_dtype=torch.float32):
-    """Causal self-attention over aligned q/k (B,S,H,hd) at positions
-    [0,S), the training path: the key chunks are the JAX scan's (width
-    min(chunk_k, S) from 0), and each query chunk of `chunk_q` runs only
-    the chunks up to its causal horizon."""
+                             acc_dtype=torch.float32, q_offset: int = 0):
+    """Causal self-attention of q (B,S,H,hd) at positions [q_offset,
+    q_offset + S) over k/v (B,T,H,hd) at [0,T), the training path: the
+    key chunks are the JAX scan's (width min(chunk_k, T) from 0), and
+    each query chunk of `chunk_q` runs only the chunks up to its causal
+    horizon.  A query block of a sequence-sharded mesh (`q_offset` > 0)
+    gives its rows' values of the whole sequence's call: a row's result
+    does not depend on the other rows of its chunk, and a chunk wholly
+    in its future is an exact no-op."""
     B, S, H, hd = q.shape
-    ck = min(chunk_k, S)
-    cq = min(chunk_q, S)
-    pos = torch.arange(S, device=q.device)[None].expand(B, S)
-    kp, vp, kpos = _pad_keys(k, v, pos, ck)
+    T = k.shape[1]
+    ck = min(chunk_k, T)
+    cq = min(chunk_q, T)
+    kpos = torch.arange(T, device=q.device)[None].expand(B, T)
+    qpos = kpos[:, q_offset:q_offset + S]
+    kp, vp, kpos = _pad_keys(k, v, kpos, ck)
     outs = []
     for lo in range(0, S, cq):
         hi = min(lo + cq, S)
-        outs.append(_attend(q[:, lo:hi], kp, vp, pos[:, lo:hi], kpos, ck,
-                            -(-hi // ck), True, acc_dtype))
+        outs.append(_attend(q[:, lo:hi], kp, vp, qpos[:, lo:hi], kpos, ck,
+                            -(-(q_offset + hi) // ck), True, acc_dtype))
     return outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)

@@ -163,7 +163,11 @@ def swiglu(x, wg, wu, wd, *, bg=None, bu=None, bd=None):
 
 def cross_entropy(logits, labels, vocab_size: int):
     """Mean next-token cross entropy in float32; logits may carry padded
-    vocab entries, masked to -1e30 before the logsumexp."""
+    vocab entries, masked to -1e30 before the logsumexp.  DTensor logits
+    (a forward on a mesh) take `_cross_entropy_sharded`."""
+    from repro_torch.sharding.axes import is_dtensor
+    if is_dtensor(logits):
+        return _cross_entropy_sharded(logits, labels, vocab_size)
     padded = logits.shape[-1]
     logits = logits.float()
     if padded != vocab_size:
@@ -172,3 +176,47 @@ def cross_entropy(logits, labels, vocab_size: int):
     lse = torch.logsumexp(logits, dim=-1)
     picked = torch.gather(logits, -1, labels[..., None].long())[..., 0]
     return torch.mean(lse - picked)
+
+
+def _cross_entropy_sharded(logits, labels, vocab_size: int):
+    """The vocabulary-parallel cross entropy of DTensor logits (B,S,Vp)
+    placed (batch, seq, vocab), `labels` (B,S) a tensor every rank holds
+    whole: on its rows, each rank takes the max and the sum of
+    exponentials over its vocabulary shard (the padded entries past
+    `vocab_size` masked), all-reduces them over the vocabulary's mesh
+    axes, and takes each label's logit from the rank that holds it (a
+    sum over those axes of the owner's value and zeros); the rows'
+    losses are then summed over the axes that shard the rows.  The
+    logits are never gathered.  Returns the mean, a plain float32 tensor
+    every rank holds."""
+    from torch.distributed.tensor import Replicate
+
+    from repro_torch.sharding.axes import (all_reduce, psum, shard_dims,
+                                           shard_index)
+    dm = logits.device_mesh
+    if any(p.is_partial() for p in logits.placements):
+        logits = logits.redistribute(dm, [
+            Replicate() if p.is_partial() else p for p in logits.placements])
+    pl = logits.placements
+    B, S, Vp = logits.shape
+    lg = logits.to_local().float()
+    Bl, Sl, Vl = lg.shape
+
+    def groups(*dims):
+        return [dm.get_group(i) for d in dims for i in shard_dims(pl, d)
+                if dm.size(i) > 1]
+
+    bi = shard_index(pl, dm, 0)[0]
+    si = shard_index(pl, dm, 1)[0]
+    v0 = shard_index(pl, dm, 2)[0] * Vl
+    if Vp != vocab_size:
+        mask = torch.arange(v0, v0 + Vl, device=lg.device) < vocab_size
+        lg = torch.where(mask, lg, -1e30)
+    vg = groups(2)
+    m = all_reduce(lg.detach().amax(dim=-1), "max", vg)
+    lse = m + torch.log(psum(torch.exp(lg - m[..., None]).sum(dim=-1), vg))
+    idx = labels[bi * Bl:(bi + 1) * Bl, si * Sl:(si + 1) * Sl].long() - v0
+    own = (idx >= 0) & (idx < Vl)
+    picked = torch.gather(lg, -1, idx.clamp(0, Vl - 1)[..., None])[..., 0]
+    picked = psum(torch.where(own, picked, 0.0), vg)
+    return psum((lse - picked).sum(), groups(0, 1)) / (B * S)

@@ -33,12 +33,23 @@ On a mesh (`forward(..., mesh=)`; DESIGN.md §4) the parameters
 and caches are DTensors (`sharding.axes.shard_lm`, `alloc_caches(...,
 mesh=)`), the activations follow DTensor's sharding propagation, and
 `cn` (`sharding.axes.make_constrainer`) redistributes them at JAX's
-constraint sites; the kernels run on each rank's shard
+constraint sites; the kernels, the training attention, the non-causal
+attention and the training SSD scan run on each rank's shard
 (`models/attention.py`, `models/ssd.py`).  Each rank writes the cache
 positions it holds: prefill from the K/V gathered over the sequence,
-decode at cache_len[b] on the rank that owns it.  A mesh serves prefill
-and decode of the decoder-only stacks; training, cross layers and the
-encoder on a mesh raise.
+decode at cache_len[b] on the rank that owns it; a cross cache keeps its
+sequence whole and its KV heads sharded as the weights' heads, so the
+cross decode runs on the rank's heads.  The context enters as a tensor
+every rank holds whole and is placed at JAX's constraint site (frames
+as ("batch", "seq", "embed_tp"), image embeddings as ("batch",
+"img_seq", "embed_tp")).  With `runcfg.zero3_at_use` on a mesh with a
+"data" axis each layer's weights are redistributed from their storage
+placements to those of `sharding.axes.use_rules` where the layer runs
+(`_at_use`: an all-gather over "data"), inside the recomputed region
+under remat, and the backward reduce-scatters their gradients back to
+the storage placements, as JAX's constraint does
+(`repro/models/lm.py:257-262`).  `loss_fn` on a mesh takes the
+vocabulary-parallel cross entropy of the vocab-sharded logits.
 
 Training (`forward(mode="train")`, `loss_fn`) runs the same layers with
 no caches under autograd, attention through
@@ -287,6 +298,12 @@ class LM(nn.Module):
             for g in range(G) for r in range(P))
         self.encoder = (Encoder(tree["encoder"], cfg.encoder_layers)
                         if "encoder" in tree else None)
+        # the layer index a block runs at (the taps of `launch/taps.py`
+        # key a layer call by it)
+        for i, blk in enumerate(self.blocks):
+            blk.index = i
+        for i, blk in enumerate(self.encoder.blocks if self.encoder else ()):
+            blk.index = i
         self.requires_grad_(trainable)
 
 
@@ -412,19 +429,37 @@ def _out_proj(o, wo):
 def _noncausal_attention(q, k, v, cfg, runcfg):
     """The JAX mixer's non-causal branch: the KV heads repeated, then
     `full_attention`, or `chunked_attention` (no (S,T) scores) where S·T
-    passes 2**22."""
-    H = cfg.num_heads
-    kk, vv = attn_mod.repeat_kv(k, H), attn_mod.repeat_kv(v, H)
-    B, S = q.shape[:2]
-    T = kk.shape[1]
-    if S * T <= 2 ** 22:
-        return attn_mod.full_attention(q, kk, vv, causal=False)
-    qp = torch.arange(S, device=q.device)[None].expand(B, S)
-    kp = torch.arange(T, device=q.device)[None].expand(B, T)
-    return attn_mod.chunked_attention(
-        q, kk, vv, q_pos=qp, k_pos=kp, causal=False,
-        chunk_k=runcfg.attn_chunk_k,
-        acc_dtype=DTYPES[runcfg.attn_acc_dtype])
+    passes 2**22 (the whole call's S·T, also for a rank's share on a
+    mesh)."""
+    S, T = q.shape[1], k.shape[1]
+
+    def attend(q, k, v, offset):
+        H = q.shape[2]
+        kk, vv = attn_mod.repeat_kv(k, H), attn_mod.repeat_kv(v, H)
+        if S * T <= 2 ** 22:
+            return attn_mod.full_attention(q, kk, vv, causal=False)
+        B, Sl = q.shape[:2]
+        qp = torch.arange(Sl, device=q.device)[None].expand(B, Sl)
+        kp = torch.arange(T, device=q.device)[None].expand(B, T)
+        return attn_mod.chunked_attention(
+            q, kk, vv, q_pos=qp, k_pos=kp, causal=False,
+            chunk_k=runcfg.attn_chunk_k,
+            acc_dtype=DTYPES[runcfg.attn_acc_dtype])
+
+    return attn_mod.local_attention(attend, q, k, v)
+
+
+def _train_attention(q, k, v, runcfg):
+    """The training attention (`causal_blocked_attention`, the KV heads
+    repeated), on the rank's share of DTensor q/k/v on a mesh."""
+    def attend(q, k, v, offset):
+        H = q.shape[2]
+        return attn_mod.causal_blocked_attention(
+            q, attn_mod.repeat_kv(k, H), attn_mod.repeat_kv(v, H),
+            chunk_q=runcfg.attn_chunk_q, chunk_k=runcfg.attn_chunk_k,
+            acc_dtype=DTYPES[runcfg.attn_acc_dtype], q_offset=offset)
+
+    return attn_mod.local_attention(attend, q, k, v)
 
 
 def _no_cn(x, *axes):
@@ -510,11 +545,7 @@ def _attn_mixer(p, h, cfg, *, mode, cache, positions, cache_len=None,
                 "attention_impl='pallas' cannot train: the flash kernel "
                 "has no backward, as JAX cannot differentiate its Pallas "
                 "kernel either; train with attention_impl='xla'")
-        H = cfg.num_heads
-        o = attn_mod.causal_blocked_attention(
-            q, attn_mod.repeat_kv(k, H), attn_mod.repeat_kv(v, H),
-            chunk_q=runcfg.attn_chunk_q, chunk_k=runcfg.attn_chunk_k,
-            acc_dtype=DTYPES[runcfg.attn_acc_dtype])
+        o = _train_attention(q, k, v, runcfg)
     elif mode == "decode":
         # needs cache_len < T, as the serve loop's capacity P + G ensures
         _write_at(cache["k"], k, cache_len)
@@ -532,13 +563,15 @@ def _attn_mixer(p, h, cfg, *, mode, cache, positions, cache_len=None,
     return out
 
 
-def _cross_mixer(p, gate, h, cfg, *, mode, cache, ctx, runcfg):
+def _cross_mixer(p, gate, h, cfg, *, mode, cache, ctx, runcfg, cn=_no_cn):
     """The gated cross-attention of a cross layer.  Prefill and training
     attend to `ctx` (non-causal, no rope), and prefill fills `cache`
     ({"k", "v", "len"}) with the raw context projections ctx @ wk, ctx @
     wv — no bias, no k_norm, as the JAX prefill does — and the context
     length; decode attends to that cache on the decode kernel, with q
-    from wq (+ bq) and no q_norm, as in JAX."""
+    from wq (+ bq) and no q_norm, as in JAX.  On a mesh each rank writes
+    and reads its shard of the cache: its batch rows and its KV heads,
+    the whole context."""
     if mode == "decode":
         x = rms_norm(h, p["pre_norm"], cfg.norm_eps)
         q = attn_mod._proj(x, p["wq"])
@@ -553,12 +586,13 @@ def _cross_mixer(p, gate, h, cfg, *, mode, cache, ctx, runcfg):
                          f"context: img_embeds or frames")
     o = _attn_mixer(p, h, cfg, mode="train", cache=None, positions=None,
                     runcfg=runcfg, ctx=ctx, causal=False, rope=False,
-                    gate=gate)
+                    gate=gate, cn=cn)
     if mode == "prefill":
         T = ctx.shape[1]
-        cache["k"][:, :T] = attn_mod._proj(ctx, p["wk"])
-        cache["v"][:, :T] = attn_mod._proj(ctx, p["wv"])
-        cache["len"].fill_(T)
+        _write_prefix(cache["k"], attn_mod._proj(ctx, p["wk"]))
+        _write_prefix(cache["v"], attn_mod._proj(ctx, p["wv"]))
+        n = cache["len"]
+        (n.to_local() if is_dtensor(n) else n).fill_(T)
     return o
 
 
@@ -570,7 +604,7 @@ def _ssd_mixer(p, h, cfg, *, mode, cache, cn=_no_cn):
     output."""
     x = rms_norm(h, p["pre_norm"], cfg.norm_eps)
     if mode == "train":
-        return ssd_mod.ssd_chunked(p, x, cfg)
+        return ssd_mod.ssd_chunked(p, x, cfg, cn=cn)
     if mode == "decode":
         return ssd_mod.ssd_decode(p, x, cache, cfg)[0]
     o, state = ssd_mod.ssd_apply(p, x, cfg, cn=cn)
@@ -600,7 +634,7 @@ def apply_block(block: Block, h, cfg, *, mode, cache, positions,
     if kind.cross:
         h = h + _cross_mixer(block.xattn, block.xattn_gate, h, cfg,
                              mode=mode, cache=cache["cross"] if cache
-                             else None, ctx=ctx, runcfg=runcfg)
+                             else None, ctx=ctx, runcfg=runcfg, cn=cn)
         h = cn(h, "batch", "seq", "embed_tp")
     aux = None
     if kind.ffn == "mlp":
@@ -620,16 +654,74 @@ def _add_aux(total, a):
     return a if total is None else (total if a is None else total + a)
 
 
-def _train_period(model: LM, g: int, h, positions, runcfg, ctx):
+class _AtUse(torch.autograd.Function):
+    """A weight redistributed from its storage placements to those at use
+    (ZeRO-3's all-gather over "data"); the backward brings the gradient
+    back to the storage placements (`_reduce_at_use`: a reduce-scatter of
+    a gradient that is a partial sum over "data")."""
+
+    @staticmethod
+    def forward(ctx, p, pl):
+        ctx.src = p.placements
+        return p.redistribute(p.device_mesh, pl)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _reduce_at_use(g, ctx.src), None
+
+
+def _reduce_at_use(g, src):
+    return g.redistribute(g.device_mesh, src)
+
+
+class _BlockAtUse:
+    """A block's view with its weights at their use placements."""
+
+    def __init__(self, block: Block, use):
+        self.kind, self.index = block.kind, block.index
+        for part in Block.PARTS:
+            d = getattr(block, part)
+            setattr(self, part, None if d is None else
+                    {n: _AtUse.apply(t, use[part][n]) for n, t in d.items()})
+        self.xattn_gate = block.xattn_gate
+
+
+def _at_use(block: Block, use):
+    """`block` itself, or with `use` (a block's placements by part and
+    name, from `_use_placements`) its weights redistributed to them."""
+    return block if use is None else _BlockAtUse(block, use)
+
+
+def _use_placements(model: LM, rules, mesh):
+    """Per period position r, the placements of block r's weights under
+    ZeRO-3's rules at use (`sharding.axes.use_rules`)."""
+    from repro_torch.sharding.axes import placements, tree_shardings, \
+        use_rules
+    rules = use_rules(rules)
+    return [tree_map(lambda spec: placements(spec, mesh),
+                     tree_shardings(block_params(model.cfg, kind,
+                                                 model.embed.dtype),
+                                    rules, mesh))
+            for kind in model.kinds]
+
+
+def _apply_at_use(block, h, *, use=None, **kw):
+    return apply_block(_at_use(block, use), h, **kw)
+
+
+def _train_period(model: LM, g: int, h, positions, runcfg, ctx, use=None,
+                  mesh=None, cn=_no_cn):
     """Layers g*P .. g*P + P-1 in training mode, each block recomputed
-    in the backward pass when `runcfg.remat_policy == "block"`.  Returns
-    (h, aux)."""
+    in the backward pass when `runcfg.remat_policy == "block"` (with its
+    weights' gather at use, under ZeRO-3).  Returns (h, aux)."""
     P = len(model.kinds)
     aux = None
     for r in range(P):
-        blk = functools.partial(apply_block, model.blocks[g * P + r],
+        blk = functools.partial(_apply_at_use, model.blocks[g * P + r],
+                                use=None if use is None else use[r],
                                 cfg=model.cfg, mode="train", cache=None,
-                                positions=positions, runcfg=runcfg, ctx=ctx)
+                                positions=positions, runcfg=runcfg, ctx=ctx,
+                                mesh=mesh, cn=cn)
         if runcfg.remat and runcfg.remat_policy == "block":
             h, a = checkpoint(blk, h, use_reentrant=False)
         else:
@@ -657,12 +749,14 @@ def _layer(a, g: int):
 
 
 def run_stack(model: LM, h, *, mode, caches, positions, cache_len=None,
-              runcfg=None, ctx=None, mesh=None, cn=_no_cn):
+              runcfg=None, ctx=None, mesh=None, cn=_no_cn, use=None):
     """All num_layers layers, layer g*P + r in order, each writing its
     slice of `caches` (the JAX tree with leading G) in place; training
     takes no caches and, with `runcfg.remat`, recomputes each period of
-    P layers (the JAX default policy) in the backward pass.  Returns (h,
-    the summed MoE aux loss, None without MoE layers)."""
+    P layers (the JAX default policy) in the backward pass.  `use`, the
+    weights' placements at use by period position (ZeRO-3), gathers each
+    block's weights where it runs.  Returns (h, the summed MoE aux loss,
+    None without MoE layers)."""
     cfg, kinds = model.cfg, model.kinds
     P = len(kinds)
     G = cfg.num_layers // P
@@ -671,18 +765,22 @@ def run_stack(model: LM, h, *, mode, caches, positions, cache_len=None,
         for g in range(G):
             if runcfg.remat and runcfg.remat_policy != "block":
                 h, a = checkpoint(_train_period, model, g, h, positions,
-                                  runcfg, ctx, use_reentrant=False)
+                                  runcfg, ctx, use, mesh, cn,
+                                  use_reentrant=False)
             else:
-                h, a = _train_period(model, g, h, positions, runcfg, ctx)
+                h, a = _train_period(model, g, h, positions, runcfg, ctx,
+                                     use, mesh, cn)
             aux = _add_aux(aux, a)
         return h, aux
     for g in range(G):
         for r in range(P):
-            h, a = apply_block(model.blocks[g * P + r], h, cfg, mode=mode,
-                               cache=tree_map(lambda a: _layer(a, g),
-                                              caches[f"r{r}"]),
-                               positions=positions, cache_len=cache_len,
-                               runcfg=runcfg, ctx=ctx, mesh=mesh, cn=cn)
+            h, a = _apply_at_use(model.blocks[g * P + r], h,
+                                 use=None if use is None else use[r],
+                                 cfg=cfg, mode=mode,
+                                 cache=tree_map(lambda a: _layer(a, g),
+                                                caches[f"r{r}"]),
+                                 positions=positions, cache_len=cache_len,
+                                 runcfg=runcfg, ctx=ctx, mesh=mesh, cn=cn)
             aux = _add_aux(aux, a)
     return h, aux
 
@@ -693,10 +791,31 @@ def run_stack(model: LM, h, *, mode, caches, positions, cache_len=None,
 
 def _embed(model: LM, tokens, cn=_no_cn):
     if is_dtensor(model.embed):
-        h = torch.nn.functional.embedding(tokens.long(), model.embed)
+        h = _embed_sharded(model.embed, tokens)
     else:
         h = model.embed[tokens.long()]
     return cn(h, "batch", "seq", "embed_tp")
+
+
+def _embed_sharded(embed, tokens):
+    """The lookup of `tokens` (every rank holds them whole) in a DTensor
+    table (Vp,D) on this rank's shard: the rows it holds, zeros for the
+    tokens another vocabulary shard holds, so the result (B,S,D) is a
+    partial sum over the mesh dims that shard the vocabulary and sharded
+    as the table's D elsewhere.  (DTensor's own vocab-parallel lookup
+    takes a partial type its backward cannot reduce into.)"""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    from repro_torch.sharding.axes import from_local, shard_index
+    dm, pl = embed.device_mesh, embed.placements
+    w = embed.to_local()
+    Vl = w.shape[0]
+    idx = tokens.long() - shard_index(pl, dm, 0)[0] * Vl
+    own = (idx >= 0) & (idx < Vl)
+    h = w[idx.clamp(0, Vl - 1)] * own[..., None].to(w.dtype)
+    out = [Partial() if isinstance(p, Shard) and p.dim == 0 else
+           Shard(2) if isinstance(p, Shard) else Replicate() for p in pl]
+    return from_local(h, out, dm, tuple(tokens.shape) + (embed.shape[1],))
 
 
 def _unembed(model: LM, h, cn=_no_cn):
@@ -705,26 +824,30 @@ def _unembed(model: LM, h, cn=_no_cn):
     return cn(h @ head, "batch", "seq", "vocab")
 
 
-def _encoder_block(block: Block, h, cfg, positions, runcfg):
-    h = h + _attn_mixer(block.attn, h, cfg, mode="train", cache=None,
-                        positions=positions, runcfg=runcfg, causal=False)
+def _encoder_block(block: Block, h, cfg, positions, runcfg, cn=_no_cn):
+    h = cn(h + _attn_mixer(block.attn, h, cfg, mode="train", cache=None,
+                           positions=positions, runcfg=runcfg, causal=False,
+                           cn=cn), "batch", "seq", "embed_tp")
     p = block.mlp
     x = rms_norm(h, p["pre_norm"], cfg.norm_eps)
-    return h + swiglu(x, p["wg"], p["wu"], p["wd"])
+    return cn(h + swiglu(x, p["wg"], p["wu"], p["wd"]), "batch", "seq",
+              "embed_tp")
 
 
-def encode(model: LM, frames, runcfg, *, remat: bool = False):
+def encode(model: LM, frames, runcfg, *, remat: bool = False, cn=_no_cn):
     """The encoder stack over the frontend's embeddings `frames`
     (B,S,D): non-causal attention + SwiGLU blocks at rope positions
     0..S-1, then the encoder's final norm.  With `remat` each block is
-    recomputed in the backward pass."""
+    recomputed in the backward pass.  On a mesh `frames` is a DTensor and
+    `cn` constrains each block's residual stream, as JAX's encoder
+    does."""
     cfg = model.cfg
     B, S, _ = frames.shape
     pos = torch.arange(S, device=frames.device)[None].expand(B, S)
     h = frames
     for block in model.encoder.blocks:
         f = functools.partial(_encoder_block, block, cfg=cfg, positions=pos,
-                              runcfg=runcfg)
+                              runcfg=runcfg, cn=cn)
         h = checkpoint(f, h, use_reentrant=False) if remat else f(h)
     return rms_norm(h, model.encoder.final_norm, cfg.norm_eps)
 
@@ -745,10 +868,9 @@ def forward(model: LM, tokens, *, mode: str, caches=None, cache_len=None,
     On a mesh of more than one rank (`launch.mesh.Mesh`) the model's
     parameters and the caches are DTensors on it (`shard_lm`,
     `alloc_caches(..., mesh=)`), the rules are
-    `runcfg.sharding_profile`'s, tokens and `cache_len` are tensors
-    every rank holds whole, and the logits come out a DTensor placed
-    (batch, seq, vocab); prefill and decode only, of a decoder-only
-    stack."""
+    `runcfg.sharding_profile`'s, tokens, `cache_len` and the context are
+    tensors every rank holds whole, and the logits come out a DTensor
+    placed (batch, seq, vocab), in every mode."""
     if mode not in ("prefill", "decode", "train"):
         raise ValueError(f"mode={mode!r}")
     runcfg = runcfg or RunConfig()
@@ -757,32 +879,47 @@ def forward(model: LM, tokens, *, mode: str, caches=None, cache_len=None,
             implicit_replication
 
         from repro_torch.sharding.axes import make_constrainer, resolve_rules
-        if mode == "train" or model.encoder is not None or \
-                any(k.cross for k in model.kinds):
-            raise ValueError(f"{model.cfg.name}: a forward on a mesh serves "
-                             f"prefill and decode of a decoder-only stack "
-                             f"(mode {mode!r})")
         rules = resolve_rules(model.cfg, runcfg.sharding_profile)
+        use = None
+        if runcfg.zero3_at_use and "data" in mesh.shape:
+            use = _use_placements(model, rules, mesh)
         with implicit_replication():
             return _forward(model, tokens, mode=mode, caches=caches,
-                            cache_len=cache_len, runcfg=runcfg, mesh=mesh,
-                            cn=make_constrainer(rules, mesh))
+                            cache_len=cache_len, runcfg=runcfg,
+                            img_embeds=img_embeds, frames=frames, mesh=mesh,
+                            cn=make_constrainer(rules, mesh), rules=rules,
+                            use=use)
     return _forward(model, tokens, mode=mode, caches=caches,
                     cache_len=cache_len, runcfg=runcfg,
                     img_embeds=img_embeds, frames=frames)
 
 
+def _context(x, dt, axes, rules, mesh, cn):
+    """The context in the parameters' dtype; on a mesh the DTensor of a
+    tensor every rank holds whole, placed at `axes` (JAX's constraint of
+    the context)."""
+    x = x.to(dt)
+    if mesh is None:
+        return x
+    from repro_torch.sharding.axes import place
+    return place(x, axes, rules, mesh)
+
+
 def _forward(model: LM, tokens, *, mode, caches, cache_len, runcfg,
-             img_embeds=None, frames=None, mesh=None, cn=_no_cn):
+             img_embeds=None, frames=None, mesh=None, cn=_no_cn, rules=None,
+             use=None):
     B, S = tokens.shape
     ctx = None
     if mode != "decode":
         dt = model.embed.dtype
         if model.encoder is not None and frames is not None:
-            ctx = encode(model, frames.to(dt), runcfg,
-                         remat=mode == "train" and runcfg.remat)
+            ctx = encode(model, _context(frames, dt, ("batch", "seq",
+                                                      "embed_tp"),
+                                         rules, mesh, cn), runcfg,
+                         remat=mode == "train" and runcfg.remat, cn=cn)
         elif img_embeds is not None:
-            ctx = img_embeds.to(dt)
+            ctx = _context(img_embeds, dt, ("batch", "img_seq", "embed_tp"),
+                           rules, mesh, cn)
     if mode == "decode":
         positions = cache_len[:, None]
     else:
@@ -790,19 +927,26 @@ def _forward(model: LM, tokens, *, mode, caches, cache_len, runcfg,
     h = _embed(model, tokens, cn)
     h, aux = run_stack(model, h, mode=mode, caches=caches,
                        positions=positions, cache_len=cache_len,
-                       runcfg=runcfg, ctx=ctx, mesh=mesh, cn=cn)
+                       runcfg=runcfg, ctx=ctx, mesh=mesh, cn=cn, use=use)
     if aux is None:
         aux = torch.zeros((), dtype=torch.float32, device=h.device)
     return _unembed(model, h, cn), caches, aux
 
 
-def loss_fn(model: LM, batch, runcfg):
+def loss_fn(model: LM, batch, runcfg, mesh=None):
     """Next-token cross entropy + 0.01 x the MoE aux loss.  batch:
-    tokens, labels[, img_embeds | frames].  Returns (total, (loss,
-    aux))."""
+    tokens, labels[, img_embeds | frames], tensors every rank holds
+    whole on a mesh, where the cross entropy is taken over the
+    vocab-sharded logits without gathering them
+    (`common.cross_entropy`).  Returns (total, (loss, aux)), plain
+    tensors (on a mesh, each rank's copy of the replicated value)."""
     logits, _, aux = forward(model, batch["tokens"], mode="train",
                              runcfg=runcfg,
                              img_embeds=batch.get("img_embeds"),
-                             frames=batch.get("frames"))
+                             frames=batch.get("frames"), mesh=mesh)
     loss = cross_entropy(logits, batch["labels"], model.cfg.vocab_size)
+    if is_dtensor(aux):
+        from torch.distributed.tensor import Replicate
+        aux = aux.redistribute(aux.device_mesh, [Replicate()] *
+                               aux.device_mesh.ndim).to_local()
     return loss + 0.01 * aux, (loss, aux)

@@ -350,5 +350,12 @@ def _moe_apply_ep(p, x, cfg, mesh):
     if any(over_dp):
         aux = aux.redistribute(dm, rep)
     if "shared_wg" in p:
-        y = y + swiglu(x, p["shared_wg"], p["shared_wu"], p["shared_wd"])
+        # the shared experts' output reduced to x's placements, then
+        # sliced to y's, each an explicit redistribution: their backward
+        # returns the gradient to x's layout, where the all-to-all
+        # form's sequence shards would reach the products' (B*S, D)
+        # views, which the card's torch cannot flatten over a sharded dim
+        s = swiglu(x, p["shared_wg"], p["shared_wu"], p["shared_wd"])
+        y = y + s.redistribute(dm, x.placements).redistribute(
+            dm, y.placements)
     return y, aux

@@ -19,7 +19,9 @@ x and dt over the SSD heads (JAX's constraint sites; the third, on the
 within-chunk cumsum, is inside the kernel), the scan runs on each
 rank's local heads with B and C whole, and `_gate_out`'s norm over the
 whole inner dimension, sharded over "model" with the heads, takes its
-mean square through DTensor's reduction over that axis.
+mean square through DTensor's reduction over that axis.  `ssd_chunked`
+does the same in training, its recurrence on the rank's heads under
+autograd (B's and C's gradients partial sums over the head shards).
 
 Parameters keep the JAX names and shapes.  The decode state is the JAX
 cache, {"ssm" (B,H,P,N) float32, "conv_x" (B,W-1,DI), "conv_B",
@@ -179,12 +181,16 @@ def ssd_apply(p, x, cfg, cn=None):
     return out, state
 
 
-def ssd_chunked(p, x, cfg):
+def ssd_chunked(p, x, cfg, cn=None):
     """Training path, differentiable: the JAX `ssd_apply` op for op.
     x:(B,S,D) -> y:(B,S,D) (training keeps no state, so none is
     returned).  The intra-chunk weights and the chunk-state weights round
     to x's dtype before their products, as in JAX; the carries and the
-    inter-chunk term stay float32."""
+    inter-chunk term stay float32.  On a mesh `cn` places x and dt over
+    the SSD heads, as in `ssd_apply`, and the scan runs on each rank's
+    local heads and batch rows with B and C whole (`_chunked_local`)."""
+    if cn is None:
+        cn = lambda t, *a: t
     B, S, _ = x.shape
     H, P, N = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
     Q = min(cfg.ssm_chunk, S)
@@ -197,33 +203,68 @@ def ssd_chunked(p, x, cfg):
     if S_pad != S:
         # pad the tail after the projection with dt = 0: padded steps are
         # exact no-ops in the recurrence
-        pad = (0, 0, 0, S_pad - S)
-        xs, Bm, Cm, dt = (F.pad(t, pad) for t in (xs, Bm, Cm, dt))
+        xs, Bm, Cm, dt = (_pad_time(t, 0, S_pad - S)
+                          for t in (xs, Bm, Cm, dt))
     nc = S_pad // Q
 
     xh = xs.reshape(B, nc, Q, H, P)
     Bc = Bm.reshape(B, nc, Q, N)
     Cc = Cm.reshape(B, nc, Q, N)
     dtc = dt.reshape(B, nc, Q, H)
-    loga = -torch.exp(p["A_log"]) * dtc                        # f32
+    if is_dtensor(xh):
+        y = _chunked_local(xh, Bc, Cc, dtc, p["A_log"], p["D_skip"], cn)
+    else:
+        y = _chunked_scan(xh, Bc, Cc, dtc, p["A_log"], p["D_skip"])
+    y = y.reshape(B, S_pad, H * P)[:, :S]
+    return _gate_out(p, y, z, x.dtype, cfg)
+
+
+def _chunked_local(xh, Bc, Cc, dtc, A_log, D_skip, cn):
+    """`_chunked_scan` on this rank's heads and batch rows of DTensor
+    operands: x and dt placed by `cn` over the SSD heads (JAX's
+    constraint sites), B and C whole over the head axes, A_log and D_skip
+    on the rank's heads; y (B,nc,Q,H,P) comes out placed as x."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    from repro_torch.sharding.axes import from_local, local_for
+    xh = cn(xh, "batch", None, None, "ssm_heads", None)
+    dtc = cn(dtc, "batch", None, None, "ssm_heads")
+    xp = xh.placements
+    bc = [p if isinstance(p, Shard) and p.dim == 0 else Replicate()
+          for p in xp]
+    hp = [Shard(0) if isinstance(p, Shard) and p.dim == 3 else Replicate()
+          for p in xp]
+    y = _chunked_scan(local_for(xh, xp, xp), local_for(Bc, bc, xp),
+                      local_for(Cc, bc, xp), local_for(dtc, xp[:], xp),
+                      local_for(A_log, hp, xp), local_for(D_skip, hp, xp))
+    return from_local(y.contiguous(), xp, xh.device_mesh, xh.shape)
+
+
+def _chunked_scan(xh, Bc, Cc, dtc, A_log, D_skip):
+    """The chunked SSD recurrence of the training path: x (B,nc,Q,H,P),
+    B/C (B,nc,Q,N), dt (B,nc,Q,H) -> y (B,nc,Q,H,P) float32 with the D
+    skip added."""
+    B, nc, Q, H, P = xh.shape
+    N = Bc.shape[-1]
+    loga = -torch.exp(A_log) * dtc                             # f32
     cs = torch.cumsum(loga, dim=2)                             # within-chunk
 
     # intra-chunk term: step j's contribution to output i >= j
     Lij = cs[:, :, :, None, :] - cs[:, :, None, :, :]          # (B,nc,Q,Q,H)
-    tri = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=x.device))
+    tri = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=xh.device))
     Ldec = torch.where(tri[None, None, :, :, None], torch.exp(Lij), 0.0)
     scores = torch.einsum("bcin,bcjn->bcij", Cc, Bc)           # (B,nc,Q,Q)
     w_ij = scores[..., None] * Ldec * dtc[:, :, None, :, :]
-    y_diag = torch.einsum("bcijh,bcjhp->bcihp", w_ij.to(x.dtype), xh)
+    y_diag = torch.einsum("bcijh,bcjhp->bcihp", w_ij.to(xh.dtype), xh)
 
     # chunk summary states: s_c = sum_j exp(cs_Q - cs_j) dt_j B_j (x) x_j
     decay_to_end = torch.exp(cs[:, :, -1:, :] - cs)            # (B,nc,Q,H)
     wB = Bc[..., None, :] * (decay_to_end * dtc)[..., :, None]
-    s_chunk = torch.einsum("bcqhn,bcqhp->bchpn", wB.to(x.dtype), xh)
+    s_chunk = torch.einsum("bcqhn,bcqhp->bchpn", wB.to(xh.dtype), xh)
 
     # inter-chunk recurrence over the running state
     chunk_decay = torch.exp(cs[:, :, -1, :])                   # (B,nc,H)
-    h = torch.zeros((B, H, P, N), dtype=torch.float32, device=x.device)
+    h = torch.zeros((B, H, P, N), dtype=torch.float32, device=xh.device)
     hs = []
     for c in range(nc):
         hs.append(h)
@@ -234,9 +275,7 @@ def ssd_chunked(p, x, cfg):
     y_off = torch.einsum("bcqn,bchpn->bcqhp", Cc.float(), h_prev)
     y_off = y_off * torch.exp(cs)[..., None]
     y = y_diag.float() + y_off
-    y = y + xh.float() * p["D_skip"][:, None]
-    y = y.reshape(B, S_pad, H * P)[:, :S]
-    return _gate_out(p, y, z, x.dtype, cfg)
+    return y + xh.float() * D_skip[:, None]
 
 
 def ssd_init_cache(cfg, batch: int, dtype=torch.bfloat16, device=None):

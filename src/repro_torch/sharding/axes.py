@@ -20,10 +20,15 @@ redistributes a DTensor to them (the port's
 of a spec, each rank keeping its own shard and no rank communicating
 (JAX's `device_put` of a host array); `shard_lm` does so for every
 parameter of an `LM`, to `tree_shardings` of its parameter specs, and
-`shard_index` says which shard of a tensor dim this rank holds.
-`all_reduce` reduces a plain tensor over the process groups of mesh
-axes, one after another (the decode merge, greedy decoding over a
-sharded vocabulary).
+`shard_index` says which shard of a tensor dim this rank holds;
+`place` does so for a tensor every rank holds whole at its logical axes
+(a model's context).  `all_reduce` reduces a plain tensor over the
+process groups of mesh axes, one after another (the decode merge,
+greedy decoding over a sharded vocabulary), and `psum` sums one under
+autograd (the vocabulary-parallel cross entropy).  `local_for` hands a
+DTensor operand to a computation that each rank runs on its own share
+(the attention and SSD forms on the rank's heads), and says which of
+its gradients are partial sums; `use_rules` are ZeRO-3's rules at use.
 """
 from __future__ import annotations
 
@@ -332,6 +337,45 @@ def shard_lm(model, rules, mesh):
             else:
                 setattr(mod, attr, d)
     return model
+
+
+def place(x, logical_axes, rules, mesh):
+    """A tensor every rank holds whole, at its logical axes -> the
+    DTensor of `rules` on `mesh` (`distribute`; JAX's constraint of an
+    input: the model's context)."""
+    return distribute(x, logical_to_spec(logical_axes, x.shape, rules, mesh),
+                      mesh)
+
+
+def use_rules(rules) -> dict:
+    """ZeRO-3's rules at use (JAX `lm.forward` with `zero3_at_use`): the
+    d_model dims of the weights (`embed`) whole, so a layer's weights,
+    stored sharded over "data", are gathered over it where they are
+    used."""
+    return dict(rules, embed=None)
+
+
+def local_for(t, pl, split):
+    """This rank's shard of DTensor `t` redistributed to placements `pl`,
+    for a computation each rank runs on its own share, split over the
+    mesh dims where the placements `split` shard.  A mesh dim where `pl`
+    keeps `t` whole but the computation is split gives each rank a
+    different part of `t`'s gradient: its gradient is declared
+    `Partial()` there, so autograd sums it over that dim."""
+    from torch.distributed.tensor import Partial
+    gp = [Partial() if not p.is_shard() and q.is_shard() else p
+          for p, q in zip(pl, split)]
+    return t.redistribute(t.device_mesh, pl).to_local(grad_placements=gp)
+
+
+def psum(x, groups):
+    """x summed over each process group of `groups` in turn under
+    autograd, the cotangent passed through unchanged (`models.moe`'s
+    psum: every rank's term receives the whole replicated cotangent)."""
+    from repro_torch.models.moe import _psum
+    for g in groups:
+        x = _psum(x, g)
+    return x
 
 
 def all_reduce(x, op: str, groups):

@@ -252,3 +252,131 @@ def test_a_failed_rank_fails_the_run(how):
     else:                         # rank 1 is among those left running
         assert "1] did not finish" in str(err.value)
     assert time.monotonic() - t0 < 50
+
+
+# --------------------------------------------------------------------- #
+# the train step on DTensors (tests/test_torch_train_mesh.py)
+# --------------------------------------------------------------------- #
+def train_mesh_cfg(arch):
+    """The reduced config of the train-step checks (at least 2 layers,
+    a whole period), at MESH_CAPACITY."""
+    cfg = mesh_cfg(arch)
+    return cfg.with_layers(max(2, cfg.layer_period))
+
+
+def train_mesh_runcfg(run):
+    from repro_torch.configs.base import RunConfig
+    return RunConfig(param_dtype="float32", activation_dtype="float32",
+                     **dict(run))
+
+
+def _full(t):
+    return _np(t.full_tensor() if hasattr(t, "full_tensor") else t)
+
+
+def _train_run(case, weights, batches, mesh=None, shape=(1, 4), feed=None,
+               record=False):
+    """One case's train steps from numpy `weights` on `batches`, on the
+    mesh or (None) on one device with the aux of the `shape` mesh
+    (`launch.taps.mesh_aux`), under `launch.taps.TrainTaps` (fed `feed`
+    on the mesh): each step's loss, aux and grad_norm, the first step's
+    gradients and the parameters, m and v after the last step (whole),
+    the collectives by site, and with `record` the layer taps."""
+    import contextlib
+
+    from repro_torch.launch import steps as TS
+    from repro_torch.launch.taps import TrainTaps, mesh_aux
+    from repro_torch.models import lm as tlm
+    arch, run, _ = case
+    cfg, rc = train_mesh_cfg(arch), train_mesh_runcfg(run)
+    model = tlm.from_numpy(weights, cfg, rc, "cpu", trainable=True,
+                           mesh=mesh)
+    state = TS.init_train_state(model)
+    step = TS.make_train_step(cfg, rc, mesh)
+    taps = TrainTaps(mesh, feed)
+    aux = contextlib.nullcontext() if mesh else mesh_aux(*shape)
+    with aux, taps:
+        mets = [step(state, {k: torch.from_numpy(v) for k, v in b.items()})[1]
+                for b in batches]
+    opt = state["opt"]
+    out = {"metrics": [{k: float(v) for k, v in m.items()} for m in mets],
+           "grads": {n: _full(g) for n, g in taps.updates[0].items()},
+           "params": {n: _full(p.detach())
+                      for n, p in model.named_parameters()},
+           "m": {n: _full(t) for n, t in opt["m"].items()},
+           "v": {n: _full(t) for n, t in opt["v"].items()},
+           "collectives": taps.collectives,
+           "passes": taps.passes}
+    if mesh is not None:
+        out["placements"] = {n: str(p.placements)
+                             for n, p in model.named_parameters()}
+    if record:
+        out["feed"] = (taps.inputs, taps.grads)
+    return out
+
+
+def _serve_context(case_serve, weights, context, tokens, fed, mesh=None,
+                   feed=None):
+    """A prefill with its context and decode steps of a cross-layer model
+    (`launch.taps.serve`): each forward's logits, the greedy tokens, the
+    caches (whole, with their placements on a mesh), the kernels' operand
+    shapes.  The one-device run records its layers' inputs ("feed"),
+    the mesh run is fed them (`launch.taps.TrainTaps`: random weights
+    are chaotic here too, the encoder's as the decoder's)."""
+    from repro_torch.launch import steps as TS
+    from repro_torch.launch.taps import Taps, TrainTaps, serve
+    from repro_torch.models import lm as tlm
+    from repro_torch.models.common import tree_items
+    from repro_torch.sharding.axes import resolve_rules
+    arch, profile, B, S, cap = case_serve
+    cfg, rc = train_mesh_cfg(arch), mesh_runcfg(profile)
+    model = tlm.from_numpy(weights, cfg, rc, "cpu", mesh=mesh)
+    layers = tlm.alloc_caches(cfg, B, cap, torch.float32, "cpu", mesh=mesh,
+                              rules=resolve_rules(cfg, profile))
+    ctx = {k: torch.from_numpy(v) for k, v in context.items()}
+    with Taps(mesh) as seen, TrainTaps(mesh, feed) as taps:
+        toks, caches, _, _ = serve(
+            model, layers, torch.from_numpy(tokens),
+            TS.make_prefill_step(cfg, rc, mesh),
+            TS.make_decode_step(cfg, rc, mesh), len(fed),
+            [torch.from_numpy(t) for t in fed], context=ctx)
+    return {"tokens": [_np(t) for t in toks],
+            "logits": [_full(g) for g in seen.logits],
+            "caches": {"/".join(p): (_full(a), str(getattr(a, "placements",
+                                                            "")))
+                       for p, a in tree_items(caches["layers"])},
+            "flash": seen.flash, "decode": seen.decode,
+            "feed": (taps.inputs, {}) if feed is None else None}
+
+
+def train_mesh_ranks(rank, world, meshes, cases, weights, batches, serves):
+    """A rank of `tests/test_torch_train_mesh.py`: each case {key: (arch,
+    run options, chaotic)} on each ("data", "model") host mesh of
+    `meshes` {name: (data, model, keys)} against the one-device run of
+    this rank with that mesh's aux; a chaotic case's mesh run is fed the
+    one-device run's layer taps.  Then each serve case {arch: (serve
+    case, context, tokens, fed)} on each mesh against one device.
+    Rank 0 returns the results (every rank computes them: the gathers
+    are collectives), the others their grad_norms by (mesh, key)."""
+    from repro_torch.launch.mesh import make_host_mesh
+    torch.set_num_threads(1)          # four ranks share the host's cores
+    out = {}
+    for name, (data, model_n, keys) in meshes.items():
+        mesh = make_host_mesh(model=model_n, device_type="cpu")
+        for key in keys:
+            t0 = time.perf_counter()
+            case = cases[key]
+            w, b = weights[case[0]], batches[key]
+            ref = _train_run(case, w, b, shape=(data, model_n),
+                             record=case[2])
+            out[name, key] = (ref, _train_run(
+                case, w, b, mesh, feed=ref.pop("feed", None)))
+            ref["seconds"] = time.perf_counter() - t0
+        for arch, (sc, ctx, tokens, fed) in serves.items():
+            ref = _serve_context(sc, weights[arch], ctx, tokens, fed)
+            out[name, arch, "serve"] = (ref, _serve_context(
+                sc, weights[arch], ctx, tokens, fed, mesh, ref.pop("feed")))
+    if rank == 0:
+        return out
+    return {k: tuple(m["grad_norm"] for m in v[1]["metrics"])
+            for k, v in out.items() if len(k) == 2}

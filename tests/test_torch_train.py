@@ -268,13 +268,22 @@ def _init_params(specs, seed=0):
 
 
 def _setup(arch, dtype, M, **run):
-    jcfg = j_get_config(arch).reduced().with_layers(2)
-    tcfg = get_config(arch).reduced().with_layers(2)
+    """2 layers, or one period where a period is longer (the vision
+    model's 5); the cross layers' gates drawn (zero gates leave the
+    cross and encoder paths dead)."""
+    n = max(2, get_config(arch).layer_period)
+    jcfg = j_get_config(arch).reduced().with_layers(n)
+    tcfg = get_config(arch).reduced().with_layers(n)
     kw = dict(remat=False, param_dtype=dtype, activation_dtype=dtype,
               num_microbatches=M)
     kw.update(run)
     jrun, trun = JRunConfig(**kw), RunConfig(**kw)
     params = _init_params(JS.param_specs(jcfg, jrun))
+    rng = np.random.default_rng(9)
+    for r, blk in params["blocks"].items():
+        if "xattn_gate" in blk:
+            blk["xattn_gate"] = jnp.asarray(rng.standard_normal(
+                blk["xattn_gate"].shape), jnp.float32)
     jstate = {"params": params, "opt": jadamw.init_opt_state(params)}
     return jcfg, jrun, tcfg, trun, jstate
 
@@ -287,51 +296,93 @@ def _port_state(jstate, tcfg, trun):
 
 
 def _batches(cfg, n=2):
+    """Token batches, and for a model with cross layers its context
+    drawn from a seed (zero stubs make the encoder's output and the
+    cross K/V zero)."""
+    from repro_torch.launch.serve import seeded_context
     pipe = tpipe.TokenPipeline(tpipe.DataConfig(
         vocab_size=cfg.vocab_size, seq_len=24, global_batch=4))
-    return [pipe.batch_at(i, device="cpu") for i in range(n)]
+    return [dict(pipe.batch_at(i, device="cpu"),
+                 **seeded_context(cfg, 4, 24, 11 + i))
+            for i in range(n)]
 
 
-def _check_params(jtree, ttree):
+def _check_params(jtree, ttree, spread=None):
+    """At most a share 1e-3 of a leaf past 2e-5, none past 4 x lr.  For
+    an ill-conditioned model, whose port's float64 run is `spread`, the
+    count allowed past 2e-5 adds 4 times that run's count past 2e-5 from
+    the float32 one, and is at least 4 elements (a norm's 128 have no
+    room for a share of 1e-3)."""
     for path, leaf in jax.tree_util.tree_flatten_with_path(jtree)[0]:
-        d = np.abs(_f32(leaf) - _f32(_leaf(ttree, path)))
+        t = _f32(_leaf(ttree, path))
+        d = np.abs(_f32(leaf) - t)
         name = jax.tree_util.keystr(path)
-        assert (d > 2e-5).mean() <= 1e-3, (name, int((d > 2e-5).sum()))
+        allowed = 1e-3 * d.size
+        if spread is not None:
+            allowed = max(4, allowed + 4 * int(
+                (np.abs(t - _f32(_leaf(spread, path))) > 2e-5).sum()))
+        assert (d > 2e-5).sum() <= allowed, (name, int((d > 2e-5).sum()))
         assert d.max() <= 4 * LR, (name, float(d.max()))
 
 
+# the reduced models whose float32 train step rounding moves by more
+# than the tolerances below: the port's own float32 gradients lie up to
+# 1.1e-3 (seamless, gates drawn) and 1.1e-3 (vision, 5 layers) from its
+# float64 run of the same step, where llama3.2-1b's lie 1.8e-5
+ILL_CONDITIONED = ("seamless-m4t-medium", "llama-3.2-vision-90b")
+
+
+def _port_run(jstate, tcfg, tr, batches, M, f64=False):
+    """The port's two steps from JAX's state: (the first step's
+    gradients, the mean over the M row slices, as a JAX-layout tree; the
+    steps' metrics; the state tree after them).  `f64` runs the model,
+    its moments and the context in float64 (AdamW's update stays
+    float32)."""
+    st = _port_state(jstate, tcfg, tr)
+    model = st["params"]
+    if f64:
+        model.double()
+        for k in ("m", "v"):
+            st["opt"][k] = {n: t.double() for n, t in st["opt"][k].items()}
+        batches = [{k: v.double() if v.is_floating_point() else v
+                    for k, v in b.items()} for b in batches]
+    names = [n for n, _ in model.named_parameters()]
+    gsum = [0] * len(names)
+    for i in range(M):
+        mb = {k: v.reshape((M, -1) + tuple(v.shape[1:]))[i]
+              for k, v in batches[0].items()}
+        g = torch.autograd.grad(tlm.loss_fn(model, mb, tr)[0],
+                                list(model.parameters()))
+        gsum = [a + (x.double() if f64 else x.float())
+                for a, x in zip(gsum, g)]
+    grads = tlm.to_tree(model, {n: x / M for n, x in zip(names, gsum)})
+    ts = TS.make_step(tcfg, tr, "train")
+    mets = [ts(st, b)[1] for b in batches]
+    return grads, mets, TS.state_tree(st)
+
+
 @pytest.mark.parametrize("arch", ["llama3.2-1b", "smollm-360m",
-                                  "mamba2-130m"])
+                                  "mamba2-130m", "seamless-m4t-medium",
+                                  "llama-3.2-vision-90b"])
 @pytest.mark.parametrize("M", [1, 2])
 def test_train_step_equals_jax(arch, M):
     """Two float32 steps from the same weights and optimizer state:
     loss, grad_norm, the first step's per-leaf gradients (JAX's read
     back from its first moment) and the updated parameters against JAX's
     jitted step; the port with remat on equals the port with remat off
-    bit for bit."""
+    bit for bit.  The encoder-decoder and the vision model train on
+    their context (frames, image embeddings) with their gates drawn;
+    they are ill-conditioned in float32 (ILL_CONDITIONED), so each of
+    their limits also allows 4 times the distance of the port's float32
+    value from its float64 run of the same steps."""
     jcfg, jrun, tcfg, trun, jstate = _setup(arch, "float32", M)
     batches = _batches(tcfg)
     jb = [{k: jnp.asarray(v.numpy()) for k, v in b.items()}
           for b in batches]
     step, _ = JS.make_train_step(jcfg, jrun, make_host_mesh())
     step = jax.jit(step)
-    runs = {}
-    for remat in (False, True):
-        tr = dataclasses.replace(trun, remat=remat)
-        st = _port_state(jstate, tcfg, tr)
-        model = st["params"]
-        names = [n for n, _ in model.named_parameters()]
-        gsum = [0] * len(names)
-        for i in range(M):
-            mb = {k: v.reshape((M, -1) + tuple(v.shape[1:]))[i]
-                  for k, v in batches[0].items()}
-            g = torch.autograd.grad(tlm.loss_fn(model, mb, tr)[0],
-                                    list(model.parameters()))
-            gsum = [a + x.float() for a, x in zip(gsum, g)]
-        grads = tlm.to_tree(model, {n: x / M for n, x in zip(names, gsum)})
-        ts = TS.make_step(tcfg, tr, "train")
-        mets = [ts(st, b)[1] for b in batches]
-        runs[remat] = (grads, mets, TS.state_tree(st))
+    runs = {remat: _port_run(jstate, tcfg, dataclasses.replace(
+        trun, remat=remat), batches, M) for remat in (False, True)}
     js = jstate
     jmets = []
     for b in jb:
@@ -345,18 +396,27 @@ def test_train_step_equals_jax(arch, M):
             jg = jax.tree.map(lambda a: np.asarray(a) / (0.1 * scale),
                               js["opt"]["m"])
     grads, mets, tree = runs[False]
+    spread = {"loss": [0.0] * 2, "grad_norm": [0.0] * 2}
+    gspread = pspread = None
+    if arch in ILL_CONDITIONED:
+        g64, m64, t64 = _port_run(jstate, tcfg, trun, batches, M, f64=True)
+        pspread = t64["params"]
+        spread = {k: [abs(a[k].item() - b[k].item())
+                      for a, b in zip(mets, m64)] for k in spread}
+        gspread = g64
     for i, (jm, tm) in enumerate(zip(jmets, mets)):
-        np.testing.assert_allclose(tm["loss"].item(), float(jm["loss"]),
-                                   rtol=1e-5, err_msg=f"loss step {i}")
-        np.testing.assert_allclose(tm["grad_norm"].item(),
-                                   float(jm["grad_norm"]), rtol=1e-4,
-                                   err_msg=f"grad_norm step {i}")
+        for k, rt in (("loss", 1e-5), ("grad_norm", 1e-4)):
+            np.testing.assert_allclose(tm[k].item(), float(jm[k]), rtol=rt,
+                                       atol=4 * spread[k][i],
+                                       err_msg=f"{k} step {i}")
         assert tm["aux"].item() == float(jm["aux"]) == 0.0
     for path, leaf in jax.tree_util.tree_flatten_with_path(jg)[0]:
         a, b = _f32(leaf), _f32(_leaf(grads, path))
-        assert np.abs(a - b).max() <= 2e-4 * np.abs(a).max() + 1e-8, \
-            jax.tree_util.keystr(path)
-    _check_params(js["params"], tree["params"])
+        slack = 0.0 if gspread is None else 4 * float(np.abs(
+            b.astype(np.float64) - _leaf(gspread, path).numpy()).max())
+        assert np.abs(a - b).max() <= 2e-4 * np.abs(a).max() + 1e-8 + \
+            slack, jax.tree_util.keystr(path)
+    _check_params(js["params"], tree["params"], pspread)
     assert int(tree["opt"]["step"]) == int(js["opt"]["step"]) == 2
     # remat on: the same numbers bit for bit
     g2, m2, t2 = runs[True]
