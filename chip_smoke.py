@@ -23,6 +23,9 @@
     python3 chip_smoke.py --phase19  # phases 1 and 19 (the train step on
                                      # DTensors, seamless serving on a
                                      # mesh, over 4 ranks)
+    python3 chip_smoke.py --phase20  # phases 1 and 20 (the dry run
+                                     # against a real run on 4 ranks,
+                                     # and production cells)
     python3 chip_smoke.py --probe-gloo  # which functional collectives
                                      # gloo takes on CUDA tensors
 
@@ -293,15 +296,33 @@ Phases, each fatal on failure:
    launches (flash, decode (o, lse), decode plain) and the merge's
    bytes; step ms and peak memory a rank printed (host-staged: not a
    speed of the method);
-20. a `kernels` JSON line (with each kernel's launches in phase 15,
+20. the dry run (ROADMAP.md §1 item 10e part 2b,
+   `launch/dryrun.py`): (a) llama3.2-1b at full width and depth, a
+   prefill (B 4, S 512) and a decode step (capacity DRYRUN_CAP) on the
+   1 x 4 host mesh, for real on 4 gloo ranks sharing the card (staged
+   as in 18) under `launch.step_cost.StepCost`, and traced in this
+   process over a fake group of 4 with fake CUDA tensors: the
+   collective tables (count, result and wire bytes) and the FLOPs
+   equal, each rank's argument bytes as the allocator holds them equal
+   to the dry run's up to its rounding of each tensor (DRYRUN_ROUND),
+   and the arguments plus the step's measured peak
+   (`max_memory_allocated` over the step) within DRYRUN_PEAK_BAND of
+   the dry run's args + out + temp - alias; (b) the production cells
+   of DRYRUN_CELLS in worker processes beside (a), each OK with the
+   kernels' fake calls counted (flash in a prefill, decode in a decode
+   step, `ssd_scan` in mamba2's prefill; none in mamba2's decode step,
+   which reaches no kernel) and no launch counted, one JSON record a
+   line;
+21. a `kernels` JSON line (with each kernel's launches in phase 15,
    `launches_train`, in phase 16(b) by model, `launches_10d`, in phase
    17 by ep, `launches_moe_ep`: none of them is on that path, in phase
    18 by case, `launches_lm_mesh`, and for decode
    `launches_lm_mesh_lse`, in phase 19's serving `launches_train_mesh`
-   and `launches_train_mesh_lse`; for decode also the (o, lse) form's
-   phase-8 times `ms_lse`, `plain_ms_lse`, `bound_ms_lse` and their
-   `_long`), the card line, and the last line `{"ok": true, "device":
-   {...}}`.
+   and `launches_train_mesh_lse`, for flash, decode and `ssd_scan` their
+   fake calls in phase 20(b), `fake_calls_dryrun`; for decode also the
+   (o, lse) form's phase-8 times `ms_lse`, `plain_ms_lse`,
+   `bound_ms_lse` and their `_long`), the card line, and the last line
+   `{"ok": true, "device": {...}}`.
 
 Exits non-zero, printing no result, without a CUDA device or outside a
 checkout of the repository.
@@ -4609,6 +4630,220 @@ def check_serve_mesh(key, rs):
         raise AssertionError(f"{tag}: " + "; ".join(bad))
 
 
+# phase 20: the dry run against a real run (a), and production cells (b)
+DRYRUN_ARCH = "llama3.2-1b"
+DRYRUN_WORLD = 4                 # the 1 x 4 host mesh
+DRYRUN_CAP = 528                 # the caches' capacity: 512 + 16
+DRYRUN_KINDS = (("prefill", 512), ("decode", DRYRUN_CAP))   # (kind, S)
+DRYRUN_B = 4
+# the allocator rounds a request up to 512 bytes, and a block of more
+# than 1 MiB may keep up to 1 MiB it does not split off
+DRYRUN_ROUND = (512, 2 ** 20)
+# the arguments plus the step's measured peak against the dry run's
+# args + out + temp - alias (stated before the first run, PERF.md §6)
+DRYRUN_PEAK_BAND = (0.95, 1.10)
+# (b): the production cells, each with the kernel whose fake calls it
+# must count (None: mamba2's decode step reaches no kernel; the scan
+# runs in a prefill, so mamba2's prefill cell is added).  llama3.2-1b
+# train_4k (41-62 s of host time, the longest cell; training reaches no
+# kernel) is left to `python -m repro_torch.launch.dryrun --all`: with
+# it the whole script took 1,120.7 s of its 1,200 on the H100
+DRYRUN_CELLS = (("llama3.2-1b", "prefill_32k", False, "flash_attention"),
+                ("llama3.2-1b", "decode_32k", False, "decode_attention"),
+                ("llama3.2-1b", "decode_32k", True, "decode_attention"),
+                ("mamba2-130m", "long_500k", False, None),
+                ("mamba2-130m", "prefill_32k", False, "ssd_scan"))
+DRYRUN_TIMEOUT = 600.0
+
+
+def dryrun_shape(kind, S):
+    from repro_torch.configs.base import ShapeConfig
+    return ShapeConfig(f"phase20_{kind}", S, DRYRUN_B, kind)
+
+
+def dryrun_summary(acc):
+    return {k: acc[k] for k in ("collectives", "flops", "argument",
+                                "output", "temp", "alias", "kernel_calls")}
+
+
+def dryrun_rank(rank, world, dev_type):
+    """One rank of phase 20(a): each step's inputs placed (the
+    allocator's bytes before and after), a warm-up step, then the step
+    under `StepCost` with the allocator's peak reset before it."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch import steps as S
+    from repro_torch.launch.local_ranks import stage_through_host
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.step_cost import storage_key, tensors
+    cuda = dev_type == "cuda"
+    dev = torch.device("cuda", 0) if cuda else torch.device("cpu")
+    if cuda:
+        torch.cuda.set_device(0)
+        stage_through_host()
+    mesh = make_host_mesh(model=world, device_type=dev_type)
+    cfg = get_config(DRYRUN_ARCH)
+    stats = (lambda k: torch.cuda.memory_stats()[k]) if cuda else \
+        (lambda k: 0)
+    out = {}
+    for kind, S_len in DRYRUN_KINDS:
+        shape = dryrun_shape(kind, S_len)
+        runcfg = S.default_runcfg(cfg, shape)
+        step = S.make_step(cfg, runcfg, kind, mesh)
+        a0 = stats("allocated_bytes.all.current")
+        r0 = stats("requested_bytes.all.current")
+        args = D.step_inputs(cfg, runcfg, kind, shape, mesh, dev, DRYRUN_CAP)
+        ts = {storage_key(t): t.untyped_storage().nbytes()
+              for t in tensors(args)}
+        a1 = stats("allocated_bytes.all.current")
+        r1 = stats("requested_bytes.all.current")
+        with torch.no_grad():      # defined tokens, positions in range
+            if kind == "prefill":
+                args[1]["tokens"].zero_()
+            else:
+                args[1]["pos"].fill_(512)
+                args[2].zero_()
+        step(*args)                # warm-up: workspaces, split scratch
+        if cuda:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        m0 = stats("allocated_bytes.all.current")
+        t0 = time.perf_counter()
+        acc = D.measure_step(step, args)
+        if cuda:
+            torch.cuda.synchronize()
+        res = dryrun_summary(acc)
+        res.update(arg_alloc=a1 - a0, arg_requested=r1 - r0,
+                   arg_round=sum(DRYRUN_ROUND[n > 2 ** 20]
+                                 for n in ts.values()),
+                   step_peak=stats("allocated_bytes.all.peak") - m0,
+                   step_ms=(time.perf_counter() - t0) * 1e3)
+        out[kind] = res
+        del args, acc
+        if cuda:
+            free_card()
+    return out
+
+
+def dryrun_fake(dev_type="cuda"):
+    """Phase 20(a)'s steps traced over a fake group of 4."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch import steps as S
+    from repro_torch.launch.mesh import make_host_mesh
+    cfg = get_config(DRYRUN_ARCH)
+    out = {}
+    with D.fake_group(DRYRUN_WORLD):
+        mesh = make_host_mesh(model=DRYRUN_WORLD, device_type=dev_type)
+        for kind, S_len in DRYRUN_KINDS:
+            shape = dryrun_shape(kind, S_len)
+            runcfg = S.default_runcfg(cfg, shape)
+            acc, trace_s = D.trace_step(cfg, runcfg, kind, shape, mesh,
+                                        dev_type, DRYRUN_CAP)
+            out[kind] = dict(dryrun_summary(acc), trace_s=trace_s)
+    return out
+
+
+def check_dryrun(kind, fake, rs):
+    """Phase 20(a)'s gates for one step: every rank against the fake
+    run of rank 0 (the 1 x 4 mesh is symmetric)."""
+    tag = f"phase 20(a) {DRYRUN_ARCH} {kind}"
+    hbm = fake["argument"] + fake["output"] + fake["temp"] - fake["alias"]
+    mib = lambda n: f"{n / 2 ** 20:.2f} MiB"
+    for rank, r in enumerate(rs):
+        meas = fake["argument"] + r["step_peak"]
+        log(f"{tag} rank {rank}: args {fake['argument']} B dry / "
+            f"{r['arg_alloc']} B allocated (requested {r['arg_requested']}, "
+            f"rounding allowed {r['arg_round']}); peak {mib(meas)} "
+            f"(args + the step's {mib(r['step_peak'])}) against the dry "
+            f"run's {mib(hbm)} (temp {mib(fake['temp'])}, out "
+            f"{mib(fake['output'])}, alias {mib(fake['alias'])}): "
+            f"{meas / hbm:.4f}; flops {r['flops']:.6e} / dry "
+            f"{fake['flops']:.6e}; kernel calls {r['kernel_calls']}; "
+            f"step {r['step_ms']:.1f} ms (staged: not a speed)")
+        if r["collectives"] != fake["collectives"]:
+            raise AssertionError(f"{tag} rank {rank}: collectives "
+                                 f"{r['collectives']} != dry run "
+                                 f"{fake['collectives']}")
+        if r["flops"] != fake["flops"]:
+            raise AssertionError(f"{tag} rank {rank}: flops {r['flops']} "
+                                 f"!= dry run {fake['flops']}")
+        if r["kernel_calls"] != fake["kernel_calls"]:
+            raise AssertionError(f"{tag} rank {rank}: kernel calls "
+                                 f"{r['kernel_calls']} != dry run "
+                                 f"{fake['kernel_calls']}")
+        extra = r["arg_alloc"] - fake["argument"]
+        if not 0 <= extra <= r["arg_round"]:
+            raise AssertionError(f"{tag} rank {rank}: arguments take "
+                                 f"{r['arg_alloc']} B, the dry run "
+                                 f"{fake['argument']} B (rounding allowed "
+                                 f"{r['arg_round']} B)")
+        lo, hi = DRYRUN_PEAK_BAND
+        if not lo <= meas / hbm <= hi:
+            raise AssertionError(f"{tag} rank {rank}: peak {meas} B is "
+                                 f"{meas / hbm:.4f} of the dry run's "
+                                 f"{hbm} B, outside {DRYRUN_PEAK_BAND}")
+    log(f"{tag}: collectives {fake['collectives']}")
+
+
+def run_dryrun():
+    """Phase 20: (a) the dry run of llama3.2-1b's prefill and decode step
+    on a 1 x 4 mesh against the same steps on 4 gloo ranks sharing the
+    card; (b) the production cells of DRYRUN_CELLS traced with fake CUDA
+    tensors.  Returns the fake kernel calls of (b) by op."""
+    import concurrent.futures as cf
+
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch.local_ranks import run_ranks
+    t0 = time.perf_counter()
+    cells = [c[:3] for c in DRYRUN_CELLS]
+    timed = lambda fn: (fn(), time.perf_counter() - t0)
+    with cf.ThreadPoolExecutor(2) as pool:
+        # (b) in worker processes, and (a)'s dry run in this process,
+        # while (a)'s ranks run
+        cells_b = pool.submit(lambda: list(D.run_cells(cells, "cuda",
+                                                       len(cells))))
+        fake_a = pool.submit(timed, dryrun_fake)
+        rs = run_ranks(dryrun_rank, DRYRUN_WORLD, "cuda",
+                       timeout=DRYRUN_TIMEOUT)
+        t_real = time.perf_counter() - t0
+        fake, t_fake = fake_a.result()
+        log(f"phase 20(a): {DRYRUN_WORLD} ranks on cuda in {t_real:.1f} s, "
+            f"the dry run beside them done {t_fake:.1f} s after the phase "
+            f"began")
+        done_b = {c[:3]: c[3:] for c in cells_b.result()}
+    log(f"phase 20(b): {len(cells)} cells in {len(cells)} worker processes "
+        f"beside (a), done {time.perf_counter() - t0:.1f} s after it began")
+    failed = []
+    for kind, _ in DRYRUN_KINDS:
+        try:
+            check_dryrun(kind, fake[kind], [r[kind] for r in rs])
+        except AssertionError as exc:
+            failed.append(str(exc))
+    calls = {}
+    for arch, shape, mp, kernel in DRYRUN_CELLS:
+        rec, tb = done_b[arch, shape, mp]
+        if tb is not None:                 # a FAIL is a result: print it
+            log(tb)
+            failed.append(f"phase 20(b) {arch} {shape} mp={mp}: "
+                          f"{rec['error']}")
+            continue
+        log(f"phase 20(b) {rec['trace_s']} s " + json.dumps(rec, default=str))
+        want = {kernel} if kernel else set()
+        if rec["status"] != "OK" or set(rec["kernel_calls"]) != want or \
+                rec["launched"]:
+            failed.append(f"phase 20(b) {arch} {shape} mp={mp}: "
+                          f"{rec['status']}, fake calls "
+                          f"{rec.get('kernel_calls')} (want {kernel}), "
+                          f"{rec['launched']} launched")
+        for op, n in rec.get("kernel_calls", {}).items():
+            calls[op] = calls.get(op, 0) + n
+    if failed:
+        raise AssertionError("phase 20 failed: " + " | ".join(failed))
+    return calls
+
+
 def repeat_phase10(dev, n) -> int:
     """Phases 8-9 once, then phase 10's float32 smollm check `n` times in
     this process (ROADMAP.md §3 F4): each failure prints its diagnosis;
@@ -4657,6 +4892,10 @@ def main() -> int:
                     help="build the kernels, run phase 19 (the train step "
                     "on DTensors, seamless serving on a mesh) alone and "
                     "exit")
+    ap.add_argument("--phase20", action="store_true",
+                    help="build the kernels, run phase 20 (the dry run "
+                    "against a real run on ranks sharing the card, and "
+                    "production cells) alone and exit")
     ap.add_argument("--probe-gloo", action="store_true",
                     help="report which functional collectives gloo takes "
                     "on CUDA tensors of 4 ranks sharing the card, raw "
@@ -4722,6 +4961,11 @@ def main() -> int:
         log(f"phase 19 alone {time.perf_counter() - t_start:.1f} s")
         log(card)
         return 0
+    if args.phase20:
+        run_dryrun()
+        log(f"phase 20 alone {time.perf_counter() - t_start:.1f} s")
+        log(card)
+        return 0
     if args.phase10:
         return repeat_phase10(dev, args.phase10)
     if args.phase15:
@@ -4780,6 +5024,9 @@ def main() -> int:
     t0 = time.perf_counter()
     train_mesh = next(iter(run_train_mesh().values()))
     log(f"train mesh phase {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    dry_calls = run_dryrun()
+    log(f"dry run phase {time.perf_counter() - t0:.1f} s")
     if args.profile:
         b = sim.draws.epoch(10, sim.state, sim.cfg_c)
         run_profile("solo", SM.batch1(sim.state), sim.static_t,
@@ -4847,6 +5094,7 @@ def main() -> int:
                 entry[k + "_long"] = a["long"][k] if "long" in a else None
         entry["launches_train_mesh"] = train_mesh[
             "flash" if name == "flash_attention" else "decode"]
+        entry["fake_calls_dryrun"] = dry_calls.get(name, 0)
         if "long" in a:
             g = a["long"]
             entry.update(
@@ -4871,6 +5119,7 @@ def main() -> int:
         "launches_moe_ep": {ep: c["ssd_scan"] for ep, c in moe_ep.items()},
         "launches_lm_mesh": lm_mesh["ssd_scan"],
         "launches_10d_jamba_check": ten_d["jamba"]["ssd_scan"],
+        "fake_calls_dryrun": dry_calls.get("ssd_scan", 0),
         "ms_long": g["ms"],
         "plain_ms_long": g["plain_ms"], "library_ms_long": None,
         "bound_ms_long": att_bound_ms(g["bytes"], g["flops"], g["dtype"])})

@@ -12,6 +12,16 @@ tensor-core and a scalar route (the two attention ops and the SSD scan)
 also count per route in `<op>.route_launches`, which `route_counts`
 reads.  Every launcher launches inside `device_stream(t)`, on the device
 of its own operand and that device's current stream.
+
+The model kernels (flash, decode, ssd_scan) also take fake operands
+(`torch._subclasses.fake_tensor.is_fake`: a dry run under
+`FakeTensorMode`, `launch/dryrun.py`): the op checks them as it checks
+the card's, bar the alignment that needs an address, and returns empty
+outputs of the kernel's shapes, launching and counting nothing.  On the
+card, real or fake, each of them reports its work (`flops(...)` of its
+package, and the bytes of its operands and results) to the cost sinks
+in `COST_SINKS` when there are any: the dry run's accounting, which
+cannot see inside a ctypes launch.
 """
 from __future__ import annotations
 
@@ -19,6 +29,7 @@ import contextlib
 from typing import Dict, Iterator, Sequence
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 
 OPS = ("log_match_append", "commit_majority", "apply_last_wins",
        "leader_fanout", "ae_sync", "group_reduce", "flash_attention",
@@ -102,3 +113,26 @@ def check(op: str, name: str, t: torch.Tensor, dtype: torch.dtype,
                          f"expected {tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{op}: {name} must be contiguous")
+
+
+def is_fake(t: torch.Tensor) -> bool:
+    """A fake operand (a dry run's, under `FakeTensorMode`): what
+    `torch._subclasses.fake_tensor.is_fake` says of the plain tensors the
+    kernels take, as one type check on the launch path (`is_fake` also
+    unwraps tensor subclasses, which costs several times more)."""
+    return isinstance(t, FakeTensor)
+
+
+#: Receivers of the model kernels' work on the card: objects with
+#: `add_cost(op, flops, nbytes)` (`launch.dryrun.StepCost`), pushed and
+#: popped by their owner.  Empty outside an accounted run.
+COST_SINKS: list = []
+
+
+def note_cost(op: str, flops: int, tensors) -> None:
+    """Report a kernel call's `flops` and the bytes of `tensors` (its
+    operands and results, each read or written once) to every sink."""
+    nbytes = sum(t.numel() * t.element_size() for t in tensors
+                 if t is not None)
+    for sink in COST_SINKS:
+        sink.add_cost(op, flops, nbytes)

@@ -13,13 +13,17 @@ Q)`: P and N in {16, 64, 128}, Q <= 256; x, Bm, Cm 16-byte aligned on
 the tensor-core route), else the op raises.  Every call that launches
 adds one to `ssd_scan.launches` (however many CUDA kernels its route
 issues) and one to `ssd_scan.route_launches[route]` (`kernel.route`:
-bf16 with P, N in {64, 128} on the tensor cores, the rest scalar).
+bf16 with P, N in {64, 128} on the tensor cores, the rest scalar).  A
+fake CUDA operand (a dry run) is checked the same way, bar the
+alignment, and gets empty outputs, launching nothing; on the card, real
+or fake, the call reports `flops` to `kernels.COST_SINKS`.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import check, on_cpu
+from repro_torch import kernels as tk
+from repro_torch.kernels import check, is_fake, on_cpu
 from repro_torch.kernels.ssd_scan import kernel as K
 from repro_torch.kernels.ssd_scan import ref
 
@@ -51,12 +55,18 @@ def ssd_scan(x, Bm, Cm, dt, A, *, out_dtype=None):
     check("ssd_scan", "Cm", Cm, x.dtype, (B, nc, Q, N), dev)
     check("ssd_scan", "dt", dt, torch.float32, (B, nc, Q, H), dev)
     check("ssd_scan", "A", A, torch.float32, (H,), dev)
-    if K.route(x.dtype, P, N) == "tensor_core":
+    fake = is_fake(x)
+    if not fake and K.route(x.dtype, P, N) == "tensor_core":
         for name, t in (("x", x), ("Bm", Bm), ("Cm", Cm)):
             if t.data_ptr() % 16:
                 raise ValueError(f"ssd_scan: {name} must be 16-byte aligned")
     y = torch.empty(x.shape, dtype=out_dtype or x.dtype, device=dev)
     state = torch.empty((B, H, P, N), dtype=torch.float32, device=dev)
+    if tk.COST_SINKS:
+        tk.note_cost("ssd_scan", flops(x.shape, N),
+                     (x, Bm, Cm, dt, A, y, state))
+    if fake:
+        return y, state
     if x.numel() == 0:
         return y, state.zero_()
     r = K.ssd_scan(x, Bm, Cm, dt, A, y, state)
@@ -67,3 +77,12 @@ def ssd_scan(x, Bm, Cm, dt, A, *, out_dtype=None):
 
 ssd_scan.launches = 0
 ssd_scan.route_launches = dict.fromkeys(K.ROUTES, 0)
+
+
+def flops(x_shape, N: int) -> int:
+    """The chunked scan's floating-point work, 2 per multiply-add of its
+    products: per chunk C·Bᵀ (Q·Q·N), the intra-chunk output (Q·Q·H·P),
+    the inter-chunk output C·h (Q·H·P·N) and the state update xᵀ·B
+    (Q·H·P·N)."""
+    B, nc, Q, H, P = x_shape
+    return 2 * B * nc * Q * (Q * N + Q * H * P + 2 * H * P * N)

@@ -67,7 +67,7 @@ from repro_torch.kernels.decode_attention.ops import \
 from repro_torch.kernels.flash_attention.ops import \
     flash_attention as _flash_op
 from repro_torch.models.common import ParamSpec, apply_rope, rms_norm, upcast
-from repro_torch.sharding.axes import is_dtensor
+from repro_torch.sharding.axes import even_grad, is_dtensor, split_dim
 
 NEG_INF = -1e30
 PAD_POS = 2 ** 30          # position of a padded key slot: never attended
@@ -95,7 +95,8 @@ def attention_params(cfg, *, cross: bool = False, dtype=torch.bfloat16):
 def _proj(x, w):
     """einsum("bsd,dhk->bshk", x, w) as one matrix product."""
     D, Hn, hd = w.shape
-    return (x @ w.reshape(D, Hn * hd)).unflatten(-1, (Hn, hd))
+    return split_dim(x @ even_grad(w.reshape(D, Hn * hd), 1, Hn), -1,
+                     (Hn, hd))
 
 
 def _project_qkv(p, x, ctx, cfg, positions, ctx_positions, *, rope: bool):

@@ -75,6 +75,15 @@ def init_tree(gen: torch.Generator, tree) -> Dict:
     return out
 
 
+def empty_tree(tree, device) -> Dict:
+    """An uninitialised tensor of each ParamSpec's shape and dtype on
+    `device` (the port of JAX's `abstract_tree`): under `FakeTensorMode`
+    (a dry run, `launch/dryrun.py`) they hold no memory and cost
+    nothing."""
+    return tree_map(lambda p: torch.empty(p.shape, dtype=p.dtype,
+                                          device=device), tree)
+
+
 def zeros_tree(tree, device) -> Dict:
     """A zero tensor for every ParamSpec of a nested dict."""
     return tree_map(lambda p: torch.zeros(p.shape, dtype=p.dtype,

@@ -78,10 +78,10 @@ from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssd as ssd_mod
 from repro_torch.models.common import (DTYPES, ParamSpec, assign,
-                                       cross_entropy, init_tree, rms_norm,
-                                       swiglu, tree_items, tree_map,
-                                       zeros_tree)
-from repro_torch.sharding.axes import is_dtensor
+                                       cross_entropy, empty_tree, init_tree,
+                                       rms_norm, swiglu, tree_items,
+                                       tree_map, zeros_tree)
+from repro_torch.sharding.axes import even_grad, is_dtensor
 
 
 class LayerKind(NamedTuple):
@@ -317,6 +317,22 @@ def init_lm(cfg, runcfg, *, seed: int = 0, device=None,
     return LM(cfg, init_tree(gen, specs), trainable)
 
 
+def empty_lm(cfg, runcfg, device=None, *, trainable: bool = False,
+             mesh=None) -> LM:
+    """The model with uninitialised weights (`common.empty_tree`), for
+    what needs its shapes only: a dry run builds it under
+    `FakeTensorMode`, where it holds no memory.  On a mesh every
+    parameter is then placed as `from_numpy` places it.  `device` None
+    means the card."""
+    device = resolve_device(device)
+    specs = build_param_specs(cfg, DTYPES[runcfg.param_dtype])
+    model = LM(cfg, empty_tree(specs, device), trainable)
+    if on_mesh(mesh):
+        from repro_torch.sharding.axes import resolve_rules, shard_lm
+        shard_lm(model, resolve_rules(cfg, runcfg.sharding_profile), mesh)
+    return model
+
+
 def from_numpy(params_np, cfg, runcfg, device=None,
                trainable: bool = False, *, mesh=None) -> LM:
     """The JAX parameter tree (`repro.models.common.init_tree` of
@@ -421,9 +437,12 @@ def from_tree(model: LM, tree) -> Dict[str, Any]:
 # ---------------------------------------------------------------------------
 
 def _out_proj(o, wo):
-    """einsum("bshk,hkd->bsd", o, wo) as one matrix product."""
-    B, S = o.shape[:2]
-    return o.reshape(B, S, -1) @ wo.reshape(-1, wo.shape[-1])
+    """einsum("bshk,hkd->bsd", o, wo) as one matrix product (on a mesh,
+    each merged heads x head_dim gradient gathered where its shards do
+    not divide the heads, so that its merge's backward can split it)."""
+    B, S, H = o.shape[:3]
+    return even_grad(o.reshape(B, S, -1), 2, H) @ \
+        even_grad(wo.reshape(-1, wo.shape[-1]), 0, H)
 
 
 def _noncausal_attention(q, k, v, cfg, runcfg):

@@ -35,7 +35,8 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.ssd_scan.ops import ssd_scan
 from repro_torch.models.common import ParamSpec, assign, rms_norm
-from repro_torch.sharding.axes import is_dtensor
+from repro_torch.sharding.axes import (even_dim, even_grad, is_dtensor,
+                                       split_dim)
 
 
 def ssd_params(cfg, dtype=torch.bfloat16):
@@ -166,8 +167,8 @@ def ssd_apply(p, x, cfg, cn=None):
                           for t in (xs, Bm, Cm, dt))
     nc = S_pad // Q
 
-    xh = cn(xs.reshape(B, nc, Q, H, P), "batch", None, None, "ssm_heads",
-            None)
+    xh = cn(split_dim(xs, 2, (H, P)).reshape(B, nc, Q, H, P), "batch",
+            None, None, "ssm_heads", None)
     dtc = cn(dt.reshape(B, nc, Q, H), "batch", None, None, "ssm_heads")
     A = -torch.exp(p["A_log"])
     y, h_last = _scan(xh, Bm.reshape(B, nc, Q, N), Cm.reshape(B, nc, Q, N),
@@ -207,7 +208,7 @@ def ssd_chunked(p, x, cfg, cn=None):
                           for t in (xs, Bm, Cm, dt))
     nc = S_pad // Q
 
-    xh = xs.reshape(B, nc, Q, H, P)
+    xh = split_dim(xs, 2, (H, P)).reshape(B, nc, Q, H, P)
     Bc = Bm.reshape(B, nc, Q, N)
     Cc = Cm.reshape(B, nc, Q, N)
     dtc = dt.reshape(B, nc, Q, H)
@@ -215,7 +216,7 @@ def ssd_chunked(p, x, cfg, cn=None):
         y = _chunked_local(xh, Bc, Cc, dtc, p["A_log"], p["D_skip"], cn)
     else:
         y = _chunked_scan(xh, Bc, Cc, dtc, p["A_log"], p["D_skip"])
-    y = y.reshape(B, S_pad, H * P)[:, :S]
+    y = even_grad(y.reshape(B, S_pad, H * P), 2, H)[:, :S]
     return _gate_out(p, y, z, x.dtype, cfg)
 
 
@@ -299,8 +300,8 @@ def ssd_decode(p, x, cache, cfg):
     xs = F.silu(xs.float())[:, 0]                          # (B,DI)
     Bm = F.silu(Bm.float())[:, 0]                          # (B,N)
     Cm = F.silu(Cm.float())[:, 0]
-    dt = dt[:, 0]                                          # (B,H)
-    xh = xs.reshape(B, H, P)
+    dt = even_dim(dt[:, 0], 1, H)                          # (B,H)
+    xh = split_dim(xs, 1, (H, P))
     a = torch.exp(-torch.exp(p["A_log"]) * dt)             # (B,H)
     upd = (dt[..., None] * xh)[..., None] * Bm[:, None, None, :]
     h = cache["ssm"] * a[:, :, None, None] + upd           # (B,H,P,N)

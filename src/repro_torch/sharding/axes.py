@@ -22,7 +22,10 @@ of a spec, each rank keeping its own shard and no rank communicating
 parameter of an `LM`, to `tree_shardings` of its parameter specs, and
 `shard_index` says which shard of a tensor dim this rank holds;
 `place` does so for a tensor every rank holds whole at its logical axes
-(a model's context).  `all_reduce` reduces a plain tensor over the
+(a model's context).  `split_dim` splits a merged dim (heads x
+head_dim) of a DTensor whose shards do not divide its leading part
+(`even_dim` gathers such a dim first), and `even_grad` does so for the
+gradient of such a merge.  `all_reduce` reduces a plain tensor over the
 process groups of mesh axes, one after another (the decode merge,
 greedy decoding over a sharded vocabulary), and `psum` sums one under
 autograd (the vocabulary-parallel cross entropy).  `local_for` hands a
@@ -263,6 +266,57 @@ def shard_index(pl, mesh, dim: int) -> Tuple[int, int]:
     return idx, n
 
 
+def even_dim(x, dim: int, size: int):
+    """DTensor `x` with its `dim` gathered over the mesh dims that shard
+    it where their extent does not divide `size` (DTensor can then split
+    or merge it); `x` itself otherwise, and for a plain tensor."""
+    if not is_dtensor(x):
+        return x
+    from torch.distributed.tensor import Replicate
+    dim = dim % x.dim()
+    dm, pl = x.device_mesh, x.placements
+    n = 1
+    for i in shard_dims(pl, dim):
+        n *= dm.size(i)
+    if size % n == 0:
+        return x
+    return x.redistribute(dm, [Replicate() if p.is_shard(dim) else p
+                               for p in pl])
+
+
+def split_dim(x, dim: int, sizes):
+    """`x.unflatten(dim, sizes)` (a merged dim such as heads x head_dim
+    split back).  DTensor splits a sharded dim only where the shards
+    divide its leading part; a DTensor whose `dim` is sharded over mesh
+    dims whose extent does not divide sizes[0] (llama3.2-1b's 8 KV heads
+    on a 16-way "model" axis) has it gathered over them first
+    (`even_dim`), so its parts come out whole, as JAX's pruned rule
+    keeps them."""
+    return even_dim(x, dim, sizes[0]).unflatten(dim, sizes)
+
+
+def even_grad(x, dim: int, size: int):
+    """`x` unchanged, its gradient passed through `even_dim(g, dim,
+    size)` in the backward pass: for a merged dim (heads x head_dim)
+    that the backward of its merge splits again, where DTensor may have
+    sharded the gradient in a way it cannot split (it would then
+    fail)."""
+    if not is_dtensor(x) or not x.requires_grad:
+        return x
+    import torch
+
+    class _EvenGrad(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, t):
+            return t.view_as(t)
+
+        @staticmethod
+        def backward(ctx, g):
+            return even_dim(g, dim, size)
+
+    return _EvenGrad.apply(x)
+
+
 def device_mesh(mesh):
     """The `DeviceMesh` of a `launch.mesh.Mesh`, or `mesh` itself."""
     return getattr(mesh, "device_mesh", mesh)
@@ -302,10 +356,14 @@ def from_local(local, pl, mesh, shape):
 
 def distribute(t, spec: Spec, mesh):
     """A whole tensor held by every rank -> the DTensor of `spec` on
-    `mesh`, each rank keeping a contiguous copy of its own shard."""
+    `mesh`, each rank keeping a contiguous copy of its own shard (a
+    copy: a slice of leading rows is contiguous already, and as a view
+    it would keep the whole tensor's storage alive)."""
+    import torch
     pl = placements(spec, mesh)
-    return from_local(local_part(t, pl, mesh).contiguous(), pl, mesh,
-                      t.shape)
+    local = local_part(t, pl, mesh).clone(
+        memory_format=torch.contiguous_format)
+    return from_local(local, pl, mesh, t.shape)
 
 
 def shard_lm(model, rules, mesh):
