@@ -26,10 +26,21 @@
     python3 chip_smoke.py --phase20  # phases 1 and 20 (the dry run
                                      # against a real run on 4 ranks,
                                      # and production cells)
+    python3 chip_smoke.py --phase21  # phases 1 and 21 (the frozen
+                                     # reference forms against the
+                                     # kernel pipeline)
     python3 chip_smoke.py --probe-gloo  # which functional collectives
                                      # gloo takes on CUDA tensors
+    python3 chip_smoke.py --depth-witness  # phase 1, then phase 18's
+                                     # llama case on the card against
+                                     # the host at 4, 8 and 16 layers,
+                                     # and its long bf16 2 x 2 case at 4
+                                     # with d_model sharded and whole
 
-Phases, each fatal on failure:
+Phases, each fatal on failure, each ending in a line `phase N <seconds>
+s` (the budget is 800 s of the 1,200 s limit: a phase that is added
+brings its own seconds, cutting an earlier path's depth, never its
+width, dtype, mesh, case or gate; PERF.md §4 has where it stands):
 
 1. print the card's name and power limit, build the CUDA kernels from
    the seven sources of `src/repro_torch/kernels/csrc/` (one nvcc per
@@ -210,13 +221,14 @@ Phases, each fatal on failure:
    times the twin's distance from it; in float32 each layer, given the
    CPU's input, against the CPU's output (LAYER_F32_SHARE outside 1e-3
    at most, none past LAYER_F32_MAX); for qwen2-moe in float32 and the
-   reduced Jamba also every logit within 1e-3 (phase 10's gate).
+   reduced Jamba also every logit within 1e-3 (phase 10's gate); the
+   weights are drawn on the card and copied to the host.
    The other whole-model figures are printed: these random models
    amplify rounding through their layers;
    (b) `launch.serve.serve()` (SERVE_10D: 16 requests in batches of 8,
    prompt 128, 16 generated tokens, bf16, seed 0) on qwen2-moe-a2.7b
-   (24 layers) and seamless-m4t-medium (12 + 12) at full depth and on
-   llama-3.2-vision-90b at one period, counts set to 0 just before and
+   at 8 of its 24 layers, seamless-m4t-medium (12 + 12) at full depth
+   and llama-3.2-vision-90b at one period, counts set to 0 just before and
    read just after: flash once per self-attention layer per batch,
    decode once per self-attention and once per cross layer per token,
    all on the tensor-core route; tokens/s, prefill and decode ms and
@@ -250,15 +262,17 @@ Phases, each fatal on failure:
    tensors staged through the host, `local_ranks.stage_through_host`,
    since gloo's all-gather of them kills the rank), the ("data",
    "model") host meshes 1 x 4 and 2 x 2, `make_prefill_step` /
-   `make_decode_step` with a mesh: llama3.2-1b at full width and depth
-   in float32 and bfloat16 (decode profile B 8, prompt 512, capacity
-   544; long profile B 1, prompt 2,048, capacity 2,080), qwen2-moe-a2.7b
+   `make_decode_step` with a mesh: llama3.2-1b at full width, in
+   float32 and bfloat16 (decode profile B 8, prompt 512, capacity 544,
+   8 of its 16 layers; long profile B 1, prompt 2,048, capacity 2,080,
+   8 layers in float32 and 12 in bfloat16: each depth keeps the
+   witnessed rounding inside the gates, LM_MESH_CASES), qwen2-moe-a2.7b
    cut to 2 layers (bf16, 1 x 4, capacity 8.0: the expert-parallel MoE
    in the forward) and the reduced Jamba (f32, 1 x 4: `ssd_scan` on the
    rank's heads), a prefill and LM_MESH_STEPS decode steps fed the
    one-device run's greedy tokens and, layer by layer, its layer inputs
-   (random weights are chaotic: the first case also runs untapped and
-   prints how far it ends; not gated); (a) each rank's shard of every
+   (random weights are chaotic: an untapped full-depth run ends O(1)
+   apart, PERF.md §6); (a) each rank's shard of every
    logit and cache leaf against its slice of the one-device run on the
    card from the same weights (float32 within LM_MESH_F32_TOL, bfloat16
    by LM_MESH_BF16_SHARE and LM_MESH_BF16_MAX), each float32 layer by
@@ -275,10 +289,11 @@ Phases, each fatal on failure:
 19. the train step on DTensors and the cross layers and the encoder on
    a mesh (ROADMAP.md §1 item 10e part 2c), 4 gloo ranks sharing the
    card as in 18: `make_train_step` with a mesh (TRAIN_MESH_CASES) for
-   llama3.2-1b at full width and depth (f32, and bf16 parameters with
-   f32 moments; B 8, S 256, 2 microbatches, remat "period", 2 steps; 2
-   x 2 with ZeRO-3 at use and 1 x 4), seamless-m4t-medium at full
-   width (12 + 12 layers; one step on 2 x 2) and qwen2-moe-a2.7b cut
+   llama3.2-1b at full width cut to 4 (f32) and 8 (bf16 parameters
+   with f32 moments) of its 16 layers (B 8, S 256, 2 microbatches,
+   remat "period", 2 steps; 2 x 2 with ZeRO-3 at use and 1 x 4),
+   seamless-m4t-medium at full width cut to 6 + 6 of its 12 + 12
+   layers (one step on 2 x 2) and qwen2-moe-a2.7b cut
    to 2 layers (f32, B 4, S 128, one step on 1 x 4: the
    expert-parallel MoE and its gradient), each against the one-device
    train step on the card from the same weights and batches (made by
@@ -297,7 +312,8 @@ Phases, each fatal on failure:
    bytes; step ms and peak memory a rank printed (host-staged: not a
    speed of the method);
 20. the dry run (ROADMAP.md §1 item 10e part 2b,
-   `launch/dryrun.py`): (a) llama3.2-1b at full width and depth, a
+   `launch/dryrun.py`): (a) llama3.2-1b at full width and 4 of its 16
+   layers (DRYRUN_LAYERS, real run and trace alike), a
    prefill (B 4, S 512) and a decode step (capacity DRYRUN_CAP) on the
    1 x 4 host mesh, for real on 4 gloo ranks sharing the card (staged
    as in 18) under `launch.step_cost.StepCost`, and traced in this
@@ -313,7 +329,24 @@ Phases, each fatal on failure:
    step, `ssd_scan` in mamba2's prefill; none in mamba2's decode step,
    which reaches no kernel) and no launch counted, one JSON record a
    line;
-21. a `kernels` JSON line (with each kernel's launches in phase 15,
+21. the frozen reference forms (ROADMAP.md §1 item 11, DESIGN.md
+   §7.1): (a) `FleetSim(pipeline="host")` and the default kernel
+   pipeline at CONFIG for REFERENCE_EPOCHS epochs each, from fresh
+   draw sources at the same seeds, over phase 5's members without the
+   grouped shards (the host pipeline refuses groups): BW-Raft managed
+   at phi 0.02, Raft, and BW-Raft with the 550-slot rack; every
+   EpochReport equal (counters exact, floats within FLOAT_RTOL, the
+   largest difference printed), every control-plane decision equal,
+   launch counts set to 0 before each run: every kernel 0 on the host
+   pipeline (its reference ticks run the original forms and the twins) and
+   each per-tick kernel and ae_sync once a tick on the device one, and
+   the device pipeline's d2h bytes under a hundredth of the host's;
+   each pipeline's epoch walls printed; (b) `spot_step` at warn_ticks
+   = 0 (no faults, the init-time bid) against `spot_step_reference`
+   for SPOT_GATE_TICKS ticks from a leased state at CONFIG, on the
+   process market and on an exported-walk trace market: prices, kills
+   and roles bit for bit, and at least one kill;
+22. a `kernels` JSON line (with each kernel's launches in phase 15,
    `launches_train`, in phase 16(b) by model, `launches_10d`, in phase
    17 by ep, `launches_moe_ep`: none of them is on that path, in phase
    18 by case, `launches_lm_mesh`, and for decode
@@ -321,7 +354,10 @@ Phases, each fatal on failure:
    and `launches_train_mesh_lse`, for flash, decode and `ssd_scan` their
    fake calls in phase 20(b), `fake_calls_dryrun`; for decode also the
    (o, lse) form's phase-8 times `ms_lse`, `plain_ms_lse`,
-   `bound_ms_lse` and their `_long`), the card line, and the last line
+   `bound_ms_lse` and their `_long`; for the six consensus kernels
+   their launches on phase 21(a)'s host pipeline,
+   `launches_host_pipeline` (0)), the
+   `total` seconds, the card line, and the last line
    `{"ok": true, "device": {...}}`.
 
 Exits non-zero, printing no result, without a CUDA device or outside a
@@ -439,6 +475,15 @@ NO_BARRIER = {"ae_sync": AE_KERNELS}
 
 def log(*a):
     print(*a, flush=True)
+
+
+@contextlib.contextmanager
+def phase(n):
+    """Print `phase n <seconds> s` when the block ends: every phase's
+    share of the time limit in one log."""
+    t0 = time.perf_counter()
+    yield
+    log(f"phase {n} {time.perf_counter() - t0:.1f} s")
 
 
 def card_line() -> str:
@@ -2879,12 +2924,14 @@ def run_training(dev, profile=False):
 SERVE_10D = dict(requests=16, batch=8, prompt_len=128, gen_len=16,
                  revoke_p=0.1, seed=0)
 # what phase 16(b) serves: (arch, layers; None = the config's depth).
-# llama-3.2-vision-90b's 100 layers (about 170 GB in bf16) do not fit on
-# the card: one period of 5, its last a cross layer (about 13 GB)
-SERVE_10D_ARCHS = (("qwen2-moe-a2.7b", None), ("seamless-m4t-medium", None),
+# qwen2-moe-a2.7b at 8 of its 24 layers (the script's time budget; the
+# launch counts are per layer); llama-3.2-vision-90b's 100 layers (about
+# 170 GB in bf16) do not fit on the card: one period of 5, its last a
+# cross layer (about 13 GB)
+SERVE_10D_ARCHS = (("qwen2-moe-a2.7b", 8), ("seamless-m4t-medium", None),
                    ("llama-3.2-vision-90b", 5))
-# host RAM phase 16(a)'s vision check needs: the 13 GB bf16 model, the
-# copy on its way to the card, and activations
+# host RAM phase 16(a)'s vision check needs: the 13 GB bf16 model copied
+# from the card and the host run's activations, with room to spare
 VISION_HOST_GIB = 32
 # phase 16(a)'s kernel gate on a run's own operands: the kernel's distance
 # from float64 at most this many times the twin's (plus ATT_TOL).  Chip
@@ -3012,7 +3059,10 @@ def run_10d_card_vs_cpu(dev, dtype, arch, layers=2, B=2, S=128, steps=8,
     """One prefill and `steps` decode steps of `arch` at full width
     (`layers` layers; `reduced`: the reduced config) on the CPU, then
     twice on the card, from the same weights, tokens, drawn gates and
-    seeded context; every run is fed the CPU's greedy tokens.  Gates:
+    seeded context; every run is fed the CPU's greedy tokens.  The
+    weights are drawn on the card and copied to the host (the host's
+    generator draws about 1e8 values a second: 80 s for the vision
+    period).  Gates:
 
     - each attention kernel call of the card's first run (prefill
       self-attention; self and cross decode) against its twin and a
@@ -3050,8 +3100,8 @@ def run_10d_card_vs_cpu(dev, dtype, arch, layers=2, B=2, S=128, steps=8,
     cfg = cfg.reduced() if reduced else cfg.with_layers(layers)
     runcfg = RunConfig(remat=False, param_dtype=name, activation_dtype=name)
     cpu = torch.device("cpu")
-    m_cpu = draw_gates(lm.init_lm(cfg, runcfg, seed=1, device=cpu), 2)
-    m_gpu = copy.deepcopy(m_cpu).to(dev)
+    m_gpu = draw_gates(lm.init_lm(cfg, runcfg, seed=1, device=dev), 2)
+    m_cpu = copy.deepcopy(m_gpu).to(cpu)
     names = {id(b): n for m in (m_cpu, m_gpu)
              for n, b in m.named_modules()}
     ctx = seeded_context(cfg, B, S, 3, dtype)
@@ -3657,14 +3707,29 @@ def probe_gloo(world=4):
 
 LM_MESH_SHAPES = {"1x4": 4, "2x2": 2}   # ("data", "model") over 4 ranks
 LM_MESH_WORLD = 4
-# (name, arch, dtypes, profile, B, prompt, capacity, meshes, layers):
-# llama3.2-1b at full width and depth, qwen2-moe-a2.7b at full width cut
-# to 2 of its 24 layers, the reduced Jamba
+# (name, arch, dtypes, profile, B, prompt, capacity, meshes, layers, or a
+# dict of layers by dtype): llama3.2-1b at full width cut from 16 layers
+# to 8, its long profile in bfloat16 to 12; qwen2-moe-a2.7b at full
+# width cut to 2 of its 24 layers; the reduced Jamba.  Depth only, for
+# the script's time budget (the host-staged steps are not a speed of the
+# method); the launch counts and the merge's bytes are per layer.  The
+# logit gates read rounding, and a shallower random model carries a
+# layer's rounding further into its logits (its last layers weigh more
+# in the residual stream); each cut keeps that rounding inside them, and
+# the readings repeat bit for bit between calls.  Two causes, each with
+# a second witness (`--depth-witness`, PERF.md §6): in float32 the host
+# against the card, no mesh, crosses the 1e-4 (1 + |x|) limit at 4
+# layers as the mesh does and stays under it at 8; in bfloat16 2 x 2
+# shards the weights' d_model over "data", so each projection sums two
+# bf16-rounded partial sums where one device rounds once (as XLA's
+# all-reduce of a bf16 dot does), and with d_model kept whole the long
+# case's logit share past 3e-2 at 4 layers falls from past the 0.1 limit
+# to 0
 LM_MESH_CASES = (
     ("llama", "llama3.2-1b", ("float32", "bfloat16"), "decode", 8, 512,
-     544, ("1x4", "2x2"), None),
+     544, ("1x4", "2x2"), 8),
     ("llama-long", "llama3.2-1b", ("float32", "bfloat16"), "long", 1, 2048,
-     2080, ("1x4", "2x2"), None),
+     2080, ("1x4", "2x2"), {"float32": 8, "bfloat16": 12}),
     ("qwen2-moe", "qwen2-moe-a2.7b", ("bfloat16",), "decode", 8, 512, 544,
      ("1x4",), 2),
     ("jamba", "jamba-1.5-large-398b", ("float32",), "decode", 8, 64, 96,
@@ -3712,7 +3777,7 @@ LM_MESH_TIMEOUT = 900.0
 LM_MESH_OPS = ("flash", "decode", "decode_lse", "ssd_scan")
 
 
-def lm_mesh_cfg(arch, layers):
+def lm_mesh_cfg(arch, layers, overrides=()):
     import dataclasses
     from repro_torch.configs import get_config
     cfg = get_config(arch)
@@ -3721,7 +3786,9 @@ def lm_mesh_cfg(arch, layers):
     elif layers:
         cfg = cfg.with_layers(layers)
     # an expert-parallel layer that drops nothing computes the dense form
-    return dataclasses.replace(cfg, moe_capacity_factor=MOE_EP_NO_DROP)
+    return dataclasses.replace(
+        cfg, moe_capacity_factor=MOE_EP_NO_DROP,
+        sharding_overrides=cfg.sharding_overrides + tuple(overrides))
 
 
 def lm_mesh_compare(got, want, tol, base=None):
@@ -3815,14 +3882,14 @@ def lm_mesh_twin_check(call, rank_seq, n_seq, dtype):
 
 
 def lm_mesh_case(name, arch, dt, profile, B, S, cap, mesh, layers, dev,
-                 rank, free=False):
+                 rank, overrides=()):
     """One case on one mesh, on this rank: the one-device run on the card,
     then the mesh run from the same weights fed the one-device run's
     greedy tokens and, layer by layer, its layer inputs (random-weight
     models are chaotic: at full width two runs apart by float32 rounding
     end O(1) apart after 16 layers, PERF.md §6), gates (a)-(d) measured.
-    With `free` the mesh run also runs once on its own first, and its
-    distance from the one-device logits is printed."""
+    `overrides`: (logical axis, mesh axis) pairs on the profile's rules
+    (`--depth-witness`)."""
     import torch
     from repro_torch import kernels as K_
     from repro_torch.configs.base import RunConfig
@@ -3832,7 +3899,7 @@ def lm_mesh_case(name, arch, dt, profile, B, S, cap, mesh, layers, dev,
     from repro_torch.models.common import DTYPES, tree_items
     from repro_torch.sharding.axes import (local_part, resolve_rules,
                                            shard_index, shard_lm)
-    cfg = lm_mesh_cfg(arch, layers)
+    cfg = lm_mesh_cfg(arch, layers, overrides)
     rc = RunConfig(sharding_profile=profile, param_dtype=dt,
                    activation_dtype=dt)
     dtype = DTYPES[dt]
@@ -3862,15 +3929,6 @@ def lm_mesh_case(name, arch, dt, profile, B, S, cap, mesh, layers, dev,
            "tokens_compared": 0}
     prefill = TS.make_prefill_step(cfg, rc, mesh)
     decode = TS.make_decode_step(cfg, rc, mesh)
-    if free:
-        fc = lm.alloc_caches(cfg, B, cap, dtype, dev, mesh=mesh, rules=rules)
-        with Taps() as f_seen:
-            serve(model, fc, tokens, prefill, decode, LM_MESH_STEPS,
-                  r_toks[:-1], sync)
-        res["free"] = [lm_mesh_compare(g.to_local(), local_part(
-            w, g.placements, mesh), tol)[0]
-            for g, w in zip(f_seen.logits, r_logits)]
-        del fc, f_seen
     caches = lm.alloc_caches(cfg, B, cap, dtype, dev, mesh=mesh,
                              rules=rules)
     torch.distributed.barrier()
@@ -3959,6 +4017,7 @@ def lm_mesh_case(name, arch, dt, profile, B, S, cap, mesh, layers, dev,
 def lm_mesh_rank(rank, world, dev_type, reduced):
     """One rank of phase 18: every case on each host mesh over the 4
     ranks sharing device 0, CUDA all-gathers staged through the host."""
+    up = time.time()
     import os
     import torch
     from repro_torch.launch.local_ranks import stage_through_host
@@ -3973,17 +4032,16 @@ def lm_mesh_rank(rank, world, dev_type, reduced):
     torch.set_num_threads(max(1, (os.cpu_count() or world) // world))
     meshes = {n: make_host_mesh(model=m, device_type=dev_type)
               for n, m in LM_MESH_SHAPES.items()}
-    out = {"staged": staged, "cases": {}}
-    free = True
-    for name, arch, dts, profile, B, S, cap, on, layers in LM_MESH_CASES:
+    out = {"staged": staged, "cases": {}, "up": up}
+    for name, arch, dts, profile, B, S, cap, on, depth in LM_MESH_CASES:
         if reduced:
-            layers, B, S, cap = "reduced", min(B, 4), min(S, 16), 24
+            depth, B, S, cap = "reduced", min(B, 4), min(S, 16), 24
         for dt in dts:
+            layers = depth[dt] if isinstance(depth, dict) else depth
             for mname in on:
                 t0 = time.perf_counter()
                 r = lm_mesh_case(name, arch, dt, profile, B, S, cap,
-                                 meshes[mname], layers, dev, rank, free)
-                free = False
+                                 meshes[mname], layers, dev, rank)
                 r["case_s"] = time.perf_counter() - t0
                 out["cases"][name, dt, mname] = r
                 if dev.type == "cuda":
@@ -3999,12 +4057,13 @@ def run_lm_mesh(dev_type="cuda", reduced=False):
     against the one-device steps on the card.  Returns the launches of
     each kernel summed over the cases, from rank 0."""
     from repro_torch.launch.local_ranks import run_ranks
-    t0 = time.perf_counter()
+    t0, w0 = time.perf_counter(), time.time()
     res = run_ranks(lm_mesh_rank, LM_MESH_WORLD, dev_type, reduced,
                     timeout=LM_MESH_TIMEOUT)
     log(f"phase 18: {LM_MESH_WORLD} ranks on {dev_type} in "
-        f"{time.perf_counter() - t0:.1f} s; collectives staged through "
-        f"the host: {res[0]['staged'] or 'none'}")
+        f"{time.perf_counter() - t0:.1f} s (the last rank started "
+        f"{max(r['up'] for r in res) - w0:.1f} s in); collectives staged "
+        f"through the host: {res[0]['staged'] or 'none'}")
     totals, failed = {}, []
     for key in res[0]["cases"]:
         rs = [r["cases"][key] for r in res]
@@ -4039,9 +4098,6 @@ def check_lm_mesh(key, rs):
     lnorm = max(v[3] for r in rs for v in r["layers"])
     rel = max(max(l[2] for r in rs for l in r["logits"]),
               max(v[2] for r in rs for v in r["caches"].values()))
-    if "free" in r0:
-        log(f"{tag}: the mesh run on its own, logits max |mesh - one "
-            f"device| by step {[f'{max(r['free'][i] for r in rs):.3g}' for i in range(len(r0['free']))]} (not gated: random weights are chaotic)")
     log(f"{tag}: each layer fed the one-device input: {len(r0['layers'])} "
         f"layer calls, max_err {lmax:.3g} (relative {lrel:.3g}), share "
         f"outside {LM_MESH_LAYER_TOL if dt == 'float32' else LM_MESH_BF16_TOL}"
@@ -4101,6 +4157,107 @@ def check_lm_mesh(key, rs):
         raise AssertionError(f"{tag}: " + "; ".join(tol_bad))
 
 
+# the depths `--depth-witness` reads phase 18's "llama" case at
+WITNESS_LAYERS = (4, 8, 16)
+
+
+def depth_witness(dev):
+    """Second witnesses for phase 18's depths (PERF.md §6), not gated.
+    (a) The "llama" case (decode profile, B 8, prompt 512, LM_MESH_STEPS
+    decode steps) at each depth of WITNESS_LAYERS, the one-device run on
+    the card against the same weights and tokens on the host, each host
+    layer fed the card's input and each host step the card's token, read
+    as phase 18 reads the mesh: max |host - card| / (1 + |card|) of the
+    logits of the prefill and of the decode steps, and the largest share
+    of a step's past phase 18's tolerance.  The host is another rounding
+    of the same sums and no mesh: where its readings cross phase 18's
+    limits as the mesh's do, the depth moves rounding, not a fault of
+    the mesh.  (b) The long profile's bfloat16 case on 2 x 2 at
+    WITNESS_MESH_LAYERS layers as phase 18 runs it, and again with the
+    weights' d_model kept whole on "data" (`witness_rank`)."""
+    import torch
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.launch import steps as TS
+    from repro_torch.launch.taps import Taps, serve
+    from repro_torch.models import lm
+    from repro_torch.models.common import DTYPES
+    torch.backends.cuda.matmul.allow_tf32 = False
+    name, arch, _, profile, B, S, cap, _, _ = LM_MESH_CASES[0]
+    cpu = torch.device("cpu")
+    for layers in WITNESS_LAYERS:
+        cfg = lm_mesh_cfg(arch, layers)
+        tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=torch.
+                               Generator().manual_seed(LM_MESH_SEED + S))
+        for dt in ("float32", "bfloat16"):
+            t0 = time.perf_counter()
+            rc = RunConfig(sharding_profile=profile, param_dtype=dt,
+                           activation_dtype=dt)
+            steps = (TS.make_prefill_step(cfg, rc),
+                     TS.make_decode_step(cfg, rc))
+            card = lm.init_lm(cfg, rc, seed=LM_MESH_SEED, device=dev)
+            with Taps(on_layer=lambda i, h, y: h.cpu()) as c_seen:
+                toks, *_ = serve(card, lm.alloc_caches(
+                    cfg, B, cap, DTYPES[dt], dev), tokens.to(dev), *steps,
+                    LM_MESH_STEPS)
+            want = [g.cpu() for g in c_seen.logits]
+            host = card.to(cpu)
+            del card, c_seen.logits
+            free_card()
+            with Taps(feed=c_seen.layers) as h_seen:
+                serve(host, lm.alloc_caches(cfg, B, cap, DTYPES[dt], cpu),
+                      tokens, *steps, LM_MESH_STEPS,
+                      [t.cpu() for t in toks[:-1]])
+            tol = LM_MESH_F32_TOL if dt == "float32" else LM_MESH_BF16_TOL
+            pre = lm_mesh_compare(h_seen.logits[0], want[0], tol)
+            dec = [lm_mesh_compare(g, w, tol)
+                   for g, w in zip(h_seen.logits[1:], want[1:])]
+            log(f"depth witness {name} {layers} layers {dt}: host against "
+                f"card, each layer fed the card's input: prefill logits max "
+                f"|d| / (1 + |card|) {pre[2]:.3g}, share outside {tol} "
+                f"{pre[1]:.3g}; decode steps {max(d[2] for d in dec):.3g}, "
+                f"share {max(d[1] for d in dec):.3g} "
+                f"({time.perf_counter() - t0:.1f} s)")
+            del host, h_seen, want
+    from repro_torch.launch.local_ranks import run_ranks
+    for overrides in ((), (("embed", None),)):
+        res = run_ranks(witness_rank, LM_MESH_WORLD, overrides,
+                        timeout=LM_MESH_TIMEOUT)
+        log(f"depth witness llama-long bfloat16 2x2 {WITNESS_MESH_LAYERS} "
+            f"layers, rule overrides {overrides or 'none'}: decode logits "
+            f"share outside {LM_MESH_BF16_TOL} "
+            f"{max(r[0] for r in res):.3g}, max |d| / (1 + |x|) "
+            f"{max(r[1] for r in res):.3g}, caches max_err "
+            f"{max(r[2] for r in res):.3g}")
+
+
+# `--depth-witness` (b)'s depth
+WITNESS_MESH_LAYERS = 4
+
+
+def witness_rank(rank, world, overrides):
+    """`--depth-witness` (b) on one rank: phase 18's long-profile case in
+    bfloat16 on 2 x 2 at WITNESS_MESH_LAYERS layers, with `overrides` on
+    its sharding rules.  ("embed", None) keeps the weights' d_model whole
+    on "data", so no projection sums bf16-rounded partial sums over it.
+    Returns the logits' largest share outside the tolerance, their
+    largest |d| / (1 + |x|), and the caches' largest error."""
+    import os
+    import torch
+    from repro_torch.launch.local_ranks import stage_through_host
+    from repro_torch.launch.mesh import make_host_mesh
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    stage_through_host()
+    torch.set_num_threads(max(1, (os.cpu_count() or world) // world))
+    name, arch, _, profile, B, S, cap, _, _ = LM_MESH_CASES[1]
+    mesh = make_host_mesh(model=LM_MESH_SHAPES["2x2"], device_type="cuda")
+    r = lm_mesh_case(name, arch, "bfloat16", profile, B, S, cap, mesh,
+                     WITNESS_MESH_LAYERS, torch.device("cuda", 0), rank,
+                     overrides)
+    return (max(l[1] for l in r["logits"]), max(l[2] for l in r["logits"]),
+            max(v[0] for v in r["caches"].values()))
+
+
 # --------------------------------------------------------------------- #
 # phase 19: the train step on DTensors, the cross layers and the encoder
 # on a mesh (ROADMAP.md §1 item 10e part 2c)
@@ -4109,16 +4266,26 @@ TRAIN_MESH_WORLD = 4
 TRAIN_MESH_SEED = 29
 # (group, arch, dtype, layers, B, S, microbatches, steps, meshes): the
 # one-device reference of a (group, dtype) serves each of its meshes;
-# llama3.2-1b at full width and depth, seamless-m4t-medium at full width
-# (12 + 12 layers), qwen2-moe-a2.7b cut to 2 of its 24 layers (its
-# expert-parallel MoE at capacity 8.0, where nothing drops; in float32:
-# in bfloat16 its router's gradient read 0.0926 apart (PERF.md §6):
-# a sum over every token whose terms cancel, so bf16 rounding of the
-# expert outputs moves it far more than any other weight's)
+# llama3.2-1b at full width cut to 4 (float32) and 8 (bfloat16) of its
+# 16 layers, seamless-m4t-medium at full width cut to 6 + 6 of its
+# 12 + 12 layers (`with_layers` cuts both stacks), qwen2-moe-a2.7b cut
+# to 2 of its 24 layers (its expert-parallel MoE at capacity 8.0, where
+# nothing drops; in float32: in bfloat16 its router's gradient read
+# 0.0926 apart (PERF.md §6): a sum over every token whose terms cancel,
+# so bf16 rounding of the expert outputs moves it far more than any
+# other weight's).  Depth only, for the script's time budget; the ZeRO-3
+# gathers' closed form counts the cut model's layers.  As in phase 18,
+# a shallower model reads further from the one-device run (chip readings
+# on the H100, PERF.md §6: llama bf16 on 1 x 4 puts its second step's
+# grad_norm 0.014 apart at 4 layers and 0.0213 at 6 against the 1e-2
+# gate, 0.002 at 8; seamless's updated parameters a leaf share 0.00293
+# past the limit at 2 + 2 and 0.00195 at 4 + 4 against 1e-3, 8.68e-5 at
+# 6 + 6); these two have no second witness of their cause yet (PERF.md
+# §7), so they keep the depths at which they were read
 TRAIN_MESH_CASES = (
-    ("llama", "llama3.2-1b", "float32", None, 8, 256, 2, 2, ("2x2", "1x4")),
-    ("llama", "llama3.2-1b", "bfloat16", None, 8, 256, 2, 2, ("2x2", "1x4")),
-    ("seamless", "seamless-m4t-medium", "float32", None, 8, 256, 2, 1,
+    ("llama", "llama3.2-1b", "float32", 4, 8, 256, 2, 2, ("2x2", "1x4")),
+    ("llama", "llama3.2-1b", "bfloat16", 8, 8, 256, 2, 2, ("2x2", "1x4")),
+    ("seamless", "seamless-m4t-medium", "float32", 6, 8, 256, 2, 1,
      ("2x2",)),
     ("qwen2-moe", "qwen2-moe-a2.7b", "float32", 2, 4, 128, 1, 1, ("1x4",)),
 )
@@ -4197,14 +4364,17 @@ def train_mesh_reference(group, arch, dt, layers, B, S, M, steps, shape,
             mets.append({k: float(v) for k, v in step(state, b)[1].items()})
             torch.cuda.synchronize()
             ms.append((time.perf_counter() - t0) * 1e3)
+    t0 = time.perf_counter()
     cpu = lambda d: {k: v.detach().cpu() for k, v in d.items()}
     torch.save({"metrics": mets, "grads": cpu(taps.updates[0]),
                 "params": cpu(dict(model.named_parameters())),
                 "feed": (cpu(taps.inputs), cpu(taps.grads)), "ms": ms,
                 "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30},
                path)
+    file_s = time.perf_counter() - t0
     del model, state, taps
     free_card()
+    return file_s
 
 
 def gather_wire_want(cfg, rc, mesh, calls):
@@ -4248,17 +4418,21 @@ def train_mesh_case(group, arch, dt, layers, B, S, M, steps, mesh, mname,
     from repro_torch.launch.comm_stats import total_collective_bytes
     from repro_torch.launch.taps import TrainTaps
     from repro_torch.sharding.axes import local_part, resolve_rules, shard_lm
+    laps = [time.perf_counter()]
     cfg = lm_mesh_cfg(arch, layers)
     rc = RunConfig(param_dtype=dt, activation_dtype=dt, num_microbatches=M,
                    zero3_at_use=True)
     ref = torch.load(path, mmap=True, weights_only=False)
     batches = train_mesh_batches(cfg, B, S, steps, dev)
+    laps.append(time.perf_counter())
     model = shard_lm(train_mesh_model(cfg, rc, dev),
                      resolve_rules(cfg, rc.sharding_profile), mesh)
     free_card()
     state = TS.init_train_state(model)
     step = TS.make_train_step(cfg, rc, mesh)
+    laps.append(time.perf_counter())
     torch.distributed.barrier()
+    laps.append(time.perf_counter())
     torch.cuda.reset_peak_memory_stats()
     K_.reset_launch_counts()
     mets, ms = [], []
@@ -4270,6 +4444,7 @@ def train_mesh_case(group, arch, dt, layers, B, S, M, steps, mesh, mname,
             torch.cuda.synchronize()
             ms.append((time.perf_counter() - t0) * 1e3)
     launches = K_.launch_counts()
+    laps.append(time.perf_counter())
     lr = rc.learning_rate
     res = {"metrics": mets, "ref_metrics": ref["metrics"], "ms": ms,
            "ref_ms": ref["ms"], "ref_peak_gib": ref["peak_gib"],
@@ -4315,6 +4490,8 @@ def train_mesh_case(group, arch, dt, layers, B, S, M, steps, mesh, mname,
                         "xent": int(xent) * M * steps,
                         "norm": int(norm) * steps}
     res["counts"] = {k: len(v) for k, v in taps.collectives.items()}
+    laps.append(time.perf_counter())
+    res["laps"] = [round(b - a, 1) for a, b in zip(laps, laps[1:])]
     if rank == 0:
         log(f"phase 19 train {group} {dt} {mname} rank 0: loss "
             f"{[m['loss'] for m in mets]} (one device "
@@ -4444,6 +4621,7 @@ def train_mesh_rank(rank, world, dev_type, reduced, tmp):
     """One rank of phase 19: per (group, dtype) rank 0 makes the
     one-device reference while the others wait, then every mesh case of
     it; then seamless serving on 1 x 4."""
+    up = time.time()
     import os
 
     import torch
@@ -4459,7 +4637,7 @@ def train_mesh_rank(rank, world, dev_type, reduced, tmp):
     torch.set_num_threads(max(1, (os.cpu_count() or world) // world))
     meshes = {n: make_host_mesh(model=m, device_type=dev_type)
               for n, m in LM_MESH_SHAPES.items()}
-    out = {"staged": staged, "train": {}, "serve": {}}
+    out = {"staged": staged, "train": {}, "serve": {}, "up": up}
     for i, (group, arch, dt, layers, B, S, M, steps, on) in enumerate(
             TRAIN_MESH_CASES):
         if reduced:
@@ -4468,16 +4646,19 @@ def train_mesh_rank(rank, world, dev_type, reduced, tmp):
         path = os.path.join(tmp, f"ref{i}.pt")
         shape = (meshes[on[0]].shape["data"], meshes[on[0]].shape["model"])
         t0 = time.perf_counter()
+        file_s = None
         if rank == 0:
-            train_mesh_reference(group, arch, dt, layers, B, S, M, steps,
-                                 shape, dev, path)
+            file_s = train_mesh_reference(group, arch, dt, layers, B, S, M,
+                                          steps, shape, dev, path)
         torch.distributed.barrier()
         ref_s = time.perf_counter() - t0
         for mname in on:
+            t1 = time.perf_counter()
             r = train_mesh_case(group, arch, dt, layers, B, S, M, steps,
                                 meshes[mname], mname, dev, rank, path)
             r["case_s"] = time.perf_counter() - t0
-            r["ref_s"] = ref_s
+            r["ref_s"], r["ref_file_s"] = ref_s, file_s
+            r["mesh_s"] = time.perf_counter() - t1
             out["train"][group, dt, mname] = r
             t0 = time.perf_counter()
         torch.distributed.barrier()
@@ -4501,13 +4682,14 @@ def run_train_mesh(dev_type="cuda", reduced=False):
     import tempfile
 
     from repro_torch.launch.local_ranks import run_ranks
-    t0 = time.perf_counter()
+    t0, w0 = time.perf_counter(), time.time()
     with tempfile.TemporaryDirectory() as tmp:
         res = run_ranks(train_mesh_rank, TRAIN_MESH_WORLD, dev_type, reduced,
                         tmp, timeout=TRAIN_MESH_TIMEOUT)
     log(f"phase 19: {TRAIN_MESH_WORLD} ranks on {dev_type} in "
-        f"{time.perf_counter() - t0:.1f} s; collectives staged through "
-        f"the host: {res[0]['staged'] or 'none'}")
+        f"{time.perf_counter() - t0:.1f} s (the last rank started "
+        f"{max(r['up'] for r in res) - w0:.1f} s in); collectives staged "
+        f"through the host: {res[0]['staged'] or 'none'}")
     failed = []
     for key in res[0]["train"]:
         try:
@@ -4566,7 +4748,10 @@ def check_train_mesh(key, rs):
         f"{[round(x, 1) for x in r0['ref_ms']]}); peak "
         f"{max(r['peak_gib'] for r in rs):.1f} GiB a rank (one device "
         f"{r0['ref_peak_gib']:.1f}); case {r0['case_s']:.1f} s (the "
-        f"one-device reference and its file {r0['ref_s']:.1f} s)")
+        f"one-device reference and its file {r0['ref_s']:.1f} s, writing "
+        f"the file {r0['ref_file_s']:.1f} s; this mesh "
+        f"{r0['mesh_s']:.1f} s: load, build, barrier, steps, compare "
+        f"{[r['laps'] for r in rs]})")
     bad = []
     if metric > TRAIN_MESH_METRIC[dt]:
         bad.append(f"loss, aux or grad_norm {metric:.3g} apart")
@@ -4632,6 +4817,7 @@ def check_serve_mesh(key, rs):
 
 # phase 20: the dry run against a real run (a), and production cells (b)
 DRYRUN_ARCH = "llama3.2-1b"
+DRYRUN_LAYERS = 4                # of its 16, in the real run and the trace
 DRYRUN_WORLD = 4                 # the 1 x 4 host mesh
 DRYRUN_CAP = 528                 # the caches' capacity: 512 + 16
 DRYRUN_KINDS = (("prefill", 512), ("decode", DRYRUN_CAP))   # (kind, S)
@@ -4683,7 +4869,7 @@ def dryrun_rank(rank, world, dev_type):
         torch.cuda.set_device(0)
         stage_through_host()
     mesh = make_host_mesh(model=world, device_type=dev_type)
-    cfg = get_config(DRYRUN_ARCH)
+    cfg = get_config(DRYRUN_ARCH).with_layers(DRYRUN_LAYERS)
     stats = (lambda k: torch.cuda.memory_stats()[k]) if cuda else \
         (lambda k: 0)
     out = {}
@@ -4732,7 +4918,7 @@ def dryrun_fake(dev_type="cuda"):
     from repro_torch.launch import dryrun as D
     from repro_torch.launch import steps as S
     from repro_torch.launch.mesh import make_host_mesh
-    cfg = get_config(DRYRUN_ARCH)
+    cfg = get_config(DRYRUN_ARCH).with_layers(DRYRUN_LAYERS)
     out = {}
     with D.fake_group(DRYRUN_WORLD):
         mesh = make_host_mesh(model=DRYRUN_WORLD, device_type=dev_type)
@@ -4844,6 +5030,166 @@ def run_dryrun():
     return calls
 
 
+# --------------------------------------------------------------------- #
+# phase 21: the frozen reference forms against the kernel pipeline
+# --------------------------------------------------------------------- #
+REFERENCE_EPOCHS = 3
+# (b): the W = 0 spot gate's ticks, its i.i.d. kill rate, and the
+# secretaries and observers leased first, so that there are spot nodes
+# to kill
+SPOT_GATE_TICKS = 100
+SPOT_GATE_PHI = 0.01
+SPOT_GATE_LEASE = (8, 24)
+
+
+def reference_specs(cfg):
+    """Phase 5's members without its grouped Multi-Raft shards, which
+    the host pipeline refuses: BW-Raft managed at phi 0.02, Raft, and
+    BW-Raft with the 550-slot digest rack (8 writes and 32 reads a
+    tick, seed 0)."""
+    from repro_torch.core.fleet import digest_rack_spec, system_specs
+    kw = dict(write_rate=8.0, read_rate=32.0, seed=0)
+    return system_specs(cfg, phi=0.02, **kw)[:2] + \
+        [digest_rack_spec(cfg, **kw)]
+
+
+def report_diff(a, b, ctx):
+    """Hold two EpochReports (and their decisions) equal: integers and
+    the metrics registry exact, floats within FLOAT_RTOL.  Returns the
+    largest relative float difference."""
+    import dataclasses
+    worst = 0.0
+
+    def close(x, y, name):
+        nonlocal worst
+        if isinstance(x, float) or isinstance(y, float):
+            if x != x and y != y:
+                return
+            d = abs(x - y) / max(abs(y), 1e-30)
+            worst = max(worst, d if x != y else 0.0)
+            if not d <= FLOAT_RTOL:
+                raise AssertionError(f"{ctx}: {name} {x} vs {y}")
+        elif x != y:
+            raise AssertionError(f"{ctx}: {name} {x} vs {y}")
+
+    for f in dataclasses.fields(a):
+        x, y = getattr(a, f.name), getattr(b, f.name)
+        if f.name == "decision":
+            if (x is None) != (y is None):
+                raise AssertionError(f"{ctx}: a decision on one side only")
+            for k, v in (dataclasses.asdict(x) if x is not None else
+                         {}).items():
+                close(v, getattr(y, k), f"decision.{k}")
+        else:
+            close(x, y, f.name)
+    return worst
+
+
+def spot_gate(dev, cfg, market):
+    """(b): `spot_step` at warn_ticks = 0 (no faults, the init-time bid)
+    against `spot_step_reference` for SPOT_GATE_TICKS ticks from one
+    leased state and one draw bundle: prices, kills and roles bit for
+    bit.  Returns the kills counted."""
+    import torch
+    from repro_torch.core import state as SM
+    from repro_torch.core import step as ST
+    from repro_torch.core.draws import TorchDraws, row
+    from repro_torch.core.runtime import ClusterController, make_cfg_arrays
+    from repro_torch.market.synthetic import export_walk_trace
+    static = SM.build_static(cfg)
+    kw = {}
+    if market == "trace":
+        kw = dict(market="trace",
+                  trace=export_walk_trace(cfg, seed=4, epochs=2, device=dev))
+    cfg_c = make_cfg_arrays(cfg, dev, write_rate=8.0, read_rate=16.0,
+                            phi=SPOT_GATE_PHI, **kw)
+    st = SM.init_state(cfg, static, dev)
+    wired = ClusterController(cfg, static, seed=0).lease(
+        st["role"].cpu().numpy(), st["alive"].cpu().numpy(),
+        *SPOT_GATE_LEASE)
+    st = dict(st, **{k: torch.as_tensor(v, device=dev) for k, v in
+                     zip(("role", "alive", "sec_of", "obs_of"), wired)})
+    bundle = TorchDraws(9, dev).epoch(SPOT_GATE_TICKS, st, cfg_c)
+    statics, cfg_b = SM.stack_static([static], dev), SM.batch1(cfg_c)
+    new = ref = SM.batch1(st)
+    kills = 0
+    for t in range(SPOT_GATE_TICKS):
+        d = SM.batch1(row(bundle, t))
+        tick = torch.full((1,), t, dtype=torch.int32, device=dev)
+        new, k_new = ST.spot_step(dict(new, tick=tick), statics, cfg_b, d)
+        ref, k_ref = ST.spot_step_reference(dict(ref, tick=tick), statics,
+                                            cfg_b, d)
+        for name, a, b in (("price", new["spot_price"], ref["spot_price"]),
+                           ("killed", k_new, k_ref),
+                           ("alive", new["alive"], ref["alive"]),
+                           ("role", new["role"], ref["role"])):
+            if not torch.equal(a, b):
+                raise AssertionError(f"phase 21(b) {market}: tick {t}: "
+                                     f"{name} diverged")
+        kills += int(k_new.sum())
+    return kills
+
+
+def run_reference(dev, cfg):
+    """Phase 21: (a) `FleetSim(pipeline="host")`, the frozen reference
+    path whose ticks launch no kernel, against the kernel pipeline at the
+    paper's cluster, and (b) the W = 0 spot gate on the card.  Returns
+    the launches of each kernel on the host pipeline."""
+    import torch
+    from repro_torch import kernels as K_
+    from repro_torch.core.fleet import FleetSim
+    runs = {}
+    for pipeline in ("host", "device"):
+        fleet = FleetSim(reference_specs(cfg), pipeline=pipeline, device=dev)
+        torch.cuda.synchronize()
+        K_.reset_launch_counts()
+        wall = []
+        for _ in range(REFERENCE_EPOCHS):
+            t0 = time.perf_counter()
+            fleet.run_epoch()          # ends in a host fetch (a sync)
+            wall.append((time.perf_counter() - t0) * 1e3)
+        runs[pipeline] = (fleet, K_.launch_counts())
+        log(f"phase 21(a) {pipeline} pipeline, B={fleet.shapes.B}: epoch "
+            f"wall ms {[round(w, 1) for w in wall]}; d2h bytes "
+            f"{fleet.d2h_bytes}; launches {json.dumps(runs[pipeline][1])}")
+    (host, h_counts), (device, d_counts) = runs["host"], runs["device"]
+    worst, decisions = 0.0, 0
+    for i, (hr, dr) in enumerate(zip(host.reports, device.reports)):
+        for e, (a, b) in enumerate(zip(hr, dr)):
+            check_report(a, f"phase 21(a) host epoch {e} member {i}")
+            worst = max(worst, report_diff(a, b, f"phase 21(a) epoch {e} "
+                                                 f"member {i}"))
+            decisions += a.decision is not None
+    ticks = REFERENCE_EPOCHS * cfg.period_ticks
+    for name in RAFT:
+        want = ticks if name in (*PER_TICK, "ae_sync") else 0
+        if h_counts[name] != 0 or d_counts[name] != want:
+            raise AssertionError(f"phase 21(a) {name}: {h_counts[name]} "
+                                 f"launches on the host pipeline (want 0), "
+                                 f"{d_counts[name]} on the device one "
+                                 f"(want {want})")
+    if any(h_counts.values()):
+        raise AssertionError(f"the host pipeline launched {h_counts}")
+    if not device.d2h_bytes < host.d2h_bytes / 100:
+        raise AssertionError(f"phase 21(a) d2h bytes: device "
+                             f"{device.d2h_bytes}, host {host.d2h_bytes}")
+    if not decisions:
+        raise AssertionError("phase 21(a) made no control-plane decision")
+    log(f"phase 21(a): {len(host.reports)} members x {REFERENCE_EPOCHS} "
+        f"epochs of reports equal (largest relative float difference "
+        f"{worst:.3g}), {decisions} decisions equal; d2h bytes device / "
+        f"host {device.d2h_bytes / host.d2h_bytes:.3g}")
+    for market in ("process", "trace"):
+        kills = spot_gate(dev, cfg, market)
+        log(f"phase 21(b) {market} market: spot_step at W = 0 and "
+            f"spot_step_reference bit-equal over {SPOT_GATE_TICKS} ticks "
+            f"(prices, kills, roles); {kills} kills")
+        if not kills:
+            raise AssertionError(f"phase 21(b) {market}: no spot node was "
+                                 f"killed, so the gate saw no kill")
+    return h_counts
+
+
 def repeat_phase10(dev, n) -> int:
     """Phases 8-9 once, then phase 10's float32 smollm check `n` times in
     this process (ROADMAP.md §3 F4): each failure prints its diagnosis;
@@ -4896,6 +5242,15 @@ def main() -> int:
                     help="build the kernels, run phase 20 (the dry run "
                     "against a real run on ranks sharing the card, and "
                     "production cells) alone and exit")
+    ap.add_argument("--phase21", action="store_true",
+                    help="build the kernels, run phase 21 (the frozen "
+                    "reference forms against the kernel pipeline at the "
+                    "paper's cluster) alone and exit")
+    ap.add_argument("--depth-witness", action="store_true",
+                    help="build the kernels, read phase 18's llama "
+                    "case on the card against the host at each depth of "
+                    "WITNESS_LAYERS and its long bf16 case on 2 x 2 with "
+                    "d_model sharded and whole, and exit")
     ap.add_argument("--probe-gloo", action="store_true",
                     help="report which functional collectives gloo takes "
                     "on CUDA tensors of 4 ranks sharing the card, raw "
@@ -4927,106 +5282,118 @@ def main() -> int:
         log(card)
         return 0
     if args.phase17:
-        run_moe_ep()
+        with phase(17):
+            run_moe_ep()
         log(f"phase 17 alone {time.perf_counter() - t_start:.1f} s")
         log(card)
         return 0
-    t0 = time.perf_counter()
-    libs = build.build()
-    log(f"built {sorted(libs)} in {time.perf_counter() - t0:.1f} s")
-    spills = {}
-    for name, path in libs.items():
-        info = path.with_suffix(".log")
-        if info.exists():
-            for fn, ln in ptxas_report(info.read_text()):
-                log(f"  ptxas {name} {fn}: {ln}")
-                m = re.search(r"(\d+) bytes spill stores", ln)
-                if m:
-                    spills[fn] = spills.get(fn, 0) + int(m.group(1))
-    for fn in NO_SPILL:
-        if fn not in spills:
-            raise AssertionError(f"ptxas reported nothing for {fn}")
-        if spills[fn]:
-            raise AssertionError(f"ptxas spilled {spills[fn]} bytes in "
-                                 f"{fn}")
-    check_barrier_free(libs)
+    with phase(1):
+        t0 = time.perf_counter()
+        libs = build.build()
+        log(f"built {sorted(libs)} in {time.perf_counter() - t0:.1f} s")
+        spills = {}
+        for name, path in libs.items():
+            info = path.with_suffix(".log")
+            if info.exists():
+                for fn, ln in ptxas_report(info.read_text()):
+                    log(f"  ptxas {name} {fn}: {ln}")
+                    m = re.search(r"(\d+) bytes spill stores", ln)
+                    if m:
+                        spills[fn] = spills.get(fn, 0) + int(m.group(1))
+        for fn in NO_SPILL:
+            if fn not in spills:
+                raise AssertionError(f"ptxas reported nothing for {fn}")
+            if spills[fn]:
+                raise AssertionError(f"ptxas spilled {spills[fn]} bytes in "
+                                     f"{fn}")
+        check_barrier_free(libs)
     dev = torch.device("cuda")
-    if args.phase18:
-        run_lm_mesh()
-        log(f"phase 18 alone {time.perf_counter() - t_start:.1f} s")
+    alone = {18: (args.phase18, run_lm_mesh),
+             19: (args.phase19, run_train_mesh),
+             20: (args.phase20, run_dryrun),
+             21: (args.phase21, lambda: run_reference(dev, CONFIG))}
+    if args.depth_witness:
+        depth_witness(dev)
         log(card)
         return 0
-    if args.phase19:
-        run_train_mesh()
-        log(f"phase 19 alone {time.perf_counter() - t_start:.1f} s")
-        log(card)
-        return 0
-    if args.phase20:
-        run_dryrun()
-        log(f"phase 20 alone {time.perf_counter() - t_start:.1f} s")
-        log(card)
-        return 0
+    for n, (on, run) in alone.items():
+        if on:
+            with phase(n):
+                run()
+            log(f"phase {n} alone {time.perf_counter() - t_start:.1f} s")
+            log(card)
+            return 0
     if args.phase10:
         return repeat_phase10(dev, args.phase10)
     if args.phase15:
-        run_training(dev, args.profile)
+        with phase(15):
+            run_training(dev, args.profile)
         log(card)
         return 0
     if args.phase16:
-        run_attention_checks(dev, long_shapes=False)
-        run_10d(dev, args.profile)
+        with phase(8):
+            run_attention_checks(dev, long_shapes=False)
+        with phase(16):
+            run_10d(dev, args.profile)
         log(card)
         return 0
     static = SM.build_static(CONFIG)
     fleet_shapes = dict(O=50 * rack_voters(CONFIG), S=CONFIG.num_sites,
                         Fi=group_digest_width(CONFIG), G=1)
-    results, floor = run_kernel_checks(dev, CONFIG, static, fleet_shapes)
-    sim, solo_counts, kept = run_main_path(dev, CONFIG)
-    main_data = time_main_path_data(kept, floor, static)
-    run_quickstart(dev, CONFIG)
-    run_card_vs_cpu("solo", SM.batch1(sim.state), [sim.static],
-                    SM.batch1(sim.cfg_c), CONFIG.period_ticks)
-    fleet, fleet_counts, fleet_kept = run_fleet_path(dev, CONFIG)
-    main_data.update(time_main_path_data(
-        fleet_kept, floor, static, FLEET_DATA,
-        {"ae_sync": f"fleet tick {FLEET_DATA_AT['ae_sync']}",
-         "group_reduce": f"fleet epoch {FLEET_DATA_AT['group_reduce']}"}))
-    run_sweep(dev, CONFIG)
-    run_card_vs_cpu("fleet", fleet.state, [m.static for m in fleet.members],
-                    fleet._cfg_c, CONFIG.period_ticks, fleet._gids,
-                    fleet.n_groups)
-    att = run_attention_checks(dev)
-    ssd = run_ssd_checks(dev)
-    run_serve_card_vs_cpu(dev, torch.float32)
-    run_serve_card_vs_cpu(dev, torch.bfloat16)
-    for dt in (torch.float32, torch.bfloat16):
-        run_serve_card_vs_cpu(dev, dt, arch="mamba2-130m", S=300)
-    model, serve_counts, _ = run_serve_path(dev)
-    check_serve_sync_free(model, dev)
-    mamba, mamba_counts, _ = run_serve_path(dev, "mamba2-130m")
-    check_serve_sync_free(mamba, dev)
-    t0 = time.perf_counter()
-    services, _ = run_host_services(dev, CONFIG)
-    log(f"services phase {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    train_counts = run_training(dev, args.profile)
-    log(f"training phase {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    ten_d = run_10d(dev, args.profile)
-    log(f"10d phase {time.perf_counter() - t0:.1f} s")
-    free_card()
-    t0 = time.perf_counter()
-    moe_ep = run_moe_ep()
-    log(f"expert-parallel MoE phase {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    lm_mesh = run_lm_mesh()
-    log(f"LM mesh phase {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    train_mesh = next(iter(run_train_mesh().values()))
-    log(f"train mesh phase {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    dry_calls = run_dryrun()
-    log(f"dry run phase {time.perf_counter() - t0:.1f} s")
+    with phase(2):
+        results, floor = run_kernel_checks(dev, CONFIG, static, fleet_shapes)
+    with phase(3):
+        sim, solo_counts, kept = run_main_path(dev, CONFIG)
+        main_data = time_main_path_data(kept, floor, static)
+        run_quickstart(dev, CONFIG)
+    with phase(4):
+        run_card_vs_cpu("solo", SM.batch1(sim.state), [sim.static],
+                        SM.batch1(sim.cfg_c), CONFIG.period_ticks)
+    with phase(5):
+        fleet, fleet_counts, fleet_kept = run_fleet_path(dev, CONFIG)
+        main_data.update(time_main_path_data(
+            fleet_kept, floor, static, FLEET_DATA,
+            {"ae_sync": f"fleet tick {FLEET_DATA_AT['ae_sync']}",
+             "group_reduce": f"fleet epoch {FLEET_DATA_AT['group_reduce']}"}))
+    with phase(6):
+        run_sweep(dev, CONFIG)
+    with phase(7):
+        run_card_vs_cpu("fleet", fleet.state,
+                        [m.static for m in fleet.members], fleet._cfg_c,
+                        CONFIG.period_ticks, fleet._gids, fleet.n_groups)
+    with phase(8):
+        att = run_attention_checks(dev)
+    with phase(9):
+        ssd = run_ssd_checks(dev)
+    with phase(10):
+        run_serve_card_vs_cpu(dev, torch.float32)
+        run_serve_card_vs_cpu(dev, torch.bfloat16)
+    with phase(11):
+        for dt in (torch.float32, torch.bfloat16):
+            run_serve_card_vs_cpu(dev, dt, arch="mamba2-130m", S=300)
+    with phase(12):
+        model, serve_counts, _ = run_serve_path(dev)
+        check_serve_sync_free(model, dev)
+    with phase(13):
+        mamba, mamba_counts, _ = run_serve_path(dev, "mamba2-130m")
+        check_serve_sync_free(mamba, dev)
+    with phase(14):
+        services, _ = run_host_services(dev, CONFIG)
+    with phase(15):
+        train_counts = run_training(dev, args.profile)
+    with phase(16):
+        ten_d = run_10d(dev, args.profile)
+        free_card()
+    with phase(17):
+        moe_ep = run_moe_ep()
+    with phase(18):
+        lm_mesh = run_lm_mesh()
+    with phase(19):
+        train_mesh = next(iter(run_train_mesh().values()))
+    with phase(20):
+        dry_calls = run_dryrun()
+    with phase(21):
+        reference = run_reference(dev, CONFIG)
     if args.profile:
         b = sim.draws.epoch(10, sim.state, sim.cfg_c)
         run_profile("solo", SM.batch1(sim.state), sim.static_t,
@@ -5037,92 +5404,94 @@ def main() -> int:
                     10)
         run_serve_profile(model, dev)
         run_serve_profile(mamba, dev)
-    kernels = []
-    for name in RAFT:
-        r = results[name]["fleet"]
-        entry = {
-            "name": name, "route": "cuda", "source": SOURCE[name],
-            "replaces": REPLACES[name], "launches": fleet_counts[name],
-            "max_abs_err": 0, "ms": r["ms"], "plain_ms": r["plain_ms"],
-            "bound_ms": bound_ms(r["bytes"], r["ops"]),
-            "bound_by": bound_by(r["bytes"], r["ops"]),
-            "library_ms": r["library_ms"],
-            "launches_solo": solo_counts[name],
-            "launches_train": train_counts[name], "floor_ms": floor,
-            "launches_moe_ep": {ep: c[name] for ep, c in moe_ep.items()},
-            "launches_lm_mesh": lm_mesh[name],
-            "launches_services": {run: c[name]
-                                  for run, c in services.items()}}
-        if "solo" in results[name]:
-            s = results[name]["solo"]
-            entry.update(ms_solo=s["ms"], plain_ms_solo=s["plain_ms"],
-                         bound_ms_solo=bound_ms(s["bytes"], s["ops"]))
-        if name in main_data:
-            m = main_data[name]
-            entry.update(ms_main_data=m["ms"],
-                         plain_ms_main_data=m["plain_ms"],
-                         bound_ms_main_data=bound_ms(m["bytes"], m["ops"]))
-            if "ms_no_due" in m:
-                entry.update(ms_main_data_no_due=m["ms_no_due"])
-        kernels.append(entry)
-    for name in ("flash_attention", "decode_attention"):
-        a = att[name]
-        r = a["serve"]
-        entry = {
-            "name": name, "route": "cuda", "source": SOURCE[name],
-            "replaces": REPLACES[name], "launches": serve_counts[name],
-            "max_abs_err": a["max_abs_err"], "ms": r["ms"],
+    with phase(22):
+        kernels = []
+        for name in RAFT:
+            r = results[name]["fleet"]
+            entry = {
+                "name": name, "route": "cuda", "source": SOURCE[name],
+                "replaces": REPLACES[name], "launches": fleet_counts[name],
+                "max_abs_err": 0, "ms": r["ms"], "plain_ms": r["plain_ms"],
+                "bound_ms": bound_ms(r["bytes"], r["ops"]),
+                "bound_by": bound_by(r["bytes"], r["ops"]),
+                "library_ms": r["library_ms"],
+                "launches_solo": solo_counts[name],
+                "launches_train": train_counts[name], "floor_ms": floor,
+                "launches_moe_ep": {ep: c[name] for ep, c in moe_ep.items()},
+                "launches_lm_mesh": lm_mesh[name],
+                "launches_services": {run: c[name]
+                                      for run, c in services.items()},
+                "launches_host_pipeline": reference[name]}
+            if "solo" in results[name]:
+                s = results[name]["solo"]
+                entry.update(ms_solo=s["ms"], plain_ms_solo=s["plain_ms"],
+                             bound_ms_solo=bound_ms(s["bytes"], s["ops"]))
+            if name in main_data:
+                m = main_data[name]
+                entry.update(ms_main_data=m["ms"],
+                             plain_ms_main_data=m["plain_ms"],
+                             bound_ms_main_data=bound_ms(m["bytes"], m["ops"]))
+                if "ms_no_due" in m:
+                    entry.update(ms_main_data_no_due=m["ms_no_due"])
+            kernels.append(entry)
+        for name in ("flash_attention", "decode_attention"):
+            a = att[name]
+            r = a["serve"]
+            entry = {
+                "name": name, "route": "cuda", "source": SOURCE[name],
+                "replaces": REPLACES[name], "launches": serve_counts[name],
+                "max_abs_err": a["max_abs_err"], "ms": r["ms"],
+                "plain_ms": r["plain_ms"],
+                "bound_ms": att_bound_ms(r["bytes"], r["flops"], r["dtype"]),
+                "bound_by": att_bound_by(r["bytes"], r["flops"], r["dtype"]),
+                "library_ms": r["library_ms"],
+                "launches_tensor_core": serve_counts["routes"][name][
+                    "tensor_core"],
+                "launches_train": train_counts[name],
+                "launches_moe_ep": {ep: c[name] for ep, c in moe_ep.items()},
+                "launches_lm_mesh": lm_mesh[name],
+                "launches_lm_mesh_tensor_core": lm_mesh[name + "_tensor_core"],
+                "launches_10d": {a: c[name] for a, c in ten_d["serve"].items()},
+                "launches_10d_tensor_core": {
+                    a: c["routes"][name]["tensor_core"]
+                    for a, c in ten_d["serve"].items()}}
+            if name == "decode_attention":
+                entry["launches_lm_mesh_lse"] = lm_mesh["decode_lse"]
+                entry["launches_train_mesh_lse"] = train_mesh["decode_lse"]
+                for k in ("ms_lse", "plain_ms_lse", "bound_ms_lse"):
+                    entry[k] = r[k]
+                    entry[k + "_long"] = a["long"][k] if "long" in a else None
+            entry["launches_train_mesh"] = train_mesh[
+                "flash" if name == "flash_attention" else "decode"]
+            entry["fake_calls_dryrun"] = dry_calls.get(name, 0)
+            if "long" in a:
+                g = a["long"]
+                entry.update(
+                    ms_long=g["ms"], plain_ms_long=g["plain_ms"],
+                    library_ms_long=g["library_ms"],
+                    bound_ms_long=att_bound_ms(g["bytes"], g["flops"],
+                                               g["dtype"]))
+            kernels.append(entry)
+        r, g = ssd["serve"], ssd["long"]
+        kernels.append({
+            "name": "ssd_scan", "route": "cuda", "source": SOURCE["ssd_scan"],
+            "replaces": REPLACES["ssd_scan"],
+            "launches": mamba_counts["ssd_scan"],
+            "max_abs_err": ssd["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"],
             "bound_ms": att_bound_ms(r["bytes"], r["flops"], r["dtype"]),
             "bound_by": att_bound_by(r["bytes"], r["flops"], r["dtype"]),
-            "library_ms": r["library_ms"],
-            "launches_tensor_core": serve_counts["routes"][name][
+            "library_ms": None,
+            "launches_tensor_core": mamba_counts["routes"]["ssd_scan"][
                 "tensor_core"],
-            "launches_train": train_counts[name],
-            "launches_moe_ep": {ep: c[name] for ep, c in moe_ep.items()},
-            "launches_lm_mesh": lm_mesh[name],
-            "launches_lm_mesh_tensor_core": lm_mesh[name + "_tensor_core"],
-            "launches_10d": {a: c[name] for a, c in ten_d["serve"].items()},
-            "launches_10d_tensor_core": {
-                a: c["routes"][name]["tensor_core"]
-                for a, c in ten_d["serve"].items()}}
-        if name == "decode_attention":
-            entry["launches_lm_mesh_lse"] = lm_mesh["decode_lse"]
-            entry["launches_train_mesh_lse"] = train_mesh["decode_lse"]
-            for k in ("ms_lse", "plain_ms_lse", "bound_ms_lse"):
-                entry[k] = r[k]
-                entry[k + "_long"] = a["long"][k] if "long" in a else None
-        entry["launches_train_mesh"] = train_mesh[
-            "flash" if name == "flash_attention" else "decode"]
-        entry["fake_calls_dryrun"] = dry_calls.get(name, 0)
-        if "long" in a:
-            g = a["long"]
-            entry.update(
-                ms_long=g["ms"], plain_ms_long=g["plain_ms"],
-                library_ms_long=g["library_ms"],
-                bound_ms_long=att_bound_ms(g["bytes"], g["flops"],
-                                           g["dtype"]))
-        kernels.append(entry)
-    r, g = ssd["serve"], ssd["long"]
-    kernels.append({
-        "name": "ssd_scan", "route": "cuda", "source": SOURCE["ssd_scan"],
-        "replaces": REPLACES["ssd_scan"],
-        "launches": mamba_counts["ssd_scan"],
-        "max_abs_err": ssd["max_abs_err"], "ms": r["ms"],
-        "plain_ms": r["plain_ms"],
-        "bound_ms": att_bound_ms(r["bytes"], r["flops"], r["dtype"]),
-        "bound_by": att_bound_by(r["bytes"], r["flops"], r["dtype"]),
-        "library_ms": None,
-        "launches_tensor_core": mamba_counts["routes"]["ssd_scan"][
-            "tensor_core"],
-        "launches_train": train_counts["ssd_scan"],
-        "launches_moe_ep": {ep: c["ssd_scan"] for ep, c in moe_ep.items()},
-        "launches_lm_mesh": lm_mesh["ssd_scan"],
-        "launches_10d_jamba_check": ten_d["jamba"]["ssd_scan"],
-        "fake_calls_dryrun": dry_calls.get("ssd_scan", 0),
-        "ms_long": g["ms"],
-        "plain_ms_long": g["plain_ms"], "library_ms_long": None,
-        "bound_ms_long": att_bound_ms(g["bytes"], g["flops"], g["dtype"])})
+            "launches_train": train_counts["ssd_scan"],
+            "launches_moe_ep": {ep: c["ssd_scan"] for ep, c in moe_ep.items()},
+            "launches_lm_mesh": lm_mesh["ssd_scan"],
+            "launches_10d_jamba_check": ten_d["jamba"]["ssd_scan"],
+            "fake_calls_dryrun": dry_calls.get("ssd_scan", 0),
+            "ms_long": g["ms"],
+            "plain_ms_long": g["plain_ms"], "library_ms_long": None,
+            "bound_ms_long": att_bound_ms(g["bytes"], g["flops"], g["dtype"])})
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(card)

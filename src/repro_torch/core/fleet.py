@@ -37,11 +37,22 @@ member's), shorter ones wrapping at their own length, so members of
 different widths stack.  A member's `bid_policy` rewrites its
 `spot_bid` row after every epoch.
 
-Differences from the JAX fleet: the `pipeline="host"` reference path
-(the frozen PR-1 marshalling, ROADMAP.md item 11) raises
-`NotImplementedError`.  PyTorch compiles nothing, so `compile_count`
-and `total_compile_count`, which count the JAX fleet's jit caches, have
-no counterpart here.
+Epoch pipelines (DESIGN.md §7.1): the default `pipeline="device"`
+reduces the per-tick metrics on the device as the ticks run, compacts
+the log there, and fetches a few-KB digest per member.
+`pipeline="host"` is the frozen reference path, op for op: the
+reference tick (`step.tick(reference=True)`, which launches no kernel),
+every per-tick metric stacked over the epoch, the full state and the
+stacks fetched to the host (counted in `d2h_bytes`), the reports built
+from the raw entry timelines (`runtime.build_report`), and compaction
+as a separate step.  Both pipelines take each epoch's draws from
+`core/draws.fleet_epoch`, so at equal seeds their reports and
+decisions are equal.  The host pipeline has no group reduction, so it
+refuses shard groups, and `run(E)` goes epoch by epoch.
+
+Differences from the JAX fleet: PyTorch compiles nothing, so
+`compile_count` and `total_compile_count`, which count the JAX fleet's
+jit caches, have no counterpart here.
 """
 from __future__ import annotations
 
@@ -57,8 +68,9 @@ from repro_torch.core import state as state_mod
 from repro_torch.core.cluster_config import ClusterConfig
 from repro_torch.core.draws import TorchDraws, fleet_epoch
 from repro_torch.core.runtime import (ClusterController, EpochReport,
-                                      device_epoch, make_cfg_arrays,
-                                      report_from_digest)
+                                      build_report, compact_state,
+                                      device_epoch, host_epoch,
+                                      make_cfg_arrays, report_from_digest)
 from repro_torch.kernels.group_digest import ops as gd_ops
 from repro_torch.trace import export as trace_export
 from repro_torch.trace import metrics as trace_metrics
@@ -71,9 +83,6 @@ _SWEEP_AXES = ("mode", "write_rate", "read_rate", "phi", "seed",
                "warning_ticks", "bid_policy", "faults", "bid_on_trace",
                "n_observers", "staleness_bound", "ae_interval",
                "trace_on")
-
-_ITEM11 = ("FleetSim(pipeline='host'), the frozen PR-1 reference path, is "
-           "not ported: ROADMAP.md, 'Modules to port', item 11")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -283,13 +292,13 @@ class FleetSim:
     Per-member dynamics equal a solo `BWRaftSim` with the same padded
     shapes and draws; the control plane runs per member on the host
     between epochs.  Runs on the card unless `device="cpu"`.  `draws`
-    is one draw source per member (default `TorchDraws(spec.seed)`)."""
+    is one draw source per member (default `TorchDraws(spec.seed)`).
+    `pipeline` is `"device"` (the digest path) or `"host"` (the original
+    reference path, DESIGN.md §7.1)."""
 
     def __init__(self, specs: Sequence[MemberSpec], *,
                  pipeline: str = "device", device=None, draws=None):
-        if pipeline == "host":
-            raise NotImplementedError(_ITEM11)
-        if pipeline != "device":
+        if pipeline not in ("device", "host"):
             raise ValueError(f"pipeline={pipeline!r}")
         self.pipeline = pipeline
         self.device = resolve_device(device)
@@ -362,6 +371,10 @@ class FleetSim:
             [order.index(s.group_id) if s.group_id >= 0 else self.n_groups
              for s in specs], dtype=torch.int32, device=self.device)
         self._group_reports: Dict[int, List] = {g: [] for g in order}
+        if pipeline == "host" and self.n_groups:
+            raise ValueError("shard groups need the device pipeline (the "
+                             "host pipeline is the frozen reference "
+                             "and has no group reduction)")
 
         self._bstatic = state_mod.stack_static(
             [m.static for m in self.members], self.device)
@@ -375,11 +388,12 @@ class FleetSim:
         if len(self.draws) != len(specs):
             raise ValueError(f"{len(self.draws)} draw sources for "
                              f"{len(specs)} members")
-        # cumulative device->host bytes of the epoch digests and trace
-        # drains
+        # cumulative device->host bytes of the epoch digests (the full
+        # state and metric stacks on the host pipeline) and trace drains
         self.d2h_bytes = 0
         # the most recent epoch's per-member digest (numpy, leading axis
-        # = member) and per-group digest (leading axis = group slot)
+        # = member) and per-group digest (leading axis = group slot);
+        # the host pipeline makes none
         self.last_digest: Optional[Dict] = None
         self.last_group_digest: Optional[Dict] = None
         self._trace_cursors = [trace_export.DrainCursor(member=i)
@@ -470,6 +484,8 @@ class FleetSim:
         """One epoch of every member: the batched device epoch, one
         digest fetch for all members, then each managing member's control
         plane, whose leases are written back as the managed rows only."""
+        if self.pipeline == "host":
+            return self._run_epoch_host()
         dg = self._fetch(self._epoch())
         if self.n_groups:
             self.last_group_digest = dg.pop("group")
@@ -485,20 +501,10 @@ class FleetSim:
             dgi = {k: v[i] for k, v in dg.items()}
             rep = report_from_digest(m.epoch, dgi)
             if m.manage:
-                dec = m.controller.decide(
-                    rep, float(np.mean(dgi["spot_price"][:m.cfg.num_sites])))
-                rep.decision = dec
                 managed_rows.append(i)
-                # warned secretaries/observers are replaced on top of
-                # Algorithm 1's delta and drop out of the wiring (§12)
-                warned, roles = dgi["warned"], dgi["role"]
-                managed_vals.append(m.controller.lease(
-                    dgi["role"], dgi["alive"],
-                    max(dec.dk_s, 0) + int(((roles == state_mod.SECRETARY)
-                                            & warned).sum()),
-                    max(dec.dk_o, 0) + int(((roles == state_mod.OBSERVER)
-                                            & warned).sum()),
-                    warned=warned))
+                managed_vals.append(self._lease_managed(
+                    m, rep, dgi["spot_price"], dgi["role"], dgi["alive"],
+                    dgi["warned"]))
             m.controller.end_epoch(rep)
             m.epoch += 1
             m.reports.append(rep)
@@ -506,6 +512,75 @@ class FleetSim:
         self._apply_bid_policies()
         if managed_rows:
             self._write_rows(managed_rows, managed_vals)
+        return out
+
+    @staticmethod
+    def _lease_managed(m, rep: EpochReport, spot_price, role, alive,
+                       warned) -> Tuple:
+        """Member `m`'s control plane on one epoch's report: Algorithm
+        1's decision (kept on the report) and the lease, which replaces
+        warned secretaries and observers on top of its delta and drops
+        them from the wiring (DESIGN.md §12)."""
+        dec = m.controller.decide(
+            rep, float(np.mean(spot_price[:m.cfg.num_sites])))
+        rep.decision = dec
+        n_warned = lambda r: int(((role == r) & warned).sum())
+        return m.controller.lease(
+            role, alive, max(dec.dk_s, 0) + n_warned(state_mod.SECRETARY),
+            max(dec.dk_o, 0) + n_warned(state_mod.OBSERVER), warned=warned)
+
+    def _run_epoch_host(self) -> List[EpochReport]:
+        """The original reference epoch (DESIGN.md §7.1): the pre-epoch
+        leader terms, T reference ticks, the full state and the
+        per-tick metric stacks fetched to the host, each member's report
+        built from its raw entry timelines, the control plane, the bid
+        policies, then compaction as a separate step."""
+        bundle = fleet_epoch(self.draws, self.shapes.T, self._state,
+                             self._cfg_c)
+        cost_before = self._state["cost_accrued"].cpu().numpy()
+        # the pre-epoch leader terms, so that build_report counts a
+        # leader change on the epoch's first tick too
+        role0, alive0, term0 = (self._state[k].cpu().numpy()
+                                for k in ("role", "alive", "term"))
+        self.d2h_bytes += role0.nbytes + alive0.nbytes + term0.nbytes
+        ids = np.arange(role0.shape[1])
+        lid0 = np.where((role0 == state_mod.LEADER) & alive0,
+                        ids[None, :], -1).max(axis=1)
+        lt0 = np.where(lid0 >= 0,
+                       term0[np.arange(role0.shape[0]),
+                             np.maximum(lid0, 0)], -1)
+
+        self._state, ms = host_epoch(self._state, self._bstatic,
+                                     self._cfg_c, bundle, self.shapes.T)
+        st_np, ms_np = _to_host(self._state), _to_host(ms)
+        self.d2h_bytes += _nbytes(st_np) + _nbytes(ms_np) + \
+            cost_before.nbytes
+        wiring = {k: st_np[k].copy()
+                  for k in ("role", "alive", "sec_of", "obs_of")}
+        out = []
+        for i, m in enumerate(self.members):
+            sti = {k: v[i] for k, v in st_np.items()}
+            rep = build_report(m.epoch, sti,
+                               {k: v[i] for k, v in ms_np.items()},
+                               float(cost_before[i]),
+                               leader_term0=int(lt0[i]))
+            if m.manage:
+                warned = sti["alive"] & (sti["warn_timer"] >= 0)
+                leased = self._lease_managed(
+                    m, rep, sti["spot_price"], wiring["role"][i],
+                    wiring["alive"][i], warned)
+                for k, v in zip(wiring, leased):
+                    wiring[k][i] = v
+            m.controller.end_epoch(rep)
+            m.epoch += 1
+            m.reports.append(rep)
+            out.append(rep)
+        self._apply_bid_policies()
+        self._state = compact_state(dict(self._state, **{
+            k: torch.as_tensor(v, device=self.device)
+            for k, v in wiring.items()}))
+        if self._tracing():
+            self.drain_trace()
         return out
 
     def _apply_bid_policies(self) -> None:
@@ -597,11 +672,11 @@ class FleetSim:
     @property
     def single_dispatch_eligible(self) -> bool:
         """True when `run(E)` can run its E epochs with no host read
-        between them: no member runs the per-epoch control plane or a
-        per-epoch bid policy (bid updates are host writes between
-        epochs, DESIGN.md §12)."""
-        return not any(m.manage or m.spec.bid_policy is not None
-                       for m in self.members)
+        between them: the device pipeline, and no member runs the
+        per-epoch control plane or a per-epoch bid policy (bid updates
+        are host writes between epochs, DESIGN.md §12)."""
+        return self.pipeline == "device" and not any(
+            m.manage or m.spec.bid_policy is not None for m in self.members)
 
     def _run_scan(self, epochs: int) -> None:
         """The multi-epoch path: `epochs` device epochs back to back with
@@ -642,8 +717,9 @@ class FleetSim:
         if single_dispatch is None:
             single_dispatch = epochs > 1 and self.single_dispatch_eligible
         if single_dispatch and not self.single_dispatch_eligible:
-            raise ValueError("a single-dispatch run needs a fleet with no "
-                             "managing member and no bid policy")
+            raise ValueError("a single-dispatch run needs the device "
+                             "pipeline, no managing member and no bid "
+                             "policy")
         start = len(self.members[0].reports)
         if single_dispatch:
             self._run_scan(epochs)

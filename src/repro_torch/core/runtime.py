@@ -9,6 +9,11 @@ keeps the JAX contract of DESIGN.md §7.1: per-tick metrics are reduced
 on the device as the ticks run, the log is compacted on the device, and
 only the few-KB digest crosses to the host, once per epoch.
 
+`host_epoch` and `build_report` are the frozen host path of
+`FleetSim(pipeline="host")` (DESIGN.md §7.1): reference ticks with the
+per-tick metrics stacked, the report built on the host from the full
+state.
+
 The epoch's randomness is one draw bundle made before its first tick
 (`core/draws.py`); the tick loop never reads a tensor on the host, so it
 can later be captured as a CUDA graph.  `device_epoch` runs on trees
@@ -236,6 +241,61 @@ class EpochReport:
         return (self.reads_served + self.writes_committed) / 1.0
 
 
+def build_report(epoch: int, st: Dict, ms: Dict, cost_before: float,
+                 leader_term0: Optional[int] = None) -> EpochReport:
+    """One cluster's post-epoch state and per-tick metrics (numpy,
+    metric leaves shaped (T, ...)) as an EpochReport: the host
+    reference path of `FleetSim(pipeline="host")`, which needs the full
+    state (DESIGN.md §7.1); `report_from_digest` is the hot path.
+
+    `leader_term0` is the pre-epoch leader term (-1 = no leader),
+    prepended to the per-tick leader terms, so that a leader change on
+    the epoch's first tick counts, as `_digest_acc_init` seeds it; None
+    keeps the within-epoch difference only."""
+    lt = np.asarray(ms["leader_term"])
+    if leader_term0 is not None:
+        lt = np.concatenate([[np.int64(leader_term0)],
+                             lt.astype(np.int64)])
+    sub_t = np.asarray(st["entry_submit_t"])
+    com_t = np.asarray(st["entry_commit_t"])
+    done = (sub_t >= 0) & (com_t >= 0)
+    lat = (com_t[done] - sub_t[done]).astype(float)
+    reads_served = int(st["reads_served"])
+    _, _, read_p95, read_p99 = hist_stats(st["read_lat_hist"])
+    _, _, stale_p95, stale_p99 = hist_stats(st["obs_stale_hist"])
+    return EpochReport(
+        read_lat_p95=read_p95,
+        read_lat_p99=read_p99,
+        n_warned=int((np.asarray(st["alive"]) &
+                      (np.asarray(st["warn_timer"]) >= 0)).sum()),
+        obs_reads_served=int(st["obs_reads_served"]),
+        obs_rerouted=int(st["obs_rerouted"]),
+        obs_stale_p95=stale_p95,
+        obs_stale_p99=stale_p99,
+        n_obs_digest=int(np.asarray(st["dobs_alive"]).sum()),
+        epoch=epoch,
+        reads_arrived=int(st["reads_arrived"]),
+        writes_arrived=int(st["writes_arrived"]),
+        reads_served=reads_served,
+        writes_committed=int(done.sum()),
+        read_lat_mean=float(st["read_lat_sum"] / max(reads_served, 1)),
+        read_lat_max=float(st["read_lat_max"]),
+        write_lat_mean=float(lat.mean()) if lat.size else float("nan"),
+        write_lat_p95=float(np.percentile(lat, 95)) if lat.size
+        else float("nan"),
+        write_lat_p99=float(np.percentile(lat, 99)) if lat.size
+        else float("nan"),
+        cost=float(st["cost_accrued"]) - cost_before,
+        n_secretaries=int(ms["n_secretaries"][-1]),
+        n_observers=int(ms["n_observers"][-1]),
+        leader_changes=int((np.diff(lt) > 0).sum()),
+        no_leader_ticks=int((ms["has_leader"] == 0).sum()),
+        killed=int(ms["killed"].sum()),
+        metrics=(trace_metrics.as_dict(st["metrics_ctr"])
+                 if "metrics_ctr" in st else None),
+    )
+
+
 def _digest_acc_init(leader_term0) -> Dict:
     """In-loop accumulators for the per-tick metric reductions, seeded
     with the pre-epoch leader term (-1 = no leader) so that a leader
@@ -327,6 +387,22 @@ def device_epoch(state: Dict, static, cfg_c: Dict, bundle: Dict,
         acc = _digest_acc_update(acc, m)
     digest = _finalize_digest(state, acc, cost_before, T, cfg_c)
     return compact_state(state), digest
+
+
+def host_epoch(state: Dict, static, cfg_c: Dict, bundle: Dict,
+               T: int) -> Tuple[Dict, Dict]:
+    """One epoch of the host reference path (DESIGN.md §7.1): T
+    reference ticks (`step.tick(reference=True)`, no kernel launched)
+    over the `(T, B, ...)` bundle, with no in-loop digest and no
+    compaction.  Returns `(state, metrics)`, each metric stacked over
+    the ticks as `(B, T, ...)`, both on the state's device."""
+    ms = []
+    for t in range(T):
+        state, m = step_mod.tick(state, static, cfg_c, row(bundle, t),
+                                 reference=True)
+        ms.append(m)
+    return state, {k: torch.stack([m[k] for m in ms], dim=1)
+                   for k in ms[0]}
 
 
 def hist_percentile(counts: np.ndarray, q: float) -> float:

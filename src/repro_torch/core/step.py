@@ -19,6 +19,16 @@ per tick for the whole fleet.  One cluster is B = 1 (`state.batch1`).
 Members never couple: every reduction runs over the node axis (`dim=-1`
 or 1), every gather and scatter stays inside its member's row.
 
+`reference=True` runs the frozen formulations, as JAX's
+`tick(reference=True)` does (DESIGN.md §7.1): the follower's (B, N, W)
+gather and masked scatter, and on any device the plain twins of the
+other four hot ops (the commit's and the apply's twins are the original
+count matrix and sequential scatters), so a reference tick launches no
+kernel.  It is the op-for-op baseline, chosen only by that argument,
+never a fallback: the default tick launches the kernels on CUDA.
+`spot_step_reference` is the frozen pre-§12 market step (DESIGN.md
+§12), which `spot_step` equals at a zero warning window.
+
 Differences from the JAX tick, all of form and none of result:
 
 * randomness comes in as one row of the epoch's draw bundle
@@ -41,8 +51,11 @@ from repro_torch.core.state import (CANDIDATE, DEAD, FOLLOWER, LEADER,
                                     OBSERVER, SECRETARY, entry_mix,
                                     leader_id)
 from repro_torch.kernels.ae_sync import ops as ae_ops
+from repro_torch.kernels.ae_sync import ref as ae_ref
 from repro_torch.kernels.leader_fanout import ops as lf_ops
+from repro_torch.kernels.leader_fanout import ref as lf_ref
 from repro_torch.kernels.raft_tick import ops as rt_ops
+from repro_torch.kernels.raft_tick import ref as rt_ref
 from repro_torch.trace import metrics as trace_metrics
 from repro_torch.trace import ring as trace_ring
 
@@ -107,6 +120,14 @@ def _scatter_add_drop(vec, idx, src) -> torch.Tensor:
     that is cut off."""
     ext = torch.cat([vec, vec.new_zeros((vec.shape[0], 1))], dim=1)
     return ext.scatter_add(1, idx.long(), src.to(vec.dtype))[:, :-1]
+
+
+def _put_drop(dst, idx, src) -> torch.Tensor:
+    """A copy of (B, n, m) `dst` with dst[b, i, idx[b, i, k]] =
+    src[b, i, k], lanes at idx == m dropped (JAX's `.set(mode="drop")`);
+    the kept lanes of a row must not repeat an index."""
+    ext = torch.cat([dst, dst.new_zeros((*dst.shape[:2], 1))], dim=2)
+    return ext.scatter(2, idx.long(), src.to(dst.dtype))[..., :-1]
 
 
 def _ids(n, like) -> torch.Tensor:
@@ -226,6 +247,26 @@ def spot_step(state, static, cfg_c, draws):
         state = dict(state, dobs_alive=d_alive & ~killed_d,
                      dobs_warn=_i32(torch.where(killed_d, -1, timer_d)))
     return state, killed
+
+
+def spot_step_reference(state, static, cfg_c, draws):
+    """The frozen pre-§12 site-level market step (DESIGN.md §12):
+    immediate kills of spot nodes at revoked sites or by the i.i.d.
+    `phi` draw, no warning window, no per-node columns, no chaos
+    schedules, no digest-tier kills, no trace records.  It reads the
+    same `draws["price"]` and `draws["fail_u"]` as `spot_step`, which
+    equals it at `warn_ticks = 0` with no faults and the init-time bid."""
+    use_trace = cfg_c["market_trace"]
+    t = state["tick"] % cfg_c["trace_len"]
+    price = torch.where(_c(use_trace), _col(cfg_c["price_trace"], t),
+                        draws["price"])
+    revoked_site = torch.where(_c(use_trace), _col(cfg_c["revoke_trace"], t),
+                               price > cfg_c["spot_bid"])
+    iid_fail = draws["fail_u"] < _c(cfg_c["phi"])
+    killed = ~static["is_voter"] & state["alive"] & \
+        (_take(revoked_site, static["site"]) | iid_fail)
+    return dict(state, spot_price=price, alive=state["alive"] & ~killed,
+                role=_i32(torch.where(killed, DEAD, state["role"]))), killed
 
 
 def workload_step(state, static, cfg_c, draws):
@@ -380,10 +421,11 @@ def election_step(state, static, cfg_c, draws):
                node=ids, term=term, counter="sec_stops")
 
 
-def leader_step(state, static, cfg_c, draws):
+def leader_step(state, static, cfg_c, draws, *, reference=False):
     """Each member's leader accepts queued writes into its log
     (capacity- and space-bounded) and ships budgeted AppendEntries
-    batches through the `leader_fanout` kernel (DESIGN.md §8)."""
+    batches through the `leader_fanout` kernel (DESIGN.md §8), or with
+    `reference` through its plain twin on any device."""
     B, N, L = state["log_term"].shape
     K = state["kv"].shape[2]
     lid = leader_id(state)
@@ -450,8 +492,9 @@ def leader_step(state, static, cfg_c, draws):
         node=lid_c, term=lterm, aux=n_prep, counter="twopc_prepared",
         count=n_prep)
 
+    fanout = lf_ref.leader_fanout_ref if reference else lf_ops.leader_fanout
     (app_arrive_t, app_from_len, app_upto, app_term, app_commit,
-     work) = lf_ops.leader_fanout(
+     work) = fanout(
         state["role"], state["alive"], state["warn_timer"],
         state["sec_of"], state["match_len"], state["app_arrive_t"],
         state["app_from_len"], state["app_upto"], state["app_term"],
@@ -464,11 +507,14 @@ def leader_step(state, static, cfg_c, draws):
                 leader_work=_add_at(state["leader_work"], lid_c, work))
 
 
-def follower_step(state, static, cfg_c):
+def follower_step(state, static, cfg_c, *, reference=False):
     """Deliver due append batches through the `log_match_append` kernel
     (log-matching check, conflict truncation, window adopt), adopt the
     term, learn the commit, reset the election timer, schedule acks.  On
-    CUDA the three logs are updated in place."""
+    CUDA the three logs are updated in place.  `reference` runs the
+    original form instead: the (B, N, W) gather of the leader's window and
+    its masked scatter back (DESIGN.md §7.1); the kernel's twin is the
+    later window select."""
     N = state["role"].shape[1]
     tick = state["tick"]
     lid = leader_id(state)
@@ -479,10 +525,15 @@ def follower_step(state, static, cfg_c):
     due = delivered & (state["app_term"] >= state["term"]) & _c(lid >= 0)
     # the leaders' rows as separate copies (the kernel writes in place)
     ldr = [_at(state[k], lid_c) for k in ("log_term", "log_key", "log_val")]
-    log_term, log_key, log_val, new_len, accept = rt_ops.log_match_append(
-        state["log_term"], state["log_key"], state["log_val"], *ldr,
-        state["log_len"], state["app_from_len"], state["app_upto"], due,
-        w=static["max_ship"])
+    if reference:
+        log_term, log_key, log_val, new_len, accept = _log_match_reference(
+            state, ldr, due, static["max_ship"])
+    else:
+        log_term, log_key, log_val, new_len, accept = \
+            rt_ops.log_match_append(
+                state["log_term"], state["log_key"], state["log_val"],
+                *ldr, state["log_len"], state["app_from_len"],
+                state["app_upto"], due, w=static["max_ship"])
     nack = due & ~accept
     term = torch.where(due, torch.maximum(state["term"], state["app_term"]),
                        state["term"])
@@ -512,12 +563,42 @@ def follower_step(state, static, cfg_c):
                 app_arrive_t=_i32(app_arrive_t))
 
 
-def commit_step(state, static, cfg_c):
+def _log_match_reference(state, ldr, due, W):
+    """The original follower form: log-matching at prev = from - 1, then the
+    leader's window [from, min(upto, from + W)) gathered as (B, N, W)
+    and scattered back into each accepting follower's row."""
+    B, N, L = state["log_term"].shape
+    frm, upto, log_len = (state["app_from_len"], state["app_upto"],
+                          state["log_len"])
+    prev = frm - 1
+    prev_c = prev.clamp(0, L - 1)
+    my_prev = torch.gather(state["log_term"], 2,
+                           prev_c.long()[..., None])[..., 0]
+    same = my_prev == _take(ldr[0], prev_c)
+    accept = due & ((prev < 0) | same)
+    widx = torch.where(accept, frm, 0)[..., None] + \
+        torch.arange(W, dtype=_I32, device=frm.device)
+    valid = accept[..., None] & (widx < upto[..., None]) & (widx < L)
+    widx_c = widx.clamp(0, L - 1).long()
+    put = torch.where(valid, widx_c, L)
+    logs = tuple(
+        _put_drop(state[k], put,
+                  torch.gather(row[:, None, :].expand(B, N, L), 2, widx_c))
+        for k, row in zip(("log_term", "log_key", "log_val"), ldr))
+    new_len = torch.where(accept, torch.minimum(upto, frm + W), log_len)
+    new_len = torch.where(accept & (log_len > new_len) & same,
+                          torch.maximum(log_len, new_len), new_len)
+    return (*logs, _i32(new_len), accept)
+
+
+def commit_step(state, static, cfg_c, *, reference=False):
     """Each leader ingests due acks (budgeted like the fan-out) into
     match_len and commits the majority-replicated current-term prefix
     through the `commit_majority` kernel, with its member's own
     majority; commit times carry the 2PC charge of cross-shard entries
-    (DESIGN.md §9)."""
+    (DESIGN.md §9).  `reference` runs the kernel's twin on any device:
+    the original form, a (B, L, N) count of the alive voters at match_len >=
+    l for every l (DESIGN.md §7.1)."""
     L = state["log_term"].shape[2]
     tick = state["tick"]
     lid = leader_id(state)
@@ -540,9 +621,11 @@ def commit_step(state, static, cfg_c):
         has_leader, _at(state["log_len"], lid_c), _at(match_len, lid_c)))
 
     lterm = _at(state["term"], lid_c)
-    commit = rt_ops.commit_majority(
-        match_len, static["is_voter"] & state["alive"],
-        _at(state["log_term"], lid_c), lterm, static["majority"])
+    majority = rt_ref.commit_majority_ref if reference else \
+        rt_ops.commit_majority
+    commit = majority(match_len, static["is_voter"] & state["alive"],
+                      _at(state["log_term"], lid_c), lterm,
+                      static["majority"])
     c0 = _at(state["commit_len"], lid_c)
     new_commit = torch.where(has_leader, torch.maximum(c0, commit), 0)
     ar = _ids(L, c0)
@@ -569,11 +652,13 @@ def commit_step(state, static, cfg_c):
     return trace_metrics.bump(state, "entries_committed", n_new)
 
 
-def apply_step(state, static, cfg_c):
+def apply_step(state, static, cfg_c, *, reference=False):
     """Every alive node applies up to `max_apply` committed entries, in
     log order, through the `apply_last_wins` kernel (in place on CUDA),
     and folds their mixes into its rolling applied-prefix digest
-    (DESIGN.md §13)."""
+    (DESIGN.md §13).  `reference` runs the kernel's twin on any device:
+    the original form, A sequential scatters in log order (DESIGN.md
+    §7.1)."""
     L = state["log_term"].shape[2]
     A = static["max_apply"]
     base = state["applied_len"]
@@ -586,7 +671,9 @@ def apply_step(state, static, cfg_c):
     gi = idx_c.long()
     keys = torch.gather(state["log_key"], 2, gi)
     vals = torch.gather(state["log_val"], 2, gi)
-    kv = rt_ops.apply_last_wins(state["kv"], keys, vals, valid)
+    apply = rt_ref.apply_last_wins_ref if reference else \
+        rt_ops.apply_last_wins
+    kv = apply(state["kv"], keys, vals, valid)
     contrib = torch.where(valid, entry_mix(idx_c, keys, vals), 0)
     digest = state["applied_digest"]
     for a in range(A):
@@ -611,13 +698,14 @@ def observer_sync_step(state, static, cfg_c):
     return dict(state, **out)
 
 
-def anti_entropy_step(state, static, cfg_c):
+def anti_entropy_step(state, static, cfg_c, *, reference=False):
     """The digest tier's anti-entropy round (DESIGN.md §13) through the
     `ae_sync` kernel: a due slot adopts its source's (applied, term,
     digest) monotonically and ages by the sync hop.  The due rule and
     the source are computed here too, as in the JAX phase, for the
-    `ae_sync`/`ae_fallback` events and counters.  A python no-op when the
-    tier has no slot."""
+    `ae_sync`/`ae_fallback` events and counters.  `reference` runs the
+    round through the kernel's plain twin on any device.  A python no-op
+    when the tier has no slot."""
     if state["dobs_alive"].shape[1] == 0:
         return state
     tick = state["tick"]
@@ -626,7 +714,8 @@ def anti_entropy_step(state, static, cfg_c):
     due = state["dobs_alive"] & (fol_ok | _c(any_voter)) & \
         ((_c(tick) + cfg_c["ae_phase"]) % interval == 0)
     src_applied = _take(state["applied_len"], eff)
-    applied, term, digest, synced = ae_ops.ae_sync(
+    sync = ae_ref.ae_sync_ref if reference else ae_ops.ae_sync
+    applied, term, digest, synced = sync(
         state["dobs_alive"], state["dobs_fol"], state["dobs_applied"],
         state["dobs_term"], state["dobs_digest"], state["dobs_synced_t"],
         cfg_c["ae_phase"], static["dobs_site"], state["alive"],
@@ -749,20 +838,22 @@ def cost_step(state, static, cfg_c):
     return dict(state, cost_accrued=state["cost_accrued"] + per_tick)
 
 
-def tick(state, static, cfg_c, draws) -> Tuple[Dict, Dict]:
+def tick(state, static, cfg_c, draws, *,
+         reference: bool = False) -> Tuple[Dict, Dict]:
     """One full protocol tick of every member, given this tick's
     (B, ...) row of the draw bundle.  Returns (state, per-tick metrics)
     with the JAX tick's metric names, each with the leading member
-    axis."""
+    axis.  `reference=True` runs the frozen forms and the plain
+    twins, and launches no kernel (DESIGN.md §7.1)."""
     state, killed = spot_step(state, static, cfg_c, draws)
     state = workload_step(state, static, cfg_c, draws)
     state = election_step(state, static, cfg_c, draws)
-    state = leader_step(state, static, cfg_c, draws)
-    state = follower_step(state, static, cfg_c)
-    state = commit_step(state, static, cfg_c)
-    state = apply_step(state, static, cfg_c)
+    state = leader_step(state, static, cfg_c, draws, reference=reference)
+    state = follower_step(state, static, cfg_c, reference=reference)
+    state = commit_step(state, static, cfg_c, reference=reference)
+    state = apply_step(state, static, cfg_c, reference=reference)
     state = observer_sync_step(state, static, cfg_c)
-    state = anti_entropy_step(state, static, cfg_c)
+    state = anti_entropy_step(state, static, cfg_c, reference=reference)
     state, (read_served, read_lat, obs_served, obs_stale) = \
         read_step(state, static, cfg_c)
     state = cost_step(state, static, cfg_c)

@@ -162,8 +162,9 @@ def test_batched_tick_has_no_coupling():
 def test_fleet_guards_and_unported_fields():
     """The shard-group guards raise as the JAX fleet's asserts do; each
     host-service field (DESIGN.md §10-§12) is accepted, a trace market
-    without a trace gets the JAX package's message, and the host
-    pipeline raises NotImplementedError naming the ROADMAP item."""
+    without a trace gets the JAX package's message, the host pipeline
+    builds but refuses shard groups (JAX asserts the same), and an
+    unknown pipeline is refused."""
     cfg = port_config(small_config())
     shard = TMR.shard_specs(cfg, shards=2, cross_shard_frac=0.1)
     with pytest.raises(ValueError, match="ragged-group"):
@@ -193,7 +194,11 @@ def test_fleet_guards_and_unported_fields():
     assert bool(f._cfg_c["market_trace"][0]) and f.trace_ticks == 60
     with pytest.raises(ValueError, match="needs a market.MarketTrace"):
         TFleet([TSpec(cfg=cfg, market="trace")], device="cpu")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        TFleet([TSpec(cfg=cfg)], pipeline="host", device="cpu")
+    host = TFleet([TSpec(cfg=cfg)], pipeline="host", device="cpu")
+    assert host.pipeline == "host" and not host.single_dispatch_eligible
+    with pytest.raises(ValueError, match="shard groups need the device"):
+        TFleet(shard, pipeline="host", device="cpu")
+    with pytest.raises(ValueError, match="pipeline='bogus'"):
+        TFleet([TSpec(cfg=cfg)], pipeline="bogus", device="cpu")
     with pytest.raises(ValueError, match="sweep axis"):
         TFleet.from_sweep(cfg, {"backend": ["xla"]}, device="cpu")

@@ -98,8 +98,9 @@ def test_entry_points_need_a_device():
 def test_digest_tier_builds_and_unported_fleet_paths_raise():
     """The digest tier is ported (a rack of 550 slots builds on the
     CPU); a trace market is accepted with a trace and refused without
-    one with the JAX package's message; what is not ported yet raises
-    and names its ROADMAP item."""
+    one with the JAX package's message; the host pipeline, the last
+    fleet path to be ported, builds at the paper's cluster and refuses
+    an unknown pipeline name."""
     from repro_torch.configs.bwraft_kv import CONFIG
     from repro_torch.core.fleet import FleetSim, MemberSpec
     from repro_torch.core.runtime import BWRaftSim
@@ -112,5 +113,7 @@ def test_digest_tier_builds_and_unported_fleet_paths_raise():
     assert f._cfg_c["price_trace"].shape == (1, CONFIG.num_sites, 200)
     with pytest.raises(ValueError, match="needs a market.MarketTrace"):
         FleetSim([MemberSpec(cfg=CONFIG, market="trace")], device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        FleetSim([MemberSpec(cfg=CONFIG)], pipeline="host", device="cpu")
+    host = FleetSim([MemberSpec(cfg=CONFIG)], pipeline="host", device="cpu")
+    assert host.pipeline == "host" and not host.single_dispatch_eligible
+    with pytest.raises(ValueError, match="pipeline="):
+        FleetSim([MemberSpec(cfg=CONFIG)], pipeline="bogus", device="cpu")
