@@ -29,13 +29,20 @@
     python3 chip_smoke.py --phase21  # phases 1 and 21 (the frozen
                                      # reference forms against the
                                      # kernel pipeline)
+    python3 chip_smoke.py --phase22  # phases 1 and 22 (launch/train.py
+                                     # on 4 ranks against one device)
     python3 chip_smoke.py --probe-gloo  # which functional collectives
                                      # gloo takes on CUDA tensors
     python3 chip_smoke.py --depth-witness  # phase 1, then phase 18's
                                      # llama case on the card against
                                      # the host at 4, 8 and 16 layers,
                                      # and its long bf16 2 x 2 case at 4
-                                     # with d_model sharded and whole
+                                     # with d_model sharded and whole;
+                                     # phase 19's llama bf16 at 4 and 6
+                                     # layers and seamless f32 at 2 + 2,
+                                     # host against card, and its llama
+                                     # bf16 1 x 4 case at 4 with the
+                                     # heads and MLP sharded and whole
 
 Phases, each fatal on failure, each ending in a line `phase N <seconds>
 s` (the budget is 800 s of the 1,200 s limit: a phase that is added
@@ -346,7 +353,41 @@ width, dtype, mesh, case or gate; PERF.md §4 has where it stands):
    for SPOT_GATE_TICKS ticks from a leased state at CONFIG, on the
    process market and on an exported-walk trace market: prices, kills
    and roles bit for bit, and at least one kill;
-22. a `kernels` JSON line (with each kernel's launches in phase 15,
+22. `launch/train.py` on the ranks that exist (the trainer on a mesh):
+   4 gloo ranks sharing the card (collectives staged through the host,
+   as in 18), each running `launch.train.train` of TRAIN_DIST_ARGS
+   (smollm-360m at full width cut to TRAIN_DIST_LAYERS of its 32
+   layers, bf16 weights, f32 AdamW, B 8, S 64, 4 steps, checkpoints at
+   2 and 4, pod 1 failing at 3, the coordinator on rank 0 over the
+   paper's cluster) on the (4, 1) host mesh, launch counts set to 0
+   just before and read just after; meanwhile the same function on one
+   device of the card in this process.  Gates: the initial state's
+   digest equal on the mesh and on one device; every rank's losses,
+   grad_norms, save digests and membership equal; the first step's loss
+   within TRAIN_DIST_STEP0 of one device's, every later step's and the
+   TRAIN_DIST_MORE steps' after the restore within
+   TRAIN_DIST_LATER_LOSS (the bf16 grad_norms printed: the mesh sums
+   bf16 partial products over "data", PERF.md §6, PR 31); the first
+   TRAIN_DIST_F32_STEPS steps in float32 (the same weights and batches
+   through the trainer's step with a float32 RunConfig) on the mesh:
+   each AdamW update bit for bit the same update run on one device from
+   copies of the rank's shards before it, and the first step's loss and
+   grad_norm within TRAIN_DIST_STEP0 of one device's;
+   commits [2, 4], each in the leader's replicated log and the last in
+   its state machine, one coordinator (rank 0), membership 0b1101;
+   each checkpoint's keys, shapes and dtypes those of the one-device
+   checkpoint, its manifest digest the digest of the tree read back on
+   the host and its first 3 hex digits the committed tag; the last mesh
+   checkpoint and the one-device one restored onto the mesh, each
+   rank's shard bit for bit its slice of the stored tensor, and the
+   mesh checkpoint restored on one device bit for bit the files; each
+   save's gathered bytes (`launch.comm_stats`) the closed form (each
+   sharded leaf's bytes x 3/4); rank 0 each per-tick consensus kernel
+   once a coordinator tick, ranks 1-3 none, no flash, decode or
+   `ssd_scan` launch; ms per step a rank, save, gather, restore and
+   commit ms, ticks per commit and peak memory printed (host-staged:
+   not a speed of the method);
+23. a `kernels` JSON line (with each kernel's launches in phase 15,
    `launches_train`, in phase 16(b) by model, `launches_10d`, in phase
    17 by ep, `launches_moe_ep`: none of them is on that path, in phase
    18 by case, `launches_lm_mesh`, and for decode
@@ -356,7 +397,8 @@ width, dtype, mesh, case or gate; PERF.md §4 has where it stands):
    (o, lse) form's phase-8 times `ms_lse`, `plain_ms_lse`,
    `bound_ms_lse` and their `_long`; for the six consensus kernels
    their launches on phase 21(a)'s host pipeline,
-   `launches_host_pipeline` (0)), the
+   `launches_host_pipeline` (0), and for every kernel its launches in
+   phase 22 by rank, `launches_train_dist`), the
    `total` seconds, the card line, and the last line
    `{"ok": true, "device": {...}}`.
 
@@ -4174,7 +4216,17 @@ def depth_witness(dev):
     limits as the mesh's do, the depth moves rounding, not a fault of
     the mesh.  (b) The long profile's bfloat16 case on 2 x 2 at
     WITNESS_MESH_LAYERS layers as phase 18 runs it, and again with the
-    weights' d_model kept whole on "data" (`witness_rank`)."""
+    weights' d_model kept whole on "data" (`witness_rank`).  (c) Phase
+    19's readings at the depths that failed its gates (TRAIN_WITNESS),
+    the host against the card (`train_witness`); (d) its llama bf16 case
+    on 1 x 4 with the heads and MLP sharded and whole
+    (`run_train_witness_mesh`).  (e) Phase 22's one-device steps, card
+    against card and host, at each depth of TRAIN_DIST_WITNESS_LAYERS
+    (`train_dist_witness`); (f) phase 22 itself, its gates reported, at
+    the issue's depth of 4 layers, in float32 and with d_model whole
+    (TRAIN_DIST_VARIANTS)."""
+    import os
+
     import torch
     from repro_torch.configs.base import RunConfig
     from repro_torch.launch import steps as TS
@@ -4228,6 +4280,39 @@ def depth_witness(dev):
             f"{max(r[0] for r in res):.3g}, max |d| / (1 + |x|) "
             f"{max(r[1] for r in res):.3g}, caches max_err "
             f"{max(r[2] for r in res):.3g}")
+    torch.set_num_threads(os.cpu_count() or 1)
+    for case in TRAIN_WITNESS:
+        train_witness(dev, *case)
+        free_card()
+    run_train_witness_mesh()
+    for layers in TRAIN_DIST_WITNESS_LAYERS:
+        train_dist_witness(dev, layers)
+    from repro_torch.kernels import build
+    build.build()                   # the coordinator's kernels
+    for variant in TRAIN_DIST_VARIANTS:
+        try:
+            run_train_dist(dev, variant)
+        except AssertionError as exc:         # a witness reads, not gates
+            log(f"depth witness phase 22 variant {variant}: {exc}")
+
+
+def run_train_witness_mesh():
+    """`--depth-witness` (d): read as phase 19 reads the mesh, its gates
+    reported, not applied."""
+    import tempfile
+
+    from repro_torch.launch.local_ranks import run_ranks
+    with tempfile.TemporaryDirectory() as tmp:
+        res = run_ranks(train_witness_rank, TRAIN_MESH_WORLD, tmp,
+                        timeout=TRAIN_MESH_TIMEOUT)
+    group, _, dt, layers = TRAIN_WITNESS_MESH[:4]
+    for i, o in enumerate(TRAIN_WITNESS_OVERRIDES):
+        tag = (f"depth witness mesh {group} {dt} 1x4 {layers} layers, rule "
+               f"overrides {o or 'none'}")
+        try:
+            check_train_mesh((group, dt, "1x4"), [r[i] for r in res], tag)
+        except AssertionError as exc:         # a witness reads, not gates
+            log(f"{tag}: past phase 19's gates: {exc}")
 
 
 # `--depth-witness` (b)'s depth
@@ -4258,6 +4343,144 @@ def witness_rank(rank, world, overrides):
             max(v[0] for v in r["caches"].values()))
 
 
+# `--depth-witness` (c): phase 19's readings at the depths that failed
+# its gates on the mesh (PERF.md §6, PR 30): (group, arch, dtype,
+# layers, B, S, microbatches, steps), as TRAIN_MESH_CASES runs them
+TRAIN_WITNESS = (
+    ("llama", "llama3.2-1b", "bfloat16", 4, 8, 256, 2, 2),
+    ("llama", "llama3.2-1b", "bfloat16", 6, 8, 256, 2, 2),
+    ("seamless", "seamless-m4t-medium", "float32", 2, 8, 256, 2, 1),
+)
+
+
+def train_param_past(got, want, dt, lr):
+    """(parameters past phase 19's limit, their count, max |got - want|)
+    of one leaf: float32 past TRAIN_MESH_PARAM_TOL, bfloat16 past 6 (lr +
+    one bf16 rounding of the one-device value)."""
+    d = (got.float() - want.float()).abs()
+    lim = TRAIN_MESH_PARAM_TOL if dt == "float32" else \
+        6 * (lr + 2 ** -8 * want.float().abs())
+    return int((d > lim).sum()), d.numel(), d.max().item()
+
+
+# `--depth-witness` (d): phase 19's llama bf16 case on 1 x 4 at the
+# depth that failed its grad_norm gate, on the mesh with phase 19's rules
+# and with each layer's heads and MLP whole on every rank
+TRAIN_WITNESS_MESH = ("llama", "llama3.2-1b", "bfloat16", 4, 8, 256, 2, 2)
+TRAIN_WITNESS_OVERRIDES = (
+    (), (("heads", None), ("kv_heads", None), ("mlp", None)))
+
+
+def train_witness_rank(rank, world, tmp):
+    """`--depth-witness` (d) on one rank: rank 0 makes phase 19's
+    one-device reference of TRAIN_WITNESS_MESH, then the 1 x 4 mesh runs
+    it under each rule override of TRAIN_WITNESS_OVERRIDES, fed the
+    reference's layer taps as phase 19 feeds them.  With the heads and
+    the MLP whole, no layer sums bf16-rounded partial products over
+    "model" (the vocabulary stays sharded)."""
+    import os
+
+    import torch
+    from repro_torch.launch.local_ranks import stage_through_host
+    from repro_torch.launch.mesh import make_host_mesh
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    stage_through_host()
+    torch.set_num_threads(max(1, (os.cpu_count() or world) // world))
+    dev = torch.device("cuda", 0)
+    group, arch, dt, layers, B, S, M, steps = TRAIN_WITNESS_MESH
+    mesh = make_host_mesh(model=LM_MESH_SHAPES["1x4"], device_type="cuda")
+    path = os.path.join(tmp, "ref.pt")
+    t0 = time.perf_counter()
+    file_s = None
+    if rank == 0:
+        file_s = train_mesh_reference(group, arch, dt, layers, B, S, M,
+                                      steps, (1, 4), dev, path)
+    torch.distributed.barrier()
+    ref_s = time.perf_counter() - t0
+    out = []
+    for o in TRAIN_WITNESS_OVERRIDES:
+        t1 = time.perf_counter()
+        r = train_mesh_case(group, arch, dt, layers, B, S, M, steps, mesh,
+                            "1x4", dev, rank, path, o)
+        r.update(ref_s=ref_s, ref_file_s=file_s,
+                 mesh_s=time.perf_counter() - t1)
+        r["case_s"] = r["mesh_s"]
+        out.append(r)
+    return out
+
+
+def train_witness(dev, group, arch, dt, layers, B, S, M, steps):
+    """`--depth-witness` (c), one reading: the one-device train steps of
+    phase 19's reference on the card, then on the host from the same
+    weights and batches, each host layer fed the card's input and the
+    gradient reaching the card's output (`launch.taps.TrainTaps`), read
+    as `check_train_mesh` reads the mesh: the largest relative
+    difference of loss, aux and grad_norm over the steps, the gradients'
+    ||host - card|| / ||card||, and the largest leaf share of the
+    parameters past the limit.  The host is another rounding of the same
+    sums and no mesh: readings that cross phase 19's gates as the mesh's
+    did make the depth a matter of rounding."""
+    import copy
+
+    import torch
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.launch import steps as TS
+    from repro_torch.launch.taps import TrainTaps
+    t0 = time.perf_counter()
+    cpu = torch.device("cpu")
+    cfg = lm_mesh_cfg(arch, layers)
+    rc = RunConfig(param_dtype=dt, activation_dtype=dt, num_microbatches=M)
+    step = TS.make_train_step(cfg, rc)
+    batches = train_mesh_batches(cfg, B, S, steps, dev)
+    model = train_mesh_model(cfg, rc, dev)
+    host = copy.deepcopy(model).to(cpu)
+    state = TS.init_train_state(model)
+    with TrainTaps() as taps:
+        mets = [{k: float(v) for k, v in step(state, b)[1].items()}
+                for b in batches]
+    to_cpu = lambda d: {k: v.detach().cpu() for k, v in d.items()}
+    feed = (to_cpu(taps.inputs), to_cpu(taps.grads))
+    grads = to_cpu(taps.updates[0])
+    params = to_cpu(dict(model.named_parameters()))
+    card_s = time.perf_counter() - t0
+    del model, state, taps
+    free_card()
+    h_state = TS.init_train_state(host)
+    with TrainTaps(feed=feed) as h_taps:
+        h_mets = [{k: float(v) for k, v in step(
+            h_state, {k: v.cpu() for k, v in b.items()})[1].items()}
+            for b in batches]
+    rel = lambda a, b: abs(a - b) / max(abs(b), 1e-30) if (a or b) else 0.0
+    metric = max(rel(h[k], c[k]) for h, c in zip(h_mets, mets)
+                 for k in ("loss", "aux", "grad_norm"))
+    g_rel = {n: (torch.linalg.vector_norm((g.float() - grads[n].float())) /
+                 torch.linalg.vector_norm(grads[n].float()).clamp_min(
+                     1e-30)).item()
+             for n, g in h_taps.updates[0].items()}
+    worst = max(g_rel.items(), key=lambda kv: kv[1])
+    past = {n: train_param_past(p.detach(), params[n], dt, rc.learning_rate)
+            for n, p in host.named_parameters()}
+    share = max(k / n for k, n, _ in past.values())
+    log(f"depth witness {group} {dt} {layers} layers (phase 19: B {B}, S "
+        f"{S}, M {M}, {steps} steps): host against card, each layer fed "
+        f"the card's input and output gradient: loss "
+        f"{[m['loss'] for m in h_mets]} (card {[m['loss'] for m in mets]}), "
+        f"grad_norm {[m['grad_norm'] for m in h_mets]} (card "
+        f"{[m['grad_norm'] for m in mets]}); largest relative metric "
+        f"difference {metric:.3g} (gate {TRAIN_MESH_METRIC[dt]}); "
+        f"gradients largest {worst[1]:.3g} ({worst[0]}), median "
+        f"{statistics.median(g_rel.values()):.3g} (gate "
+        f"{TRAIN_MESH_GRAD[dt]}); parameters past the limit "
+        f"{sum(k for k, _, _ in past.values())} of "
+        f"{sum(n for _, n, _ in past.values())}, largest leaf share "
+        f"{share:.3g} (gate {TRAIN_MESH_PARAM_SHARE}), max |d| "
+        f"{max(m for _, _, m in past.values()):.3g} (card {card_s:.1f} s, "
+        f"host {time.perf_counter() - t0 - card_s:.1f} s)")
+    del host, h_state, h_taps, feed
+    return metric, worst[1], share
+
+
 # --------------------------------------------------------------------- #
 # phase 19: the train step on DTensors, the cross layers and the encoder
 # on a mesh (ROADMAP.md §1 item 10e part 2c)
@@ -4280,8 +4503,11 @@ TRAIN_MESH_SEED = 29
 # grad_norm 0.014 apart at 4 layers and 0.0213 at 6 against the 1e-2
 # gate, 0.002 at 8; seamless's updated parameters a leaf share 0.00293
 # past the limit at 2 + 2 and 0.00195 at 4 + 4 against 1e-3, 8.68e-5 at
-# 6 + 6); these two have no second witness of their cause yet (PERF.md
-# §7), so they keep the depths at which they were read
+# 6 + 6); `--depth-witness` (c) and (d) read their cause (PERF.md §6, PR
+# 31): seamless's is rounding (the host against the card crosses the
+# gate too), llama's the mesh's bf16 partial sums over "model" (with the
+# heads and MLP whole its 1 x 4 reading falls to 7.01e-7); they keep the
+# depths at which they were read
 TRAIN_MESH_CASES = (
     ("llama", "llama3.2-1b", "float32", 4, 8, 256, 2, 2, ("2x2", "1x4")),
     ("llama", "llama3.2-1b", "bfloat16", 8, 8, 256, 2, 2, ("2x2", "1x4")),
@@ -4408,9 +4634,10 @@ def gather_wire_want(cfg, rc, mesh, calls):
 
 
 def train_mesh_case(group, arch, dt, layers, B, S, M, steps, mesh, mname,
-                    dev, rank, path):
+                    dev, rank, path, overrides=()):
     """One case on one mesh, on this rank: the mesh's train steps fed the
-    one-device reference's layer taps, compared shard by shard."""
+    one-device reference's layer taps, compared shard by shard
+    (`overrides` on the sharding rules: `--depth-witness` (d))."""
     import torch
     from repro_torch import kernels as K_
     from repro_torch.configs.base import RunConfig
@@ -4419,7 +4646,7 @@ def train_mesh_case(group, arch, dt, layers, B, S, M, steps, mesh, mname,
     from repro_torch.launch.taps import TrainTaps
     from repro_torch.sharding.axes import local_part, resolve_rules, shard_lm
     laps = [time.perf_counter()]
-    cfg = lm_mesh_cfg(arch, layers)
+    cfg = lm_mesh_cfg(arch, layers, overrides)
     rc = RunConfig(param_dtype=dt, activation_dtype=dt, num_microbatches=M,
                    zero3_at_use=True)
     ref = torch.load(path, mmap=True, weights_only=False)
@@ -4706,10 +4933,10 @@ def run_train_mesh(dev_type="cuda", reduced=False):
     return {k: v["launches"] for k, v in res[0]["serve"].items()}
 
 
-def check_train_mesh(key, rs):
+def check_train_mesh(key, rs, tag=None):
     """Print one train case and apply its gates."""
     group, dt, mname = key
-    tag = f"phase 19 train {group} {dt} {mname}"
+    tag = tag or f"phase 19 train {group} {dt} {mname}"
     r0 = rs[0]
     rel = lambda a, b: abs(a - b) / max(abs(b), 1e-30)
     metric = max(rel(m[k], w[k]) if (m[k] or w[k]) else 0.0
@@ -5190,6 +5417,586 @@ def run_reference(dev, cfg):
     return h_counts
 
 
+# --------------------------------------------------------------------- #
+# phase 22: launch/train.py on the ranks that exist (the trainer on a
+# mesh, checkpoints from and onto DTensor shards, one coordinator)
+# --------------------------------------------------------------------- #
+TRAIN_DIST_WORLD = 4
+# of smollm-360m's 32 layers, at full width: the depth at which a
+# rounding of the one-device step's sums moves its grad_norm least
+# (`--depth-witness` (e), PERF.md §6, PR 31: the host against the card
+# 0.00404 apart at 2 layers, 0.0289 at 3, 0.0442 at 4, 0.208 at 8, 0.872
+# at 32; in float32 0.0478 at 4)
+TRAIN_DIST_LAYERS = 2
+# the trainer's own arguments: B 8, S 64, 4 steps, a checkpoint every 2,
+# pod 1 failing at step 3, seed 0 (its RunConfig: bf16 weights, f32
+# AdamW, no remat, one microbatch, the train profile)
+TRAIN_DIST_ARGS = ["--arch", "smollm-360m", "--full", "--batch", "8",
+                   "--seq", "64", "--steps", "4", "--ckpt-every", "2",
+                   "--kill-at", "3", "--seed", "0"]
+TRAIN_DIST_COMMITS = [2, 4]
+TRAIN_DIST_MORE = 2              # steps from the restored checkpoint
+# gates (PERF.md §6, PR 31): the trainer's bf16 run's losses against the
+# one-device run's, the first step within phase 19's bf16 metric limit
+# (relative), every later step and the steps after the restore within
+# TRAIN_DIST_LATER_LOSS; the float32 steps below.  The bf16 grad_norms
+# are printed,
+# not gated: the (4, 1) train profile stores the weights' d_model dims
+# sharded over "data", so the mesh sums bf16-rounded partial products
+# over it, which this random model's gradients amplify (step 0 0.114
+# apart at 2 layers; in float32 6.01e-5, with d_model whole 1.9e-4), and
+# a later step's grad_norm is not fixed by its inputs on one device
+# either (host against card 0.362 at 2 layers)
+TRAIN_DIST_STEP0 = TRAIN_MESH_METRIC["bfloat16"]
+TRAIN_DIST_LATER_LOSS = 1e-2
+# what the update does, in float32 (PERF.md §6, PR 31): the trainer's
+# first TRAIN_DIST_F32_STEPS steps on the mesh, each AdamW update held,
+# bit for bit (TRAIN_DIST_UPDATE), to the same update run on one device
+# from copies of the rank's shards before it and its gradients; the
+# first step's loss and grad_norm within TRAIN_DIST_STEP0 of one
+# device's.  A later step is not held to one device's: Adam's first
+# update moves every element by about lr whatever its gradient's size,
+# so the elements whose gradients are rounding noise (sums that cancel)
+# move by a rounding's choice of sign, and the second step reads the
+# float32 one-device run 0.0532 apart in grad_norm (PERF.md §6)
+TRAIN_DIST_F32_STEPS = 2
+TRAIN_DIST_UPDATE = 0.0
+TRAIN_DIST_TIMEOUT = 300.0
+
+
+# `--depth-witness` (e) and (f): phase 22's one-device depths, and its
+# variants (4 layers; float32; the weights' d_model whole on "data")
+TRAIN_DIST_WITNESS_LAYERS = (2, 3, 4, 8, 32)
+TRAIN_DIST_VARIANTS = ({"layers": 4}, {"dtype": "float32"},
+                       {"overrides": (("embed", None),)})
+
+
+def train_dist_setup(variant=None):
+    """(cfg, runcfg) of phase 22, or of a `--depth-witness` variant
+    {"layers", "overrides" on the sharding rules, "dtype"}: the
+    trainer's own RunConfig (None) unless a dtype is named."""
+    from repro_torch.configs.base import RunConfig
+    v = variant or {}
+    cfg = lm_mesh_cfg("smollm-360m", v.get("layers", TRAIN_DIST_LAYERS),
+                      v.get("overrides", ()))
+    dt = v.get("dtype")
+    return cfg, dt and RunConfig(remat=False, num_microbatches=1,
+                                 param_dtype=dt, activation_dtype=dt)
+
+
+def ckpt_files(d, step):
+    """({keystr: array} of a checkpoint's files read on the host, its
+    manifest)."""
+    import os
+
+    import numpy as np
+    d = os.path.join(d, f"step_{step}")
+    with open(os.path.join(d, "manifest.json")) as f:
+        manifest = json.load(f)
+    out = {}
+    for i in range(manifest["shards"]):
+        with np.load(os.path.join(d, f"shard_{i}.npz")) as z:
+            out.update({k: z[k] for k in z.files})
+    return out, manifest
+
+
+def wait_for_ckpt(d, step, timeout):
+    """Until checkpoint `step` of `d` has its manifest (written last)."""
+    import os
+    path = os.path.join(d, f"step_{step}", "manifest.json")
+    t_end = time.monotonic() + timeout
+    while not os.path.exists(path):
+        if time.monotonic() > t_end:
+            raise AssertionError(f"phase 22: no checkpoint {path}")
+        time.sleep(0.2)
+
+
+def restore_on_mesh(d, step, like):
+    """Checkpoint `step` of `d` restored onto the placements of the
+    DTensor tree `like`: (the tree, its digest, the keys whose shard on
+    this rank is not bit-equal to its slice of the stored tensor or not
+    placed as `like`, the restore's ms)."""
+    import torch
+    from repro_torch.checkpoint.store import (CheckpointStore, _items,
+                                              _to_tensor, keystr)
+    from repro_torch.sharding.axes import is_dtensor, local_part
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got, digest = CheckpointStore(d).restore(step, like)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    files, _ = ckpt_files(d, step)
+    bad = []
+    for (path, g), (_, w) in zip(_items(got), _items(like)):
+        whole = _to_tensor(files[keystr(path)], "cpu")
+        if is_dtensor(w):
+            ok = g.placements == w.placements and \
+                tuple(g.shape) == tuple(whole.shape) and torch.equal(
+                    g.to_local().cpu(), local_part(whole, w.placements,
+                                                   w.device_mesh))
+        else:
+            ok = torch.equal(g.cpu(), whole)
+        if not ok:
+            bad.append(keystr(path))
+    return got, digest, bad, ms
+
+
+def train_more(rep, tree, cfg, runcfg, dev):
+    """TRAIN_DIST_MORE steps from the restored `tree`, loaded into the
+    run's state, on its mesh: [(loss, grad_norm)] of each."""
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    from repro_torch.launch import steps as TS
+    from repro_torch.launch.train import parse_args
+    a = parse_args(TRAIN_DIST_ARGS)
+    B, S, n = a.batch, a.seq, a.steps
+    step = TS.make_train_step(cfg, runcfg or RunConfig(
+        remat=False, num_microbatches=1), rep.mesh)
+    TS.load_state_tree(rep.state, tree)
+    pipe = TokenPipeline(DataConfig(cfg.vocab_size, S, B))
+    out = []
+    for i in range(n, n + TRAIN_DIST_MORE):
+        _, m = step(rep.state, pipe.batch_at(i, device=dev))
+        out.append((float(m["loss"]), float(m["grad_norm"])))
+    return out
+
+
+def train_dist_logged(coord):
+    """The CKPT_COMMIT records in the leader's replicated log, as (step,
+    tag)."""
+    from repro_torch.coord import log_records as rec
+    from repro_torch.core import state as SM
+    st = coord.sim.state
+    lid = int(SM.leader_id(st))
+    ck = rec.record_base(coord.cfg.key_space) + int(rec.RecordType.CKPT_COMMIT)
+    n = int(st["commit_len"][lid])
+    keys = st["log_key"][lid, :n].cpu().numpy()
+    vals = st["log_val"][lid, :n].cpu().numpy()
+    return [rec.unpack_ckpt(int(v)) for v in vals[keys == ck]]
+
+
+def train_dist_f32(cfg, dev, mesh):
+    """The trainer's first TRAIN_DIST_F32_STEPS steps in float32 (its
+    weights from `--seed` and its batches through
+    `launch.steps.make_train_step` with a float32 RunConfig) on `mesh`,
+    placed as the trainer places them, and on one device of the card.
+    On the mesh each AdamW update is checked where it runs: the same
+    `adamw_update` applied on one device to copies of this rank's local
+    shards of the parameters, m and v before it and of the gradients it
+    was given (clipped by the mesh's global norm) must give what the
+    mesh holds after it.  Returns {"mesh", "one": [(loss, grad_norm)] a
+    step, "update": the largest |mesh - reference| of each step over
+    the parameters, m and v}."""
+    import torch
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    from repro_torch.launch import steps as TS
+    from repro_torch.launch import train
+    from repro_torch.optim import adamw
+    from repro_torch.sharding.axes import is_dtensor
+    a = train.parse_args(TRAIN_DIST_ARGS)
+    rc = RunConfig(remat=False, num_microbatches=1, param_dtype="float32",
+                   activation_dtype="float32")
+    pipe = TokenPipeline(DataConfig(cfg.vocab_size, a.seq, a.batch))
+    real, out = adamw.adamw_update, {"update": []}
+    loc = lambda t: (t.to_local() if is_dtensor(t) else t).detach()
+
+    @torch.no_grad()
+    def checked(params, grads, opt, **kw):
+        grads = {n: grads[n].redistribute(p.device_mesh, p.placements)
+                 if is_dtensor(grads[n]) else grads[n]
+                 for n, p in params.items()}
+        before = {n: [loc(t).clone() for t in (p, opt["m"][n], opt["v"][n])]
+                  for n, p in params.items()}
+        step = opt["step"].clone()
+        res = real(params, grads, opt, **kw)
+        clip = kw.get("grad_clip", 0.0)
+        scale = torch.clamp(clip / torch.clamp(res[2]["grad_norm"], min=1e-9),
+                            max=1.0) if clip else 1.0
+        worst = 0.0
+        for n, p in params.items():
+            p0, m0, v0 = before[n]
+            real({n: p0}, {n: loc(grads[n]).float() * scale},
+                 {"m": {n: m0}, "v": {n: v0}, "step": step.clone()},
+                 **dict(kw, grad_clip=0.0))
+            for x, y in ((p0, p), (m0, opt["m"][n]), (v0, opt["v"][n])):
+                worst = max(worst, float((x - loc(y)).abs().max()))
+        out["update"].append(worst)
+        return res
+
+    for name, m in (("mesh", mesh), ("one", None)):
+        st = train.init_state(cfg, rc, seed=a.seed, device=dev)
+        if m is not None:
+            st = TS.shard_state(st, cfg, rc, m)
+        step = TS.make_train_step(cfg, rc, m)
+        adamw.adamw_update = checked if m is not None else real
+        try:
+            mets = [step(st, pipe.batch_at(i, device=dev))[1]
+                    for i in range(TRAIN_DIST_F32_STEPS)]
+        finally:
+            adamw.adamw_update = real
+        out[name] = [(float(x["loss"]), float(x["grad_norm"]))
+                     for x in mets]
+        del st, step
+    free_card()
+    return out
+
+
+def train_dist_rank(rank, world, mesh_dir, one_dir, dev_type="cuda",
+                    variant=None):
+    """One rank of phase 22: `launch.train.train` of TRAIN_DIST_ARGS on
+    the (4, 1) host mesh (every rank on the card, collectives staged
+    through the host), launch counts set to 0 just before and read just
+    after, each save's gather timed and its collectives recorded; then
+    the mesh checkpoint and the one-device run's restored onto the mesh
+    and checked shard by shard, and TRAIN_DIST_MORE steps from the
+    restored state."""
+    up = time.time()
+    import os
+
+    import torch
+    from repro_torch import kernels as K_
+    from repro_torch.checkpoint import store as ST
+    from repro_torch.checkpoint.store import tree_digest
+    from repro_torch.launch import steps as TS
+    from repro_torch.launch import train
+    from repro_torch.launch.comm_stats import (CollectiveRecorder,
+                                               total_collective_bytes)
+    from repro_torch.launch.local_ranks import stage_through_host
+    from repro_torch.sharding.axes import is_dtensor
+    dev, staged = torch.device("cpu"), ()
+    if dev_type == "cuda":
+        dev = torch.device("cuda", 0)
+        torch.cuda.set_device(dev)
+        staged = stage_through_host()
+    torch.set_num_threads(max(1, (os.cpu_count() or world) // world))
+    cfg, runcfg = train_dist_setup(variant)
+    out = {"up": up, "staged": staged, "gather_b": [], "gather_ms": []}
+    whole, shard_state = ST.whole_tree, TS.shard_state
+
+    def gathered(tree):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with CollectiveRecorder() as rec:
+            t = whole(tree)
+        torch.cuda.synchronize()
+        out["gather_ms"].append((time.perf_counter() - t0) * 1e3)
+        out["gather_b"].append(total_collective_bytes(rec.records))
+        return t
+
+    def placed(*a, **k):
+        st = shard_state(*a, **k)
+        tree = TS.state_tree(st)
+        out["init_digest"] = tree_digest(whole(tree))
+        out["gather_want"] = sum(
+            t.numel() * t.element_size() * (world - 1) // world
+            for _, t in ST._items(tree)
+            if is_dtensor(t) and any(p.is_shard() for p in t.placements))
+        out["sharded"] = sum(is_dtensor(t) and any(
+            p.is_shard() for p in t.placements) for _, t in ST._items(tree))
+        return st
+
+    ST.whole_tree, TS.shard_state = gathered, placed
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        K_.reset_launch_counts()
+        t0 = time.perf_counter()
+        rep = train.train(train.parse_args(
+            TRAIN_DIST_ARGS + ["--ckpt-dir", mesh_dir]), cfg=cfg,
+            runcfg=runcfg)
+        torch.cuda.synchronize()
+        out["train_s"] = time.perf_counter() - t0
+        out["launches"] = K_.launch_counts()
+    finally:
+        ST.whole_tree, TS.shard_state = whole, shard_state
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    for k in ("losses", "grad_norms", "step_ms", "save_ms", "digests",
+              "membership", "commits", "commit_ticks", "commit_ms"):
+        out[k] = getattr(rep, k)
+    out["coordinators"] = int(rep.coord is not None)
+    if rep.coord is not None:
+        out["logged"] = train_dist_logged(rep.coord)
+        out["last_committed"] = rep.coord.last_committed_checkpoint()
+        out["ticks"] = rep.coord.ticks
+    last = TRAIN_DIST_COMMITS[-1]
+    like = TS.state_tree(rep.state)
+    tree, digest, bad, ms = restore_on_mesh(mesh_dir, last, like)
+    out["restore_mesh"] = (digest, bad, ms)
+    wait_for_ckpt(one_dir, last, TRAIN_DIST_TIMEOUT)
+    _, o_digest, o_bad, o_ms = restore_on_mesh(one_dir, last, like)
+    out["restore_one"] = (o_digest, o_bad, o_ms)
+    out["more"] = train_more(rep, tree, cfg, runcfg, dev)
+    del tree, like
+    out["f32"] = train_dist_f32(cfg, dev, rep.mesh)
+    out["launches_after"] = K_.launch_counts()
+    return out
+
+
+def train_dist_witness(dev, layers):
+    """`--depth-witness` (e), one depth: phase 22's train steps on one
+    device (the trainer's weights from seed 0, its batches, its
+    RunConfig) on the card, again on the card, and on the host from the
+    same weights: (loss, grad_norm) a step of each.  How far apart a
+    rerun and another rounding of the same sums read is how far the
+    steps' bf16 gradients are fixed by their inputs at this depth."""
+    import copy
+
+    import torch
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    from repro_torch.launch import steps as TS
+    from repro_torch.launch import train
+    cfg, _ = train_dist_setup({"layers": layers})
+    rc = RunConfig(remat=False, num_microbatches=1)
+    a = train.parse_args(TRAIN_DIST_ARGS)
+    pipe = TokenPipeline(DataConfig(cfg.vocab_size, a.seq, a.batch))
+    batches = [pipe.batch_at(i, device="cpu") for i in range(a.steps)]
+    step = TS.make_train_step(cfg, rc)
+    t0 = time.perf_counter()
+    model = train.init_state(cfg, rc, seed=a.seed, device=dev)["params"]
+    host = copy.deepcopy(model).to("cpu")
+    out = []
+    for m, where in ((copy.deepcopy(model), dev), (model, dev),
+                     (host, torch.device("cpu"))):
+        st = TS.init_train_state(m)
+        mets = [step(st, {k: v.to(where) for k, v in b.items()})[1]
+                for b in batches]
+        out.append([(float(x["loss"]), float(x["grad_norm"]))
+                    for x in mets])
+        del m, st
+    del model, host
+    free_card()
+
+    def apart(i, k, first):
+        return max(abs(x[k] - y[k]) / abs(y[k]) for x, y in zip(
+            out[i][:1] if first else out[i][1:],
+            out[0][:1] if first else out[0][1:]))
+    log(f"depth witness phase 22 one device {layers} layers, {a.steps} "
+        f"steps: (loss, grad_norm) card {out[0]}, card rerun {out[1]}, "
+        f"host {out[2]}; step 0 apart: rerun loss {apart(1, 0, True):.3g} "
+        f"grad_norm {apart(1, 1, True):.3g}, host loss "
+        f"{apart(2, 0, True):.3g} grad_norm {apart(2, 1, True):.3g} (gate "
+        f"{TRAIN_DIST_STEP0}); later steps: rerun loss "
+        f"{apart(1, 0, False):.3g} grad_norm {apart(1, 1, False):.3g}, "
+        f"host loss {apart(2, 0, False):.3g} grad_norm "
+        f"{apart(2, 1, False):.3g} (loss gate {TRAIN_DIST_LATER_LOSS}; "
+        f"{time.perf_counter() - t0:.1f} s)")
+    return out
+
+
+def train_dist_reference(dev, one_dir, variant=None):
+    """Phase 22's reference: the same `launch.train.train` on one device
+    of the card (no process group), its initial digest, then
+    TRAIN_DIST_MORE steps from its own last checkpoint."""
+    import torch
+    from repro_torch.checkpoint.store import tree_digest
+    from repro_torch.launch import steps as TS
+    from repro_torch.launch import train
+    cfg, runcfg = train_dist_setup(variant)
+    init = {}
+    init_state = train.init_state
+
+    def recorded(*a, **k):
+        st = init_state(*a, **k)
+        init["digest"] = tree_digest(TS.state_tree(st))
+        return st
+    train.init_state = recorded
+    try:
+        t0 = time.perf_counter()
+        rep = train.train(train.parse_args(
+            TRAIN_DIST_ARGS + ["--ckpt-dir", one_dir, "--device",
+                               str(dev)]), cfg=cfg, runcfg=runcfg)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        train.init_state = init_state
+    last = TRAIN_DIST_COMMITS[-1]
+    tree, _ = rep.store.restore(last, TS.state_tree(rep.state))
+    return {"rep": rep, "init_digest": init["digest"], "wall": wall,
+            "more": train_more(rep, tree, cfg, runcfg, dev)}
+
+
+def run_train_dist(dev, variant=None):
+    """Phase 22 (or a `--depth-witness` variant of it): `launch.train` on
+    4 gloo ranks sharing the card (in a thread) and on one device of the
+    card (here, meanwhile); then the gates.  Returns each kernel's
+    launches by rank."""
+    import tempfile
+    import threading
+
+    import torch
+    from repro_torch.checkpoint.store import (CheckpointStore, _items,
+                                              _to_tensor, keystr,
+                                              tree_digest)
+    from repro_torch.launch import steps as TS
+    from repro_torch.launch.local_ranks import run_ranks
+    w0 = time.time()
+    with tempfile.TemporaryDirectory() as tmp:
+        mesh_dir, one_dir = f"{tmp}/mesh", f"{tmp}/one"
+        got = {}
+
+        def ranks():
+            try:
+                got["ranks"] = run_ranks(train_dist_rank, TRAIN_DIST_WORLD,
+                                         mesh_dir, one_dir, dev.type,
+                                         variant,
+                                         timeout=TRAIN_DIST_TIMEOUT)
+            except BaseException as exc:          # re-raised below
+                got["error"] = exc
+        th = threading.Thread(target=ranks)
+        th.start()
+        try:
+            ref = train_dist_reference(dev, one_dir, variant)
+        finally:
+            th.join()
+        if "error" in got:
+            raise AssertionError(f"phase 22: {got['error']}")
+        rs, one = got["ranks"], ref["rep"]
+        r0 = rs[0]
+        bad = []
+        # the checkpoints on the host: layout, digests, tags
+        tags = {s: int(d[:3], 16) for s, d, _ in r0["commits"]}
+        one_tree = TS.state_tree(one.state)
+        for s in TRAIN_DIST_COMMITS:
+            mesh, man = ckpt_files(mesh_dir, s)
+            ref_f, _ = ckpt_files(one_dir, s)
+            if {k: (a.shape, a.dtype) for k, a in mesh.items()} != \
+                    {k: (a.shape, a.dtype) for k, a in ref_f.items()}:
+                bad.append(f"step {s}: keys, shapes or dtypes differ from "
+                           f"the one-device checkpoint")
+            del ref_f
+            host = {}                 # the files as the state's tree
+            for path, _ in _items(one_tree):
+                node = host
+                for k in path[:-1]:
+                    node = node.setdefault(k, {})
+                node[path[-1]] = _to_tensor(mesh[keystr(path)], "cpu")
+            if not man["digest"] == tree_digest(host) or \
+                    int(man["digest"][:3], 16) != tags.get(s):
+                bad.append(f"step {s}: manifest {man['digest']}, read back "
+                           f"{tree_digest(host)}, tag {tags.get(s)}")
+            if s == TRAIN_DIST_COMMITS[-1]:
+                # the mesh checkpoint restored on one device of the card
+                t0 = time.perf_counter()
+                on_one, digest = CheckpointStore(mesh_dir).restore(
+                    s, one_tree)
+                torch.cuda.synchronize()
+                one_restore_ms = (time.perf_counter() - t0) * 1e3
+                if digest != man["digest"]:
+                    bad.append(f"one-device restore: digest {digest}")
+                for (path, a), (_, b) in zip(_items(on_one), _items(host)):
+                    if a.dtype != b.dtype or not torch.equal(a.cpu(), b):
+                        bad.append(f"one-device restore of {keystr(path)}")
+                del on_one
+            del mesh, host
+        del one_tree
+    cfg, rc = train_dist_setup(variant)
+    rel = lambda a, b: abs(a - b) / max(abs(b), 1e-30)
+    loss0 = max(rel(r["losses"][0], one.losses[0]) for r in rs)
+    gn0 = max(rel(r["grad_norms"][0], one.grad_norms[0]) for r in rs)
+    later = {k: max(rel(x, y) for r in rs for x, y in zip(
+        r[ks][1:], getattr(one, ks)[1:]))
+        for k, ks in (("loss", "losses"), ("grad_norm", "grad_norms"))}
+    more = {k: max(rel(x[i], y[i]) for r in rs for x, y in zip(
+        r["more"], ref["more"])) for i, k in enumerate(("loss", "grad_norm"))}
+    f32 = [max(rel(r["f32"]["mesh"][s][i], r["f32"]["one"][s][i])
+               for r in rs for i in range(2))
+           for s in range(TRAIN_DIST_F32_STEPS)]
+    update = [max(r["f32"]["update"][s] for r in rs)
+              for s in range(TRAIN_DIST_F32_STEPS)]
+    per_tick = r0["ticks"] if "ticks" in r0 else None
+    step_ms = [statistics.median(r["step_ms"][1:]) for r in rs]
+    log(f"phase 22 train on {TRAIN_DIST_WORLD} ranks (smollm-360m full "
+        f"width, {cfg.num_layers} of 32 layers, "
+        f"{rc.param_dtype if rc else 'bfloat16'}, 4 x 1"
+        f"{', rule overrides ' + str(variant['overrides']) if variant and 'overrides' in variant else ''}"
+        f"): losses "
+        f"{r0['losses']} (one device {one.losses}), grad_norm "
+        f"{r0['grad_norms']} (one device {one.grad_norms}); step 0 apart: "
+        f"loss {loss0:.3g} (gate {TRAIN_DIST_STEP0}), grad_norm {gn0:.3g}; "
+        f"later steps loss {later['loss']:.3g} (gate "
+        f"{TRAIN_DIST_LATER_LOSS}), grad_norm {later['grad_norm']:.3g}; "
+        f"after the restore "
+        f"{[tuple(round(v, 6) for v in x) for x in r0['more']]} (one device "
+        f"{[tuple(round(v, 6) for v in x) for x in ref['more']]}) loss "
+        f"{more['loss']:.3g} (gate {TRAIN_DIST_LATER_LOSS}), grad_norm "
+        f"{more['grad_norm']:.3g}; float32 steps (loss, grad_norm) "
+        f"{r0['f32']['mesh']} (one device {r0['f32']['one']}), apart "
+        f"{[float(f'{x:.3g}') for x in f32]} (gate {TRAIN_DIST_STEP0} on "
+        f"step 0), each AdamW update against its reference on the rank's "
+        f"shards: largest |mesh - reference| by step "
+        f"{update} (gate {TRAIN_DIST_UPDATE}); initial digest {r0['init_digest']} "
+        f"(one device {ref['init_digest']}); commits {r0['commits']}, in "
+        f"the log {r0.get('logged')}, membership "
+        f"{[bin(r['membership']) for r in rs]}, coordinators "
+        f"{[r['coordinators'] for r in rs]}; ms per step a rank "
+        f"{[round(x, 1) for x in step_ms]} (median of steps 2-4; one device "
+        f"{statistics.median(one.step_ms[1:]):.1f}); save ms "
+        f"{[[round(x, 1) for x in r['save_ms']] for r in rs]}, gather ms "
+        f"{[[round(x, 1) for x in r['gather_ms']] for r in rs]}, gathered "
+        f"B a save {r0['gather_b']} (closed form {r0['gather_want']}, "
+        f"{r0['sharded']} sharded leaves); restore ms: mesh checkpoint "
+        f"{[round(r['restore_mesh'][2], 1) for r in rs]}, one-device "
+        f"checkpoint {[round(r['restore_one'][2], 1) for r in rs]}, on one "
+        f"device {one_restore_ms:.1f}; CKPT_COMMIT ticks "
+        f"{r0['commit_ticks']}, ms {[round(x, 1) for x in r0['commit_ms']]}"
+        f"; {per_tick} coordinator ticks; peak "
+        f"{max(r['peak_gib'] for r in rs):.2f} GiB a rank; the last rank "
+        f"started {max(r['up'] for r in rs) - w0:.1f} s in, train "
+        f"{[round(r['train_s'], 1) for r in rs]} s, one device "
+        f"{ref['wall']:.1f} s; collectives staged through the host "
+        f"({r0['staged']}): no time here is a speed of the method")
+    if any(r["init_digest"] != ref["init_digest"] for r in rs):
+        bad.append("initial state digests differ from one device's")
+    for k in ("losses", "grad_norms", "digests", "membership", "more"):
+        if any(r[k] != r0[k] for r in rs):
+            bad.append(f"the ranks' {k} differ")
+    if any(r["f32"]["mesh"] != r0["f32"]["mesh"] for r in rs):
+        bad.append("the ranks' float32 metrics differ")
+    if loss0 > TRAIN_DIST_STEP0 or f32[0] > TRAIN_DIST_STEP0:
+        bad.append(f"step 0: loss {loss0:.3g}, float32 {f32[0]:.3g} apart")
+    if max(update) > TRAIN_DIST_UPDATE:
+        bad.append(f"float32 AdamW updates {update} from their reference "
+                   f"on the rank's shards")
+    if max(later["loss"], more["loss"]) > TRAIN_DIST_LATER_LOSS:
+        bad.append(f"losses {later['loss']:.3g} apart, after the restore "
+                   f"{more['loss']:.3g}")
+    want = [(s, tags.get(s)) for s in TRAIN_DIST_COMMITS]
+    if [s for s, _, _ in r0["commits"]] != TRAIN_DIST_COMMITS or \
+            r0.get("logged") != want or r0.get("last_committed") != want[-1]:
+        bad.append(f"commits {r0['commits']}, logged {r0.get('logged')}, "
+                   f"last {r0.get('last_committed')}")
+    if [r["coordinators"] for r in rs] != [1] + [0] * (len(rs) - 1) or \
+            any(r["commits"] for r in rs[1:]):
+        bad.append("not exactly one coordinator, on rank 0")
+    if any(r["membership"] != 0b1101 for r in rs):
+        bad.append(f"membership {[r['membership'] for r in rs]}")
+    for i, r in enumerate(rs):
+        for k in ("restore_mesh", "restore_one"):
+            if r[k][1]:
+                bad.append(f"rank {i} {k}: {r[k][1][:3]} not bit-equal")
+        if r["restore_mesh"][0] != r0["commits"][-1][1] or \
+                r["restore_one"][0] != one.commits[-1][1]:
+            bad.append(f"rank {i}: restored digests {r['restore_mesh'][0]}, "
+                       f"{r['restore_one'][0]}")
+        if r["gather_b"] != [r0["gather_want"]] * len(TRAIN_DIST_COMMITS) \
+                or not r0["gather_want"]:
+            bad.append(f"rank {i}: gathered {r['gather_b']} B, closed form "
+                       f"{r0['gather_want']}")
+        for k, c in r["launches"].items():
+            w = per_tick if i == 0 and k in PER_TICK else 0
+            if c != w or (w == 0 and i == 0 and k in PER_TICK) or \
+                    r["launches_after"][k] != c:
+                bad.append(f"rank {i}: {k} launched {c} times "
+                           f"({r['launches_after'][k]} after the extra "
+                           f"steps) over {per_tick} coordinator ticks")
+    log(f"phase 22 launches by rank: "
+        f"{json.dumps({k: [r['launches'][k] for r in rs] for k in r0['launches']})}")
+    if bad:
+        raise AssertionError("phase 22 failed: " + "; ".join(bad))
+    return {k: [r["launches"][k] for r in rs] for k in r0["launches"]}
+
+
 def repeat_phase10(dev, n) -> int:
     """Phases 8-9 once, then phase 10's float32 smollm check `n` times in
     this process (ROADMAP.md §3 F4): each failure prints its diagnosis;
@@ -5246,11 +6053,18 @@ def main() -> int:
                     help="build the kernels, run phase 21 (the frozen "
                     "reference forms against the kernel pipeline at the "
                     "paper's cluster) alone and exit")
+    ap.add_argument("--phase22", action="store_true",
+                    help="build the kernels, run phase 22 (launch/train.py "
+                    "on ranks sharing the card against one device) alone "
+                    "and exit")
     ap.add_argument("--depth-witness", action="store_true",
                     help="build the kernels, read phase 18's llama "
                     "case on the card against the host at each depth of "
                     "WITNESS_LAYERS and its long bf16 case on 2 x 2 with "
-                    "d_model sharded and whole, and exit")
+                    "d_model sharded and whole, phase 19's readings of "
+                    "TRAIN_WITNESS host against card and its llama bf16 "
+                    "case on 1 x 4 with the heads and MLP sharded and "
+                    "whole, and exit")
     ap.add_argument("--probe-gloo", action="store_true",
                     help="report which functional collectives gloo takes "
                     "on CUDA tensors of 4 ranks sharing the card, raw "
@@ -5311,7 +6125,8 @@ def main() -> int:
     alone = {18: (args.phase18, run_lm_mesh),
              19: (args.phase19, run_train_mesh),
              20: (args.phase20, run_dryrun),
-             21: (args.phase21, lambda: run_reference(dev, CONFIG))}
+             21: (args.phase21, lambda: run_reference(dev, CONFIG)),
+             22: (args.phase22, lambda: run_train_dist(dev))}
     if args.depth_witness:
         depth_witness(dev)
         log(card)
@@ -5405,6 +6220,8 @@ def main() -> int:
         run_serve_profile(model, dev)
         run_serve_profile(mamba, dev)
     with phase(22):
+        train_dist = run_train_dist(dev)
+    with phase(23):
         kernels = []
         for name in RAFT:
             r = results[name]["fleet"]
@@ -5421,7 +6238,8 @@ def main() -> int:
                 "launches_lm_mesh": lm_mesh[name],
                 "launches_services": {run: c[name]
                                       for run, c in services.items()},
-                "launches_host_pipeline": reference[name]}
+                "launches_host_pipeline": reference[name],
+                "launches_train_dist": train_dist[name]}
             if "solo" in results[name]:
                 s = results[name]["solo"]
                 entry.update(ms_solo=s["ms"], plain_ms_solo=s["plain_ms"],
@@ -5464,6 +6282,7 @@ def main() -> int:
             entry["launches_train_mesh"] = train_mesh[
                 "flash" if name == "flash_attention" else "decode"]
             entry["fake_calls_dryrun"] = dry_calls.get(name, 0)
+            entry["launches_train_dist"] = train_dist[name]
             if "long" in a:
                 g = a["long"]
                 entry.update(
@@ -5489,6 +6308,7 @@ def main() -> int:
             "launches_lm_mesh": lm_mesh["ssd_scan"],
             "launches_10d_jamba_check": ten_d["jamba"]["ssd_scan"],
             "fake_calls_dryrun": dry_calls.get("ssd_scan", 0),
+            "launches_train_dist": train_dist["ssd_scan"],
             "ms_long": g["ms"],
             "plain_ms_long": g["plain_ms"], "library_ms_long": None,
             "bound_ms_long": att_bound_ms(g["bytes"], g["flops"], g["dtype"])})

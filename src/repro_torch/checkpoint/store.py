@@ -14,6 +14,17 @@ won't match.  `save` copies the tree to the host before it returns (the
 training step updates the state in place); the files are then written
 on a worker thread (training continues) and `wait()` joins before the
 commit record is proposed, re-raising any error of the write.
+
+On a mesh the tree's leaves are DTensors, each rank holding a shard.
+`save` is then a collective: every rank gathers each DTensor leaf whole
+(`whole_tree`) before it returns, and one writer, rank 0 of the default
+process group, writes the files in the same layout (every leaf whole),
+so a checkpoint saved from shards is the one a single device saves of
+the same state.  Every rank returns the digest.  `tree_digest` stays
+local: it refuses a DTensor leaf.  `restore` with DTensor leaves in
+`like_tree` gives each rank the slice of each stored tensor that its
+like leaf's placements name.  A tree without DTensors is saved and
+restored as on one device.
 """
 from __future__ import annotations
 
@@ -51,6 +62,25 @@ def _path_str(path: Tuple[str, ...]) -> str:
     return "(" + ", ".join(keys) + ("," if len(keys) == 1 else "") + ")"
 
 
+def _writer() -> bool:
+    """Whether this process writes checkpoints: rank 0 of the default
+    process group, or any process outside one."""
+    import torch.distributed as dist
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
+def whole_tree(tree):
+    """`tree` with each DTensor leaf gathered whole on every rank (a
+    collective: every rank calls it with the same tree)."""
+    from repro_torch.sharding.axes import is_dtensor
+
+    def whole(t):
+        if isinstance(t, dict):
+            return {k: whole(v) for k, v in t.items()}
+        return t.full_tensor() if is_dtensor(t) else t
+    return whole(tree)
+
+
 def _host(t) -> np.ndarray:
     """A copy of a leaf on the host as numpy, bfloat16 as its 2-byte
     items (a copy even of a CPU tensor: the state changes in place while
@@ -74,6 +104,10 @@ def _to_tensor(a: np.ndarray, device) -> torch.Tensor:
 
 def _head_tail(leaf) -> Tuple[tuple, bytes, bytes]:
     """(shape, first and last 4096 bytes): only those cross to the host."""
+    from repro_torch.sharding.axes import is_dtensor
+    if is_dtensor(leaf):
+        raise TypeError("tree_digest takes whole tensors: gather a tree "
+                        "of DTensors with whole_tree first")
     if isinstance(leaf, torch.Tensor):
         flat = leaf.detach().reshape(-1)
         n = _HEAD // flat.element_size()
@@ -88,7 +122,8 @@ def _head_tail(leaf) -> Tuple[tuple, bytes, bytes]:
 def tree_digest(tree) -> str:
     """The JAX `tree_digest`: sha256 over every leaf, in the order of its
     key path's text, of that text, the shape and the leaf's first and
-    last 4096 bytes; 16 hex digits.  Equal to JAX's on the same tree."""
+    last 4096 bytes; 16 hex digits.  Equal to JAX's on the same tree.
+    Local: a tree of DTensors is refused (digest `whole_tree(tree)`)."""
     h = hashlib.sha256()
     for path, leaf in sorted(_items(tree), key=lambda kv: _path_str(kv[0])):
         shape, head, tail = _head_tail(leaf)
@@ -112,8 +147,12 @@ class CheckpointStore:
         return {keystr(path): _host(leaf) for path, leaf in _items(tree)}
 
     def save(self, step: int, tree, *, blocking: bool = True) -> str:
-        """Write shards + manifest; returns the digest."""
+        """Write shards + manifest (the writer only); returns the
+        digest."""
+        tree = whole_tree(tree)
         digest = tree_digest(tree)
+        if not _writer():
+            return digest
         flat = self._flatten(tree)
 
         def work():
@@ -154,7 +193,11 @@ class CheckpointStore:
     def restore(self, step: int, like_tree) -> Tuple[Any, str]:
         """Load a checkpoint into the structure of `like_tree` (a nested
         dict of tensors); each leaf lands on its `like_tree` leaf's
-        device, in the dtype it was stored in.  Returns (tree, digest)."""
+        device, in the dtype it was stored in, a DTensor like leaf's as
+        the DTensor of this rank's slice of the stored tensor, placed as
+        the like leaf is.  Returns (tree, digest)."""
+        from repro_torch.sharding.axes import (from_local, is_dtensor,
+                                               local_part)
         d = os.path.join(self.dir, f"step_{step}")
         with open(os.path.join(d, "manifest.json")) as f:
             manifest = json.load(f)
@@ -167,8 +210,16 @@ class CheckpointStore:
             node = out
             for k in path[:-1]:
                 node = node.setdefault(k, {})
+            a = data[keystr(path)]
+            if is_dtensor(like):
+                pl, dm = like.placements, like.device_mesh
+                t = local_part(_to_tensor(a, "cpu"), pl, dm)
+                local = torch.empty(t.shape, dtype=t.dtype,
+                                    device=like.device).copy_(t)
+                node[path[-1]] = from_local(local, pl, dm, a.shape)
+                continue
             dev = like.device if isinstance(like, torch.Tensor) else "cpu"
-            node[path[-1]] = _to_tensor(data[keystr(path)], dev)
+            node[path[-1]] = _to_tensor(a, dev)
         return out, manifest["digest"]
 
     def available_steps(self):

@@ -202,11 +202,6 @@ def _to_host(tree: Dict) -> Dict:
             for k, v in tree.items()}
 
 
-def _nbytes(tree: Dict) -> int:
-    return sum(_nbytes(v) if isinstance(v, dict) else v.nbytes
-               for v in tree.values())
-
-
 class _Member:
     """Host-side bookkeeping for one fleet slot: its padded static
     tables, initial state, `cfg_c`, controller and reports.
@@ -459,7 +454,7 @@ class FleetSim:
 
     def _fetch(self, digest: Dict) -> Dict:
         dg = _to_host(digest)
-        self.d2h_bytes += _nbytes(dg)
+        self.d2h_bytes += state_mod.pytree_nbytes(dg)
         return dg
 
     def _append_group_reports(self, gdg: Dict) -> None:
@@ -553,7 +548,8 @@ class FleetSim:
         self._state, ms = host_epoch(self._state, self._bstatic,
                                      self._cfg_c, bundle, self.shapes.T)
         st_np, ms_np = _to_host(self._state), _to_host(ms)
-        self.d2h_bytes += _nbytes(st_np) + _nbytes(ms_np) + \
+        self.d2h_bytes += state_mod.pytree_nbytes(st_np) + \
+            state_mod.pytree_nbytes(ms_np) + \
             cost_before.nbytes
         wiring = {k: st_np[k].copy()
                   for k in ("role", "alive", "sec_of", "obs_of")}

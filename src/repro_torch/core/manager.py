@@ -5,9 +5,9 @@ statistics (follower census F_i, secretary capacity f, write ratio zeta,
 read growth A, budget vartheta, prices rho/beta), decide how many new
 secretaries (dk_s) and observers (dk_o) to lease, prioritized by the write
 ratio against varpi=30%.  Runs at epoch granularity on the host (control
-plane), NumPy only.  A copy of what the port's control plane uses from
-`repro.core.manager`, kept here so the port imports nothing of the JAX
-package.
+plane), NumPy only.  A copy of `repro.core.manager` (with the cost of
+Equation (1), `estimated_cost`), kept here so the port imports nothing
+of the JAX package.
 """
 from __future__ import annotations
 
@@ -81,6 +81,16 @@ def algorithm1(cfg: ClusterConfig, st: PeekStats) -> PeekDecision:
     k = max(dk_s, 0) + max(dk_o, 0)                           # line 24
     return PeekDecision(dk_s=dk_s, dk_o=dk_o, k=k, k_s=k_s, k_o=k_o,
                         budget_left=theta)
+
+
+def estimated_cost(cfg: ClusterConfig, k_s: int, k_o: int,
+                   network_coef: float = 0.001) -> float:
+    """Equation (1): cost = sum_i beta*F_i + beta + rho(k_s+k_o) + C."""
+    beta = float(np.mean([s.on_demand_price for s in cfg.sites]))
+    rho = float(np.mean([s.spot_price_mean for s in cfg.sites]))
+    followers = sum(s.followers for s in cfg.sites)
+    n = followers + 1 + k_s + k_o
+    return beta * followers + beta + rho * (k_s + k_o) + network_coef * n
 
 
 def spot_scores(cpu: np.ndarray, mem: np.ndarray, price: np.ndarray,

@@ -7,6 +7,10 @@ classic 1/e rule (observe floor(len/e), then take the first element
 beating the observed max, falling back to the last observed max).  It
 draws from the controller's numpy generator in the same order as the JAX
 package, so both control planes lease the same slots.
+
+`secretary_1e_stream` is the single-choice rule over a tensor of scores
+(JAX's scan form), `topk_oracle` the offline optimum that the
+competitive-ratio tests hold MCSA against.
 """
 from __future__ import annotations
 
@@ -14,6 +18,7 @@ import math
 from typing import List, Optional
 
 import numpy as np
+import torch
 
 
 def _one_choice(score: np.ndarray, L: int, R: int,
@@ -62,3 +67,31 @@ def mcsa_topk(score: np.ndarray, k: int,
             seen.add(i)
             out.append(i)
     return out[:k]
+
+
+def secretary_1e_stream(scores) -> torch.Tensor:
+    """Single-choice secretary over a score stream (the 1/e rule), as
+    JAX's scan computes it in float32: observe the first max(n/e, 1),
+    take the first later score beating their strict running max (a NaN
+    never beats), else the observed max's first index (0 when no
+    observed score is above -inf).  Returns the index, int32."""
+    s = torch.as_tensor(scores).to(torch.float32)
+    n_obs = max(int(s.shape[0] / math.e), 1)
+    obs = s[:n_obs]
+    obs = torch.where(obs.isnan(), -math.inf, obs)
+    best = obs.max()
+    hit = (obs == best) & (obs > -math.inf)
+    best_idx = torch.where(hit.any(), hit.int().argmax(), 0)
+    later = s[n_obs:] > best
+    if not later.numel():
+        return best_idx.to(torch.int32)
+    return torch.where(later.any(), n_obs + later.int().argmax(),
+                       best_idx).to(torch.int32)
+
+
+def topk_oracle(score, k: int) -> List[int]:
+    """Offline optimum (for competitive-ratio tests): numpy's argsort of
+    the scores, reversed, as JAX's, so ties fall the same way."""
+    if isinstance(score, torch.Tensor):
+        score = score.detach().cpu().numpy()
+    return list(np.argsort(score)[::-1][:k])

@@ -58,6 +58,42 @@ def entry_mix(pos, key, val) -> torch.Tensor:
             ^ ((i(val) + 1) * _MIX_VAL))
 
 
+def prefix_digest(keys, vals, upto) -> torch.Tensor:
+    """Digest of the applied prefix `[0, upto)` of a log row (the last
+    axis of `keys` and `vals`), as int32 bits: the recompute-from-scratch
+    form of the rolling `applied_digest` that `step.apply_step` keeps
+    (DESIGN.md §13), the XOR of every entry's `entry_mix` below `upto`
+    (`upto` a scalar, or one per row)."""
+    keys, vals = torch.as_tensor(keys), torch.as_tensor(vals)
+    pos = torch.arange(keys.shape[-1], device=keys.device)
+    upto = torch.as_tensor(upto, device=keys.device)
+    x = torch.where(pos < upto[..., None], entry_mix(pos, keys, vals), 0)
+    while x.shape[-1] > 1:                  # XOR-fold halves
+        if x.shape[-1] % 2:
+            x = torch.cat([x, torch.zeros_like(x[..., :1])], -1)
+        x = x[..., 0::2] ^ x[..., 1::2]
+    return x[..., 0] if x.shape[-1] else x.sum(-1)
+
+
+def pytree_nbytes(tree) -> int:
+    """Payload bytes of a tree (dicts, lists, tuples) of tensors, numpy
+    arrays and Python scalars, from shapes and dtypes only (nothing moves
+    from the device): the epoch-digest transfer accounting of DESIGN.md
+    §7.1 (`FleetSim.d2h_bytes`).  A Python bool counts 1 byte, an int or
+    float 4, as JAX's weakly typed scalars; None is no leaf."""
+    if isinstance(tree, dict):
+        return sum(pytree_nbytes(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(pytree_nbytes(v) for v in tree)
+    if tree is None:
+        return 0
+    if isinstance(tree, torch.Tensor):
+        return tree.numel() * tree.element_size()
+    if isinstance(tree, (np.ndarray, np.generic)):
+        return int(tree.nbytes)
+    return 1 if isinstance(tree, bool) else 4
+
+
 def hist_bins(cfg: ClusterConfig) -> int:
     """Latency-histogram width: unit bins covering [0, T + HIST_TAIL]."""
     return cfg.period_ticks + 1 + HIST_TAIL

@@ -28,7 +28,8 @@ import torch
 from repro_torch.configs.base import ModelConfig, RunConfig, ShapeConfig
 from repro_torch.models import lm
 from repro_torch.models.common import DTYPES, ParamSpec
-from repro_torch.sharding.axes import all_reduce, is_dtensor
+from repro_torch.sharding.axes import (all_reduce, is_dtensor, local_part,
+                                       tree_shardings)
 from repro_torch.optim import adamw
 
 
@@ -40,6 +41,13 @@ def train_state_specs(cfg: ModelConfig, runcfg: RunConfig):
     ps = param_specs(cfg, runcfg)
     opt = adamw.abstract_opt_state(ps, DTYPES[runcfg.opt_state_dtype])
     return {"params": ps, "opt": opt}
+
+
+def state_shardings(spec_tree, rules, mesh, prune_log=None):
+    """The spec of every leaf of a ParamSpec tree under `rules` on `mesh`
+    (`sharding.axes.tree_shardings`; JAX's gives NamedShardings of these
+    specs)."""
+    return tree_shardings(spec_tree, rules, mesh, prune_log=prune_log)
 
 
 def batch_specs(cfg: ModelConfig, shape: ShapeConfig, *,
@@ -67,9 +75,23 @@ def init_train_state(model: lm.LM, dtype=torch.float32) -> Dict:
                                         dtype)}
 
 
+def shard_state(state, cfg: ModelConfig, runcfg: RunConfig, mesh) -> Dict:
+    """A freshly initialised one-device train state (`init_train_state`)
+    placed on `mesh`: the parameters as `sharding.axes.shard_lm` places
+    them under the run's profile (each rank keeping its shard of the
+    whole weights), the AdamW moments at zero placed as their
+    parameters."""
+    from repro_torch.sharding.axes import resolve_rules, shard_lm
+    model = shard_lm(state["params"], resolve_rules(
+        cfg, runcfg.sharding_profile), mesh)
+    return init_train_state(model,
+                            next(iter(state["opt"]["m"].values())).dtype)
+
+
 def state_tree(state) -> Dict:
     """The train state as the JAX train state's tree of tensors (blocks
-    stacked: a copy of those leaves), what a checkpoint stores."""
+    stacked: a copy of those leaves), what a checkpoint stores; on a mesh
+    a tree of DTensors, sharded as the state is."""
     model, opt = state["params"], state["opt"]
     params = {n: p.detach() for n, p in model.named_parameters()}
     return {"params": lm.to_tree(model, params),
@@ -78,16 +100,28 @@ def state_tree(state) -> Dict:
                     "step": opt["step"]}}
 
 
+def _copy_into(dst, src) -> None:
+    """dst <- src in place; into a DTensor, this rank's shard of `src`
+    (a DTensor placed as `dst` is, or a whole tensor)."""
+    if is_dtensor(dst):
+        src = src.to_local() if is_dtensor(src) else local_part(
+            src, dst.placements, dst.device_mesh)
+        dst = dst.to_local()
+    dst.copy_(src)
+
+
 @torch.no_grad()
 def load_state_tree(state, tree) -> None:
     """Copy a JAX-layout train-state tree of tensors (`state_tree`'s
-    layout, e.g. a restored checkpoint) into `state` in place."""
+    layout, e.g. a restored checkpoint) into `state` in place; on a mesh
+    each rank copies its shard, from DTensor leaves placed as the
+    state's are or from whole tensors."""
     model, opt = state["params"], state["opt"]
     named = dict(model.named_parameters())
     for src, dst in ((tree["params"], named), (tree["opt"]["m"], opt["m"]),
                      (tree["opt"]["v"], opt["v"])):
         for n, t in lm.from_tree(model, src).items():
-            dst[n].copy_(t)
+            _copy_into(dst[n], t)
     opt["step"].copy_(tree["opt"]["step"])
 
 

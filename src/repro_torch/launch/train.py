@@ -17,7 +17,23 @@ the same heartbeat, so the straggler detector never fires; and
 just built, whose fresh cluster holds no record, so a new process always
 starts at step 0, as the JAX loop does.  `main` returns a
 `TrainReport` (per-step losses, commits, the membership record, and the
-run's coordinator, store and final state for a caller to inspect).
+run's coordinator, mesh, store and final state for a caller to
+inspect).
+
+On the ranks that exist: every rank of the default process group runs
+`main` (or `train`, which takes the parsed arguments and a config the
+caller has cut); the caller starts the group (`launch.local_ranks`
+spawns ranks on one host; a fleet's launcher starts one process a
+card), never `main`.  The step runs on the (W, 1) ("data", "model")
+host mesh, each rank on `cuda:{local rank % cards}`; the weights are
+drawn from `--seed` on one device and each rank keeps its shard
+(`launch.steps.shard_state`), so the mesh run starts from the
+one-device run's weights bit for bit.  Rank 0 alone holds the
+coordinator, commits the CKPT_COMMIT and MEMBERSHIP records and prints;
+what the other ranks need of the records (the committed step on a
+restore, the membership) is broadcast from it.  Every rank takes part
+in each save (the store gathers the shards) and rank 0 writes it, in
+the one-device layout.
 """
 from __future__ import annotations
 
@@ -29,29 +45,40 @@ import time
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
+import torch
+import torch.distributed as dist
 
 from repro_torch import resolve_device
 from repro_torch.checkpoint.store import CheckpointStore
 from repro_torch.configs import get_config
-from repro_torch.configs.base import RunConfig
+from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.coord.coordinator import ConsensusCoordinator
 from repro_torch.coord.stragglers import StragglerMitigator
 from repro_torch.data.pipeline import DataConfig, TokenPipeline
 from repro_torch.launch import steps as S
+from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models import lm
 
 
 def build(arch: str, *, reduced: bool, batch: int, seq: int,
-          runcfg: Optional[RunConfig] = None):
-    """(cfg, runcfg, train_step, pipeline) for `arch`."""
-    cfg = get_config(arch)
-    if reduced:
-        cfg = cfg.reduced()
+          runcfg: Optional[RunConfig] = None,
+          cfg: Optional[ModelConfig] = None, device_type: str = "cuda"):
+    """(cfg, runcfg, mesh, train_step, pipeline) for `arch` (or `cfg`, a
+    config the caller has cut): the step on `launch.mesh.make_host_mesh()`
+    over the ranks of the default process group, ("data", "model") =
+    (W, 1) for W ranks, 1 x 1 (the one-device step) without a group or
+    with a group of one, as JAX's `build` makes its mesh over the devices
+    that exist."""
+    if cfg is None:
+        cfg = get_config(arch)
+        if reduced:
+            cfg = cfg.reduced()
     runcfg = runcfg or RunConfig(remat=False, num_microbatches=1)
-    train_step = S.make_train_step(cfg, runcfg)
+    mesh = make_host_mesh(device_type=device_type)
+    train_step = S.make_train_step(cfg, runcfg, mesh)
     pipe = TokenPipeline(DataConfig(vocab_size=cfg.vocab_size,
                                     seq_len=seq, global_batch=batch))
-    return cfg, runcfg, train_step, pipe
+    return cfg, runcfg, mesh, train_step, pipe
 
 
 def extras_for(cfg, batch, seq):
@@ -65,10 +92,37 @@ def extras_for(cfg, batch, seq):
 
 
 def init_state(cfg, runcfg, *, seed: int, device) -> Dict:
-    """Random weights from `seed` (trainable) and zero AdamW moments."""
+    """Random weights from `seed` (trainable) and zero AdamW moments, on
+    one device (`launch.steps.shard_state` places them on a mesh)."""
     model = lm.init_lm(cfg, runcfg, seed=seed, device=device,
                        trainable=True)
     return S.init_train_state(model)
+
+
+def rank_device(device=None):
+    """The device of this process: `device` when given; else the card,
+    on a process group `cuda:{local rank % cards}` (raises without a
+    card: a rank never falls back to the CPU)."""
+    if device is not None:
+        return torch.device(device)
+    dev = resolve_device(None)
+    if not dist.is_initialized():
+        return dev
+    local = int(os.environ.get("LOCAL_RANK", dist.get_rank()))
+    return torch.device("cuda", local % torch.cuda.device_count())
+
+
+def _rank() -> int:
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
+def _from_rank0(obj):
+    """`obj` as rank 0 holds it, on every rank of the default group."""
+    if not dist.is_initialized() or dist.get_world_size() == 1:
+        return obj
+    box = [obj]
+    dist.broadcast_object_list(box, src=0)
+    return box[0]
 
 
 @dataclasses.dataclass
@@ -77,17 +131,20 @@ class TrainReport:
     losses: List[float]                  # per step, from start_step
     grad_norms: List[float]
     step_ms: List[float]                 # host clock, each step synced
-    commits: List[Tuple[int, str, int]]  # (step, digest, revision)
+    commits: List[Tuple[int, str, int]]  # (step, digest, revision), rank 0
     save_ms: List[float]                 # save() + wait() per checkpoint
     commit_ticks: List[int]              # ticks per CKPT_COMMIT
     commit_ms: List[float]
     membership: int                      # the committed MEMBERSHIP record
-    coord: Any = dataclasses.field(repr=False, default=None)
+    digests: List[Tuple[int, str]] = dataclasses.field(
+        default_factory=list)            # (step, digest) a save, each rank
+    coord: Any = dataclasses.field(repr=False, default=None)   # rank 0
+    mesh: Any = dataclasses.field(repr=False, default=None)
     store: Any = dataclasses.field(repr=False, default=None)
     state: Any = dataclasses.field(repr=False, default=None)
 
 
-def main(argv=None) -> TrainReport:
+def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="llama3.2-1b")
     ap.add_argument("--steps", type=int, default=100)
@@ -105,22 +162,46 @@ def main(argv=None) -> TrainReport:
     ap.add_argument("--pods", type=int, default=4)
     ap.add_argument("--device", default=None,
                     help="torch device (default: the card)")
-    args = ap.parse_args(argv)
-    device = resolve_device(args.device)
+    return ap.parse_args(argv)
 
-    cfg, runcfg, train_step, pipe = build(
-        args.arch, reduced=args.reduced, batch=args.batch, seq=args.seq)
+
+def main(argv=None) -> TrainReport:
+    return train(parse_args(argv))
+
+
+def train(args: argparse.Namespace, cfg: Optional[ModelConfig] = None,
+          runcfg: Optional[RunConfig] = None) -> TrainReport:
+    """The loop of `main` on parsed arguments, with `cfg` and `runcfg`
+    (when given) in place of the `--arch` config and the default run
+    config.  Every rank of the default process group calls it; the
+    caller starts the group (none: one device).  Only rank 0 holds the
+    coordinator, commits the records and prints; every rank takes part
+    in each save."""
+    device = rank_device(args.device)
+    if device.type == "cuda" and dist.is_initialized():
+        torch.cuda.set_device(device)
+    rank = _rank()
+    say = print if rank == 0 else (lambda *a, **k: None)
+
+    cfg, runcfg, mesh, train_step, pipe = build(
+        args.arch, reduced=args.reduced, batch=args.batch, seq=args.seq,
+        runcfg=runcfg, cfg=cfg, device_type=device.type)
     store = CheckpointStore(args.ckpt_dir)
-    from repro_torch.configs.bwraft_kv import CONFIG as CLUSTER
-    coord = ConsensusCoordinator(CLUSTER, seed=args.seed, device=device)
-    coord.wait_for_leader()
+    coord = None
+    if rank == 0:
+        from repro_torch.configs.bwraft_kv import CONFIG as CLUSTER
+        coord = ConsensusCoordinator(CLUSTER, seed=args.seed, device=device)
+        coord.wait_for_leader()
     straggler = StragglerMitigator(args.pods)
 
     state = init_state(cfg, runcfg, seed=args.seed, device=device)
+    if lm.on_mesh(mesh):
+        state = S.shard_state(state, cfg, runcfg, mesh)
     start_step = 0
 
     if args.resume:
-        committed = coord.last_committed_checkpoint()
+        committed = _from_rank0(
+            coord.last_committed_checkpoint() if coord else None)
         if committed:
             step_c, tag = committed
             tree, digest = store.restore(step_c, S.state_tree(state))
@@ -128,19 +209,26 @@ def main(argv=None) -> TrainReport:
                 "restored checkpoint digest does not match committed record"
             S.load_state_tree(state, tree)
             start_step = step_c
-            print(f"[restore] resumed from committed step {step_c} "
-                  f"(digest tag {tag:03x})")
+            say(f"[restore] resumed from committed step {step_c} "
+                f"(digest tag {tag:03x})")
 
     rep = TrainReport(start_step, [], [], [], [], [], [], [], 0,
-                      coord=coord, store=store, state=state)
+                      coord=coord, mesh=mesh, store=store, state=state)
 
-    def commit(step, digest):
+    def save(step, blocking):
+        t0 = time.perf_counter()
+        digest = store.save(step, S.state_tree(state), blocking=blocking)
+        store.wait()
+        rep.save_ms.append((time.perf_counter() - t0) * 1e3)
+        rep.digests.append((step, digest))
+        if coord is None:
+            return digest, None
         t0, ticks0 = time.perf_counter(), coord.ticks
         c = coord.commit_checkpoint(step, digest)
         rep.commit_ms.append((time.perf_counter() - t0) * 1e3)
         rep.commit_ticks.append(coord.ticks - ticks0)
         rep.commits.append((step, digest, c.revision))
-        return c
+        return digest, c
 
     ex = extras_for(cfg, args.batch, args.seq)
     t_last = time.time()
@@ -161,32 +249,27 @@ def main(argv=None) -> TrainReport:
         # per-pod heartbeats (pod 0 is us; others simulated at same speed)
         hb = {p: dt for p in straggler.active_pods}
         if args.kill_at >= 0 and step == args.kill_at:
-            print(f"[failure] pod 1 dies at step {step}")
+            say(f"[failure] pod 1 dies at step {step}")
             straggler.mark_failed(1)
-            coord.commit_membership(straggler.membership_bitmap())
+            if coord is not None:
+                coord.commit_membership(straggler.membership_bitmap())
         straggler.heartbeat(hb)
 
         if step % 10 == 0:
-            print(f"step {step:5d} loss={loss:.4f} "
-                  f"gnorm={rep.grad_norms[-1]:.3f} pods={shards} "
-                  f"({dt*1e3:.0f} ms)")
+            say(f"step {step:5d} loss={loss:.4f} "
+                f"gnorm={rep.grad_norms[-1]:.3f} pods={shards} "
+                f"({dt*1e3:.0f} ms)")
         if step > 0 and step % args.ckpt_every == 0:
-            t0 = time.perf_counter()
-            digest = store.save(step, S.state_tree(state), blocking=False)
-            store.wait()
-            rep.save_ms.append((time.perf_counter() - t0) * 1e3)
-            c = commit(step, digest)
-            print(f"[ckpt] step {step} digest={digest} committed "
-                  f"rev={c.revision}")
+            digest, c = save(step, blocking=False)
+            if c is not None:
+                say(f"[ckpt] step {step} digest={digest} committed "
+                    f"rev={c.revision}")
     # final checkpoint
-    t0 = time.perf_counter()
-    digest = store.save(args.steps, S.state_tree(state))
-    rep.save_ms.append((time.perf_counter() - t0) * 1e3)
-    commit(args.steps, digest)
-    rep.membership = coord.membership()
+    save(args.steps, blocking=True)
+    rep.membership = _from_rank0(coord.membership() if coord else None)
     final = f"{rep.losses[-1]:.4f}" if rep.losses else "n/a"
-    print(f"[done] {args.steps} steps; final loss {final}; checkpoint "
-          f"committed")
+    say(f"[done] {args.steps} steps; final loss {final}; checkpoint "
+        f"committed")
     return rep
 
 

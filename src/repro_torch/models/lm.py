@@ -403,30 +403,60 @@ def leaf_names(model: LM) -> List[Tuple[Tuple[str, ...], Tuple[str, ...]]]:
     return out
 
 
+def _shift_placements(pl, by: int):
+    """DTensor placements with each Shard's dim moved by `by` (a leading
+    layer axis stacked on, or taken off)."""
+    from torch.distributed.tensor import Shard
+    return [Shard(p.dim + by) if isinstance(p, Shard) else p for p in pl]
+
+
+def _stack_layers(ts):
+    """The layer leaves `ts` stacked on a leading axis (a copy); DTensors
+    as the DTensor whose shard is the stack of their shards."""
+    if not is_dtensor(ts[0]):
+        return torch.stack(ts)
+    from repro_torch.sharding.axes import from_local
+    t = ts[0]
+    return from_local(torch.stack([x.to_local() for x in ts]),
+                      _shift_placements(t.placements, 1), t.device_mesh,
+                      (len(ts),) + tuple(t.shape))
+
+
+def _leaf_layer(x, g: int):
+    """Layer g of a stacked leaf (a view); of a DTensor, the DTensor of
+    its shard's layer g."""
+    if not is_dtensor(x):
+        return x[g]
+    from repro_torch.sharding.axes import from_local
+    return from_local(x.to_local()[g], _shift_placements(x.placements, -1),
+                      x.device_mesh, tuple(x.shape[1:]))
+
+
 def to_tree(model: LM, named: Dict[str, torch.Tensor]) -> Dict:
     """The JAX-layout tree of tensors keyed by parameter name (the
     parameters, their gradients, AdamW moments): block leaves stacked on
-    a leading G (a copy), top-level leaves as they are."""
+    a leading G (a copy), top-level leaves as they are.  DTensor leaves
+    stay DTensors, a stacked one sharded as its layers are."""
     tree: Dict[str, Any] = {}
     for path, names in leaf_names(model):
         node = tree
         for k in path[:-1]:
             node = node.setdefault(k, {})
-        node[path[-1]] = (torch.stack([named[n] for n in names])
+        node[path[-1]] = (_stack_layers([named[n] for n in names])
                           if _stacked(path) else named[names[0]])
     return tree
 
 
 def from_tree(model: LM, tree) -> Dict[str, Any]:
     """The inverse of `to_tree`: {parameter name: leaf or leaf[g]} from a
-    JAX-layout tree (of tensors or numpy arrays)."""
+    JAX-layout tree (of tensors, DTensors or numpy arrays)."""
     out: Dict[str, Any] = {}
     for path, names in leaf_names(model):
         node = tree
         for k in path:
             node = node[k]
         if _stacked(path):
-            out.update({n: node[g] for g, n in enumerate(names)})
+            out.update({n: _leaf_layer(node, g) for g, n in enumerate(names)})
         else:
             out[names[0]] = node
     return out

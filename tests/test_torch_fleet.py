@@ -2,6 +2,9 @@
 (`core/multiraft.py`) against live JAX runs on the CPU, each member fed
 the JAX draw tape of its seed, and the batched tick against itself: one
 B = 3 tick over three different clusters equals three B = 1 ticks.
+The fleet's transfer count (`d2h_bytes`, through `state.pytree_nbytes`)
+equals JAX's, and its rolling digests the recompute-from-scratch
+`state.prefix_digest` at an epoch's end.
 
 Integer, bool and digest results must be equal; float results (cost,
 read-latency sums and what derives from them) are held to rtol=1e-6,
@@ -83,7 +86,29 @@ def test_fleet_matches_jax():
     assert_states_equal(jf.state, tf.state, "fleet")
     assert tf.reports[0][-1].n_obs_digest > 0
     assert tf.reports[0][-1].decision is not None
-    assert tf.d2h_bytes > 0
+    assert tf.d2h_bytes == jf.d2h_bytes > 0     # both pytree_nbytes
+
+
+def test_rolling_digest_equals_prefix_digest_after_an_epoch(monkeypatch):
+    """The slice's fleet (its first member with the digest rack) for one
+    epoch: at the epoch's end, before the compaction clears the logs,
+    every alive node's rolling `applied_digest` equals the
+    recompute-from-scratch `prefix_digest` of its log's applied prefix
+    (DESIGN.md §13)."""
+    from repro_torch.core import runtime as TRT
+    seen, compact = [], TRT.compact_state
+    monkeypatch.setattr(TRT, "compact_state",
+                        lambda st: compact(seen.append(st) or st))
+    cfg, small = small_config(), small_config("tsm", followers=(1, 1),
+                                              max_log=128)
+    tf = TFleet(_slice_specs(TSpec, TMR, port_config(cfg),
+                             port_config(small)), device="cpu")
+    tf.run_epoch()
+    st = seen[-1]
+    want = TSM.prefix_digest(st["log_key"], st["log_val"], st["applied_len"])
+    alive = st["alive"]
+    assert int((st["applied_len"][alive] > 0).sum()) > 10
+    assert torch.equal(st["applied_digest"][alive], want[alive])
 
 
 def test_fixed_role_single_dispatch_matches_jax():

@@ -3,10 +3,12 @@ checks: a rank that raises, or one that hangs past the time limit,
 fails the run and every rank is stopped.
 
 This module imports torch and the port only, so the ranks that
-`tests/test_torch_moe_ep.py` and `tests/test_torch_lm_mesh.py` spawn
-import it, and not JAX: their side of the expert-parallel MoE checks
-(`moe_ep_ranks`) and of the LM forward on DTensors (`lm_mesh_ranks`)
-lives here.
+`tests/test_torch_moe_ep.py`, `tests/test_torch_lm_mesh.py`,
+`tests/test_torch_train_mesh.py` and `tests/test_torch_train_dist.py`
+spawn import it, and not JAX: their side of the expert-parallel MoE
+checks (`moe_ep_ranks`), of the LM forward on DTensors
+(`lm_mesh_ranks`), of the train step on DTensors (`train_mesh_ranks`)
+and of `launch/train.py` on the ranks (`train_dist_ranks`) lives here.
 """
 from __future__ import annotations
 
@@ -380,3 +382,129 @@ def train_mesh_ranks(rank, world, meshes, cases, weights, batches, serves):
         return out
     return {k: tuple(m["grad_norm"] for m in v[1]["metrics"])
             for k, v in out.items() if len(k) == 2}
+
+
+# --------------------------------------------------------------------- #
+# launch/train.py on the ranks that exist (tests/test_torch_train_dist.py)
+# --------------------------------------------------------------------- #
+def train_dist_runcfg():
+    from repro_torch.configs.base import RunConfig
+    return RunConfig(remat=False, num_microbatches=1, param_dtype="float32",
+                     activation_dtype="float32")
+
+
+def bf16_first_step(argv, mesh=None):
+    """The trainer's first step in its own RunConfig (bfloat16 weights)
+    from the float32 weights of `argv`'s `--seed` rounded to bfloat16,
+    on `mesh` (placed as the trainer places them) or on one device:
+    (loss, grad_norm)."""
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    from repro_torch.launch import steps as TS
+    from repro_torch.launch import train as T
+    from repro_torch.models import lm
+    a = T.parse_args(argv)
+    cfg = get_config(a.arch).reduced()
+    rc = RunConfig(remat=False, num_microbatches=1)
+    st = T.init_state(cfg, rc, seed=a.seed, device="cpu")
+    f32 = dict(T.init_state(cfg, train_dist_runcfg(), seed=a.seed,
+                            device="cpu")["params"].named_parameters())
+    with torch.no_grad():
+        for n, p in st["params"].named_parameters():
+            p.copy_(f32[n])                # rounded to bfloat16 leaves
+    if lm.on_mesh(mesh):
+        st = TS.shard_state(st, cfg, rc, mesh)
+    batch = TokenPipeline(DataConfig(cfg.vocab_size, a.seq, a.batch)
+                          ).batch_at(0, device="cpu")
+    _, m = TS.make_train_step(cfg, rc, mesh)(st, batch)
+    return float(m["loss"]), float(m["grad_norm"])
+
+
+def _stored(ckpt_dir, step):
+    """{keystr: array} of a checkpoint's files, read with numpy."""
+    import json
+    import os
+    d = os.path.join(ckpt_dir, f"step_{step}")
+    with open(os.path.join(d, "manifest.json")) as f:
+        shards = json.load(f)["shards"]
+    out = {}
+    for i in range(shards):
+        with np.load(os.path.join(d, f"shard_{i}.npz")) as z:
+            out.update({k: z[k] for k in z.files})
+    return out
+
+
+def restored_shards_equal(store, ckpt_dir, step, like):
+    """Restore checkpoint `step` of `store` onto the placements of the
+    DTensor tree `like`: the keys whose restored shard on this rank is
+    not bit-equal to its slice of the stored tensor (or is not placed as
+    `like`), and the digest."""
+    from repro_torch.checkpoint.store import _items, keystr
+    from repro_torch.sharding.axes import local_part
+    got, digest = store.restore(step, like)
+    want = _stored(ckpt_dir, step)
+    bad = []
+    for (path, g), (_, w) in zip(_items(got), _items(like)):
+        whole = torch.from_numpy(want[keystr(path)])
+        if not hasattr(w, "placements"):        # AdamW's step count
+            ok = torch.equal(g, whole)
+        else:
+            part = local_part(whole, w.placements, w.device_mesh)
+            ok = g.placements == w.placements and tuple(g.shape) == \
+                tuple(whole.shape) and torch.equal(g.to_local(), part)
+        if not ok:
+            bad.append(keystr(path))
+    return bad, digest
+
+
+def train_dist_ranks(rank, world, argv, ckpt_dir, one_dir):
+    """A rank of `tests/test_torch_train_dist.py`: `launch.train.train`
+    of `argv` on the (world, 1) host mesh, writing to `ckpt_dir`, with
+    the initial state's digest taken where the loop places it; then the
+    last mesh checkpoint and the one-device run's (in `one_dir`)
+    restored onto the mesh (once the one-device run has written it),
+    each rank's shards against the files;
+    whether `tree_digest` refuses the DTensor state; and the first step
+    in bfloat16 on the mesh (`bf16_first_step`)."""
+    import os
+
+    from repro_torch.checkpoint.store import tree_digest, whole_tree
+    from repro_torch.launch import steps as TS
+    from repro_torch.launch import train as T
+    torch.set_num_threads(1)          # four ranks share the host's cores
+    shard_state, seen = TS.shard_state, {}
+
+    def placed(*a, **k):
+        st = shard_state(*a, **k)
+        seen["init_digest"] = tree_digest(whole_tree(TS.state_tree(st)))
+        seen["placements"] = {n: str(p.placements)
+                              for n, p in st["params"].named_parameters()}
+        return st
+    TS.shard_state = placed
+    try:
+        rep = T.train(T.parse_args(argv + ["--ckpt-dir", ckpt_dir]),
+                      runcfg=train_dist_runcfg())
+    finally:
+        TS.shard_state = shard_state
+    like = TS.state_tree(rep.state)
+    last = rep.digests[-1][0]
+    mesh_bad, mesh_digest = restored_shards_equal(rep.store, ckpt_dir, last,
+                                                  like)
+    manifest = os.path.join(one_dir, f"step_{last}", "manifest.json")
+    t_end = time.monotonic() + 120.0
+    while not os.path.exists(manifest):      # the store writes it last
+        assert time.monotonic() < t_end, f"no checkpoint {manifest}"
+        time.sleep(0.1)
+    one_bad, one_digest = restored_shards_equal(
+        T.CheckpointStore(one_dir), one_dir, last, like)
+    try:
+        tree_digest(like)
+        seen["digest_refused"] = False
+    except TypeError:
+        seen["digest_refused"] = True
+    seen["bf16"] = bf16_first_step(argv, rep.mesh)
+    return {"losses": rep.losses, "grad_norms": rep.grad_norms,
+            "digests": rep.digests, "membership": rep.membership,
+            "commits": rep.commits, "coordinators": int(rep.coord is not None),
+            "restore_mesh": (mesh_bad, mesh_digest),
+            "restore_one": (one_bad, one_digest), **seen}

@@ -4,8 +4,9 @@ profiles x both production mesh shapes (a stand-in mesh with JAX's own
 `FakeMesh` trick from `tests/test_sharding.py`), over the parameter,
 train-state (parameters + AdamW moments) and serving-cache spec trees
 and the batch specs: the same spec for every leaf and the same
-replication fallbacks in the prune log.  Then the DTensor placements of
-a spec, and `constrain` off a mesh."""
+replication fallbacks in the prune log, and the train state's
+`launch.steps.state_shardings` against JAX's.  Then the DTensor
+placements of a spec, and `constrain` off a mesh."""
 from __future__ import annotations
 
 import jax
@@ -138,3 +139,26 @@ def test_constrain_is_a_no_op_off_mesh():
                  FakeMesh(MESHES["16x16"])):
         cn = ax.make_constrainer(ax.TRAIN_RULES, mesh)
         assert cn(x, "batch", "embed") is x       # a plain tensor
+
+
+@pytest.mark.parametrize("mesh_name", sorted(MESHES))
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "qwen2-moe-a2.7b",
+                                  "seamless-m4t-medium"])
+def test_state_shardings_match_jax(arch, mesh_name):
+    """`launch.steps.state_shardings` of the train state under the train
+    profile: each leaf's spec is the spec of JAX's NamedSharding (over an
+    abstract mesh of the production shape)."""
+    from jax.sharding import AbstractMesh
+    shape = MESHES[mesh_name]
+    jmesh = AbstractMesh(tuple(shape.values()), tuple(shape))
+    jcfg, tcfg = j_get_config(arch), get_config(arch)
+    jsh = JS.state_shardings(JS.train_state_specs(jcfg, JRunConfig()),
+                             JS.resolve_rules(jcfg, "train"), jmesh)
+    tsh = TS.state_shardings(TS.train_state_specs(tcfg, RunConfig()),
+                             ax.resolve_rules(tcfg, "train"),
+                             FakeMesh(shape))
+    want = [("/".join(str(getattr(k, "key", k)) for k in path),
+             tuple(s.spec)) for path, s in
+            jax.tree_util.tree_flatten_with_path(jsh)[0]]
+    got = [("/".join(path), spec) for path, spec in tree_items(tsh)]
+    assert sorted(got) == sorted(want)

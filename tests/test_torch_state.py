@@ -1,10 +1,12 @@
 """State parity: every leaf of the port's `build_static`, `init_state`
 and `make_cfg_arrays` equals the JAX package's in name, dtype, shape and
 value — for a small cluster and for the paper's CONFIG, unpadded and
-padded — plus the numpy round trip and the uint32 digest mix carried as
-int32 bits."""
+padded — plus the numpy round trip, the uint32 digest mix carried as
+int32 bits, the recompute-from-scratch `prefix_digest` and
+`pytree_nbytes`."""
 from __future__ import annotations
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -107,3 +109,48 @@ def test_leader_id_matches_jax():
         got = TSM.leader_id({"role": torch.as_tensor(role),
                              "alive": torch.as_tensor(alive)})
         assert got.dtype == torch.int32 and int(got) == want
+
+
+@pytest.mark.parametrize("L", [1, 7, 64, 1000])
+def test_prefix_digest_matches_jax(L):
+    """The recompute-from-scratch digest of a seeded log row at several
+    prefixes (empty, one entry, odd, whole) equals JAX's uint32 bit for
+    bit, one row at a time and for the rows together."""
+    rng = np.random.default_rng(L)
+    keys = rng.integers(-3, 2 ** 20, (5, L)).astype(np.int32)
+    vals = rng.integers(0, 2 ** 31 - 1, (5, L)).astype(np.int32)
+    uptos = np.array([0, 1, L // 2 + 1, L, L + 3])
+    want = np.array([JSM.prefix_digest(k, v, int(u), xp=np)
+                     for k, v, u in zip(keys, vals, uptos)], np.uint32)
+    jax_want = np.array([np.asarray(JSM.prefix_digest(k, v, int(u)))
+                         for k, v, u in zip(keys, vals, uptos)], np.uint32)
+    assert np.array_equal(want, jax_want)
+    rows = [TSM.prefix_digest(torch.as_tensor(k), torch.as_tensor(v), int(u))
+            for k, v, u in zip(keys, vals, uptos)]
+    assert all(r.dtype == torch.int32 and r.shape == () for r in rows)
+    assert np.array_equal(np.array([int(r) for r in rows], np.int64)
+                          .astype(np.int32).view(np.uint32), want)
+    batched = TSM.prefix_digest(torch.as_tensor(keys), torch.as_tensor(vals),
+                                torch.as_tensor(uptos))
+    assert np.array_equal(batched.numpy().view(np.uint32), want)
+
+
+def test_pytree_nbytes_matches_jax():
+    """Bytes from shapes and dtypes only: the paper cluster's state and
+    static tables as JAX counts them, and Python scalars and None as
+    JAX's weakly typed leaves count."""
+    js = JSM.build_static(J_CONFIG, n_obs_digest=5)
+    ts = TSM.build_static(T_CONFIG, n_obs_digest=5)
+    jst = JSM.init_state(J_CONFIG, js)
+    tst = TSM.init_state(T_CONFIG, ts, "cpu")
+    assert TSM.pytree_nbytes(tst) == JSM.pytree_nbytes(jst) > 0
+    assert TSM.pytree_nbytes(TSM.to_numpy(tst)) == JSM.pytree_nbytes(jst)
+    arrays = {k: v for k, v in js.items() if isinstance(v, np.ndarray)}
+    assert TSM.pytree_nbytes(arrays) == JSM.pytree_nbytes(arrays)
+    odd = {"a": 3, "b": 2.5, "c": True, "d": None,
+           "e": [np.zeros((2, 3), np.int16), (torch.zeros(5, dtype=torch.
+                                                          bfloat16),)]}
+    jodd = dict(odd, e=[odd["e"][0], (jax.numpy.zeros(5, jax.numpy.
+                                                       bfloat16),)])
+    assert TSM.pytree_nbytes(odd) == JSM.pytree_nbytes(jodd) == 4 + 4 + 1 + \
+        12 + 10
